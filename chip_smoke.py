@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (hesic_tpu_torch).
+
+Usage, from the root of a checkout, on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
+
+  1. requires a CUDA device; prints the card's name and power limit;
+  2. builds the native code from the checkout's sources, in parallel
+     (g++ for the host rANS coder, one nvcc per CUDA source);
+  3. holds each kernel of the main path against its plain PyTorch twin on
+     the card, on seeded inputs at the main path's shapes (B=8, M=192,
+     K=5, 32x32 latents, ppl=8, every grid bucket mm 4, 8, 16 and 32,
+     pooled weights): the results must be bit-equal (tolerance 0); times
+     kernel and twin;
+  4. drives the main path: HESIC N=128/M=192/K=5 (bf16 transforms,
+     seeded random weights) through HESICFastCodec.compress_fast ->
+     decompress_fast on 8 smooth 512x512 pairs, with the identity and a
+     rotated homography (grid mm 4), once more with amplified inputs and
+     the grid capped at mm=4 so latents escape the grid, and twice with
+     the analysis transforms' last conv scaled so the default codec picks
+     grids mm 16 and mm 32.  The decoded latents must equal the encoder's
+     own quantized latents, the reconstructions must be finite and of the
+     input's shape, the escape case must have outliers, the run must
+     reach grids 4, 16 and 32, and every kernel's launch count must be
+     > 0;
+  5. prints one JSON line with each kernel's numbers, then the device
+     line {"ok": true, "device": {...}} last.
+
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+B, M, K, N = 8, 192, 5, 128
+HW_IMG = 512
+LAT = HW_IMG // 16              # 32x32 latents
+PPL = 8
+DEVICE = "cuda"
+# f32 and integer instructions per evaluation, counted from
+# codecs/det_math.py and csrc/pmf.cu: arithmetic, min/max, floor,
+# conversions, compares and selects.  abs and negation are not counted:
+# sm_90 folds them into the multiply as operand modifiers.  Loads, stores
+# and address arithmetic are not counted either.
+# det_std_cdf = mul (|x| folded), min (2) + 1 + P*z (2) + det_recip (int
+# sub + 3 x [mul, sub, mul] = 10) + polynomial (9) + z*z (1, the negation
+# folded) + det_exp (mul, add, floor + 2 x [mul, sub] = 7 reduction, 14
+# Horner, 4 bit assembly/select, 1 scale = 26) + erfc mul (1) + tail
+# (mul, sub, compare, select = 4) = 55; each (k, edge) adds the argument
+# (sub, mul) = 57; each (k, bin) the mixture term (sub, mul, add) = 3;
+# each bin the quantization (max, add, mul, floor, max, cvt, add, cmp)
+# = 8; each (k) the scale setup (max + det_recip) = 11.
+OPS_PER_EDGE, OPS_PER_KBIN, OPS_PER_BIN, OPS_PER_K = 57, 3, 8, 11
+# H100 SXM peaks at the full 700 W limit (NVIDIA data sheet): 3.35 TB/s
+# HBM3; 67 TFLOP/s f32 counts an FMA as two operations, so un-fused f32
+# operations run at 33.5e12/s.
+PEAK_BYTES = 3.35e12
+PEAK_F32_OPS = 33.5e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` calls after one warm-up, CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def check_equal(name: str, got, want) -> int:
+    """Raise unless integer tensors are equal; returns max |got - want|."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from its plain twin "
+                             f"(max abs err {err})")
+    return err
+
+
+def pmf_inputs(mm: int, seed: int):
+    """Seeded head outputs at the main path's shapes: sigma, means
+    (B, K*M, h, w), pooled softmax weights (B, K*M, 1, 1), centres."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    center = rng.randint(-6, 7, (B, M)).astype(np.int32)
+    mu = (np.repeat(center[:, None, :], K, 1)[..., None, None]
+          + rng.randn(B, K, M, LAT, LAT) * (mm / 6.0))
+    sigma = np.abs(rng.randn(B, K, M, LAT, LAT)) * (mm / 8.0) + 0.05
+    logits = rng.randn(B, K, M)
+    w = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    dev = DEVICE
+
+    def t(a, shape):
+        return torch.from_numpy(np.ascontiguousarray(
+            a.reshape(shape), np.float32)).to(dev)
+
+    return (t(sigma, (B, K * M, LAT, LAT)), t(mu, (B, K * M, LAT, LAT)),
+            t(w, (B, K * M, 1, 1)), torch.from_numpy(center).to(dev))
+
+
+def phase_pmf(mm: int, seed: int) -> dict:
+    import torch
+    from hesic_tpu_torch.codecs import pmf
+    sigma, mu, w, center = pmf_inputs(mm, seed)
+    got = pmf.gmm_freq_cuda(sigma, mu, w, mm, K, center)
+    want = pmf.gmm_freq_plain(sigma, mu, w, mm, K, center)
+    sync()
+    err = check_equal(f"gmm_freq mm={mm}", got, want)
+    s = 2 * mm + 1
+    if not (got.sum(dim=2) == 1 << 16).all() or got.min() < 1:
+        raise AssertionError("gmm_freq rows must sum to 65536, bins >= 1")
+    ms = cuda_ms(lambda: pmf.gmm_freq_cuda(sigma, mu, w, mm, K, center), 20)
+    plain_ms = cuda_ms(
+        lambda: pmf.gmm_freq_plain(sigma, mu, w, mm, K, center), 2)
+    hw = LAT * LAT
+    ops = B * M * hw * (K * (s + 1) * OPS_PER_EDGE + K * s * OPS_PER_KBIN
+                        + s * OPS_PER_BIN + K * OPS_PER_K)
+    nbytes = 4 * (2 * B * K * M * hw + B * K * M + B * M + B * M * s * hw)
+    bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": ops / PEAK_F32_OPS * 1e3}
+    by = max(bound, key=bound.get)
+    print(f"kernel gmm_freq mm={mm}: bit-equal to plain (max_abs_err "
+          f"{err}); {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+          f"{bound[by]:.4f} ms by {by} ({ops:.3e} ops, {nbytes:.3e} B)")
+    return {"freq": got, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[by], "bound_by": by}
+
+
+def phase_rans(freq, mm: int, seed: int) -> dict:
+    """Kernels 2 and 3 on realistic rows: symbols drawn from each row's
+    own distribution, the main path's ppl and initial word budget."""
+    import torch
+    from hesic_tpu_torch.codecs import grid_rans
+    from hesic_tpu_torch.models.hesic_fast import enc_cap
+    b, m, s, hw = freq.shape
+    ls = hw // PPL
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = torch.randint(0, 1 << 16, (b, m, 1, hw), generator=g,
+                      device=DEVICE)
+    sym = (torch.cumsum(freq, dim=2) <= u).sum(dim=2).to(torch.int32)
+    sym_mbl = sym.permute(1, 0, 2).contiguous()
+    cap = enc_cap(PPL, m)
+    enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap)
+    ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, PPL, cap)
+    sync()
+    err_e = max(check_equal(f"encode {n} mm={mm}", a, r)
+                for n, a, r in zip(("words", "counts", "states"), enc, ref))
+    cmax = int(enc[1].max())
+    if cmax > cap:      # the codec's retry: re-encode with room for all
+        cap = -(-cmax // 16) * 16
+        enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap)
+    enc_ms = cuda_ms(
+        lambda: grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap), 5)
+    enc_plain_ms = cuda_ms(
+        lambda: grid_rans.rans_encode_grid_plain(freq, sym_mbl, PPL, cap), 1)
+
+    words, counts, states = enc
+    dec = grid_rans.rans_decode_grid_cuda(freq, words, counts, states, PPL)
+    dref = grid_rans.rans_decode_grid_plain(freq, words, counts, states, PPL)
+    sync()
+    err_d = check_equal(f"decode mm={mm}", dec, dref)
+    check_equal(f"decode inverts encode mm={mm}", dec, sym_mbl)
+    dec_ms = cuda_ms(lambda: grid_rans.rans_decode_grid_cuda(
+        freq, words, counts, states, PPL), 5)
+    dec_plain_ms = cuda_ms(lambda: grid_rans.rans_decode_grid_plain(
+        freq, words, counts, states, PPL), 1)
+
+    # data-dependent bytes: a symbol's interval needs its row's first
+    # sym+1 entries; each input read once, each output written once
+    row_bytes = 4 * int((sym.to(torch.int64) + 1).sum())
+    io_lanes = 4 * b * ls + 8 * b * ls            # counts i32 + states i64
+    words_bytes = 4 * b * cap * ls
+    enc_bytes = row_bytes + 4 * m * b * hw + words_bytes + io_lanes
+    dec_bytes = row_bytes + words_bytes + io_lanes + 4 * m * b * hw
+    words_per_lane = float(counts.double().mean())
+    print(f"kernel grid_rans_encode mm={mm}: bit-equal to plain (words, "
+          f"counts, states); {enc_ms:.3f} ms kernel, {enc_plain_ms:.1f} ms "
+          f"plain; cap {cap}, mean {words_per_lane:.1f} words/lane")
+    print(f"kernel grid_rans_decode mm={mm}: bit-equal to plain and to the "
+          f"encoded symbols; {dec_ms:.3f} ms kernel, {dec_plain_ms:.1f} ms "
+          f"plain")
+    return {
+        "encode": {"err": err_e, "ms": enc_ms, "plain_ms": enc_plain_ms,
+                   "bound_ms": enc_bytes / PEAK_BYTES * 1e3,
+                   "bound_by": "bytes"},
+        "decode": {"err": err_d, "ms": dec_ms, "plain_ms": dec_plain_ms,
+                   "bound_ms": dec_bytes / PEAK_BYTES * 1e3,
+                   "bound_by": "bytes"},
+    }
+
+
+def scaled_analysis(model, gain: float):
+    """A copy of `model` whose analysis transforms end in a conv scaled by
+    `gain`, so its latents spread `gain` times wider.  A gain on the input
+    cannot do that: the GDNs before the last conv saturate."""
+    import copy
+    wide = copy.deepcopy(model)
+    for conv in (wide.encoder1.Conv_3, wide.encoder2.Conv_4):
+        conv.weight.mul_(gain)
+        conv.bias.mul_(gain)
+    return wide
+
+
+def wide_codec(model, x1, x2, mm: int):
+    """A default codec (grid cap 32) over the first scaled copy of `model`
+    for which pick_mm chooses grid `mm` for both eyes of (x1, x2) at the
+    identity H.  Random weights alone spread the latents over mm 4 only."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.geometry import pick_warp_win
+    from hesic_tpu_torch.models.hesic_fast import (MM_DEFAULT,
+                                                   HESICFastCodec, pick_mm)
+    eye = np.tile(np.eye(3, dtype=np.float32)[None], (B, 1, 1))
+    win = pick_warp_win(eye, HW_IMG, HW_IMG)
+    h = torch.from_numpy(eye).to(DEVICE)
+    for gain in (2, 2.5, 3, 3.5, 4, 5, 6, 8, 12, 16):
+        codec = HESICFastCodec(scaled_analysis(model, gain), codec_batch=B)
+        enc = codec.transforms_enc(codec._to_device(x1),
+                                   codec._to_device(x2), h, win)
+        if (pick_mm(int(enc[6]), MM_DEFAULT),
+                pick_mm(int(enc[7]), MM_DEFAULT)) == (mm, mm):
+            return codec.update(), gain
+    raise AssertionError(f"no analysis gain makes both eyes pick grid {mm}")
+
+
+def phase_main_path() -> dict:
+    """Five round trips of a batch, over grids mm 4, 16 and 32; returns
+    the kernels' launch counts."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.hesic import HESIC
+    from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
+    from hesic_tpu_torch.utils.profile_fast import (rotated_homography,
+                                                    smooth_pairs)
+
+    model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
+                  seed=0)
+    codec = HESICFastCodec(model, codec_batch=B).update()
+    # the escape case: a grid capped at mm=4 and amplified inputs push
+    # latents past the grid, so the outlier side-channel is exercised
+    hot_codec = HESICFastCodec(model, mm=4, codec_batch=B).update()
+    x1, x2 = smooth_pairs(np.random.RandomState(0), B, HW_IMG)
+    codec16, gain16 = wide_codec(model, x1, x2, 16)
+    codec32, gain32 = wide_codec(model, x1, x2, 32)
+    rot = rotated_homography()
+    eye = np.eye(3, dtype=np.float32)
+    cases = {"identity H": (codec, x1, x2, eye),
+             "rotated H": (codec, x1, x2, rot),
+             "escape, identity H": (hot_codec, x1 * 20 - 10, x2 * 20 - 10,
+                                    eye),
+             f"analysis gain {gain16}, identity H": (codec16, x1, x2, eye),
+             f"analysis gain {gain32}, rotated H": (codec32, x1, x2, rot)}
+
+    build.launch_counts.clear()
+    runs = {}
+    for label, (cdc, a, b, hm) in cases.items():
+        h = np.tile(hm[None], (B, 1, 1))
+        out = cdc.compress_fast(a, b, h)
+        rec = cdc.decompress_fast(out["blobs"])
+        runs[label] = (out, rec)
+    launches = dict(build.launch_counts)
+
+    grids = {g for out, _ in runs.values() for g in out["blob"][1:3]}
+    if not {4, 16, 32} <= grids:
+        raise AssertionError(f"main path reached grids {sorted(grids)}, "
+                             f"not all of 4, 16 and 32")
+    for label, (cdc, a, b, hm) in cases.items():
+        out, rec = runs[label]
+        h = torch.from_numpy(np.tile(hm[None], (B, 1, 1))).to(DEVICE)
+        win = out["blob"][3]
+        enc = cdc.transforms_enc(cdc._to_device(a), cdc._to_device(b), h,
+                                 win)
+        for eye_i, key in ((0, "y1_hat"), (1, "y2_hat")):
+            want = enc[eye_i].permute(0, 2, 3, 1).float()
+            if not torch.equal(rec[key], want):
+                bad = int((rec[key] != want).sum())
+                raise AssertionError(f"{label}: decoded {key} differs from "
+                                     f"the encoder's latents at {bad} cells")
+        for key in ("x1_hat", "x2_hat"):
+            if tuple(rec[key].shape) != x1.shape:
+                raise AssertionError(f"{label}: {key} shape "
+                                     f"{tuple(rec[key].shape)}")
+            if not torch.isfinite(rec[key]).all():
+                raise AssertionError(f"{label}: {key} not finite")
+        if cdc is hot_codec and min(out["outliers"]) == 0:
+            raise AssertionError(f"{label}: no latent left the grid")
+        print(f"main path [{label}, win {win}, mm {out['blob'][1]}/"
+              f"{out['blob'][2]}]: bpp_real {out['bpp_real']:.6f}, "
+              f"outliers {out['outliers'][0]}/{out['outliers'][1]}, "
+              f"encode {out['enctime'] * 1e3:.1f} ms, decode "
+              f"{rec['dectime'] * 1e3:.1f} ms wall for {B} pairs; decoded "
+              f"latents equal the encoder's")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    from hesic_tpu_torch.codecs import build
+    t0 = time.perf_counter()
+    times = build.build_all()
+    print(f"built {sorted(times)} in {time.perf_counter() - t0:.1f} s "
+          f"(per library from the common start: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(times.items()))
+          + ")")
+
+    # every grid width of the codec's buckets; the JSON line reports the
+    # widest (mm 32: S = 65, the costliest rows)
+    from hesic_tpu_torch.models.hesic_fast import MM_BUCKETS
+    results = {}
+    for i, mm in enumerate(MM_BUCKETS):
+        pmf_r = phase_pmf(mm, seed=2 * i + 1)
+        results[mm] = (pmf_r, phase_rans(pmf_r.pop("freq"), mm,
+                                         seed=2 * i + 2))
+    pmf32, rans32 = results[32]
+    torch.cuda.empty_cache()
+
+    launches = phase_main_path()
+    names = {"gmm_freq": ("hesic_tpu_torch/codecs/csrc/pmf.cu",
+                          "hesic_tpu/codecs/pallas_pmf.py:110", pmf32),
+             "grid_rans_encode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
+                                  "hesic_tpu/codecs/pallas_rans.py:153",
+                                  rans32["encode"]),
+             "grid_rans_decode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
+                                  "hesic_tpu/codecs/pallas_rans.py:258",
+                                  rans32["decode"])}
+    kernels = []
+    for name, (src, replaces, r) in names.items():
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"main path never launched {name}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,154 @@
+"""Build and load the port's native libraries (plain C ABI, ctypes).
+
+Three shared libraries, each built from this package's sources on first
+use into ``hesic_tpu_torch/_build/`` (gitignored) and rebuilt when its
+source is newer than the library:
+
+  ``rans``       csrc/rans.cpp, g++: the host rANS coder for z and the CDF
+                 quantizer (``-ffp-contract=off``: no FMA contraction in
+                 the float quantizer, as the JAX package builds it);
+  ``pmf``        csrc/pmf.cu, nvcc for sm_90a with ``-fmad=false``:
+                 kernel 1 (GMM -> frequency rows);
+  ``grid_rans``  csrc/grid_rans.cu, nvcc for sm_90a: kernels 2 and 3
+                 (grid rANS encode and decode).
+
+Nothing is compiled at import.  ``build_all`` starts every compiler at
+once (one process per source) so a cold start pays the slowest build,
+not the sum.  Concurrent builds (test workers, two processes) each
+write a pid-unique temporary file and rename it into place atomically.
+
+``launch_counts`` counts kernel launches by name: each kernel wrapper adds
+one where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+SOURCES = {
+    "rans": "rans.cpp",
+    "pmf": "pmf.cu",
+    "grid_rans": "grid_rans.cu",
+}
+
+_HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# kernel 1 must be bit-equal to eager PyTorch: no mul+add contraction
+_NVCC_EXTRA = {"pmf": ["-fmad=false"]}
+
+launch_counts: collections.Counter = collections.Counter()
+
+_loaded: dict = {}
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (sm_90a)")
+
+
+def _command(name: str, out: str) -> list:
+    src = os.path.join(CSRC, SOURCES[name])
+    if name == "rans":
+        return [os.environ.get("CXX", "g++"), *_HOST_FLAGS, src, "-o", out]
+    return [_nvcc(), *_NVCC_FLAGS, *_NVCC_EXTRA.get(name, []), src,
+            "-o", out]
+
+
+def _stale(name: str) -> bool:
+    lib = lib_path(name)
+    src = os.path.join(CSRC, SOURCES[name])
+    return (not os.path.exists(lib)
+            or os.path.getmtime(src) > os.path.getmtime(lib))
+
+
+def _start(name: str):
+    """Start the compiler for `name`; returns (process, tmp path)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc, tmp: str):
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"building {SOURCES[name]} failed "
+                           f"(rc={proc.returncode}):\n{out}")
+    os.replace(tmp, lib_path(name))
+
+
+def build(name: str) -> str:
+    """Compile library `name` if it is missing or stale; return its path."""
+    if _stale(name):
+        _finish(name, *_start(name))
+    return lib_path(name)
+
+
+def build_all(names=tuple(SOURCES)) -> dict:
+    """Compile every stale library in parallel; returns {name: seconds}
+    of wall time from the common start to each build's end (0 when the
+    library was already current).  Every compiler is waited for before
+    the first failure is raised."""
+    t0 = time.perf_counter()
+    running = {n: _start(n) for n in names if _stale(n)}
+    times = {n: 0.0 for n in names}
+    errors = []
+    for n, (proc, tmp) in running.items():
+        try:
+            _finish(n, proc, tmp)
+        except RuntimeError as e:
+            errors.append(e)
+        times[n] = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, building it first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = _loaded[name] = ctypes.CDLL(build(name))
+    return lib
+
+
+def check_cuda_tensor(t, name: str, dtype, shape=None):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, when given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_status(rc: int, kernel: str):
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {rc}")

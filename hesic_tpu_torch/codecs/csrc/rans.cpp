@@ -1,0 +1,455 @@
+// Host-side rANS coder for the z latents of the PyTorch/CUDA port.
+//
+// A copy of the subset of hesic_tpu/codecs/csrc/rans.cpp that the fast
+// codec's z path uses, kept byte-for-byte in its arithmetic so z strings
+// are identical to the JAX package's at equal symbols and tables:
+//   * rANS (64-bit state, 32-bit word renormalization, 16-bit probability
+//     resolution, escape/bypass coding in 4-bit chunks), CompressAI framing;
+//   * pmf_to_quantized_cdf: float PMF -> integer CDF summing to 2^precision
+//     with frequency stealing so no symbol has zero width.
+// The API is array-oriented (raw pointers + lengths, C ABI for ctypes).
+//
+// Build (hesic_tpu_torch/codecs/build.py):
+//   g++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC rans.cpp -o librans_host.so
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+constexpr uint32_t kProbBits = 16;          // probability resolution
+constexpr uint64_t kRansL = 1ull << 31;     // lower renormalization bound
+constexpr uint32_t kBypassBits = 4;         // raw-bits chunk size
+constexpr uint32_t kBypassMax = (1u << kBypassBits) - 1;
+
+// ---------------------------------------------------------------------------
+// rANS core (64-bit state, u32 emission)
+// ---------------------------------------------------------------------------
+
+struct RansState {
+  uint64_t x = kRansL;
+};
+
+// One buffered symbol: either a (start, freq) interval at 16-bit resolution
+// or `nbits` raw bits in `start` (bypass mode, freq field reused as nbits).
+struct Buffered {
+  uint32_t start;
+  uint32_t freq;
+  uint8_t raw_bits;  // 0 => interval symbol; >0 => raw-bits symbol
+};
+
+// Encoder writes u32 words back-to-front into `words`; `pos` is the index of
+// the first valid word.
+struct WordSink {
+  std::vector<uint32_t> words;
+  size_t pos;
+  explicit WordSink(size_t cap) : words(cap), pos(cap) {}
+  inline void put(uint32_t w) { words[--pos] = w; }
+  size_t size_bytes() const { return (words.size() - pos) * 4; }
+};
+
+inline void rans_enc_put(RansState& r, WordSink& sink, uint32_t start,
+                         uint32_t freq) {
+  uint64_t x = r.x;
+  const uint64_t x_max = ((kRansL >> kProbBits) << 32) * freq;
+  if (x >= x_max) {
+    sink.put(static_cast<uint32_t>(x));
+    x >>= 32;
+  }
+  r.x = ((x / freq) << kProbBits) + (x % freq) + start;
+}
+
+inline void rans_enc_put_bits(RansState& r, WordSink& sink, uint32_t val,
+                              uint32_t nbits) {
+  uint64_t x = r.x;
+  const uint32_t freq = 1u << (kProbBits - nbits);
+  const uint64_t x_max = ((kRansL >> kProbBits) << 32) * freq;
+  if (x >= x_max) {
+    sink.put(static_cast<uint32_t>(x));
+    x >>= 32;
+  }
+  r.x = (x << nbits) | val;
+}
+
+inline void rans_enc_flush(RansState& r, WordSink& sink) {
+  sink.put(static_cast<uint32_t>(r.x >> 32));
+  sink.put(static_cast<uint32_t>(r.x));
+}
+
+struct WordSource {
+  const uint32_t* ptr;
+  const uint32_t* end;
+};
+
+inline void rans_dec_init(RansState& r, WordSource& src) {
+  uint64_t x = static_cast<uint64_t>(src.ptr[0]);
+  x |= static_cast<uint64_t>(src.ptr[1]) << 32;
+  src.ptr += 2;
+  r.x = x;
+}
+
+inline uint32_t rans_dec_peek(const RansState& r) {
+  return static_cast<uint32_t>(r.x & ((1u << kProbBits) - 1));
+}
+
+inline void rans_dec_advance(RansState& r, WordSource& src, uint32_t start,
+                             uint32_t freq) {
+  const uint64_t mask = (1ull << kProbBits) - 1;
+  uint64_t x = r.x;
+  x = freq * (x >> kProbBits) + (x & mask) - start;
+  if (x < kRansL && src.ptr < src.end) {
+    x = (x << 32) | *src.ptr++;
+  }
+  r.x = x;
+}
+
+inline uint32_t rans_dec_get_bits(RansState& r, WordSource& src,
+                                  uint32_t nbits) {
+  uint64_t x = r.x;
+  const uint32_t val = static_cast<uint32_t>(x & ((1u << nbits) - 1));
+  x >>= nbits;
+  if (x < kRansL && src.ptr < src.end) {
+    x = (x << 32) | *src.ptr++;
+  }
+  r.x = x;
+  return val;
+}
+
+// ---------------------------------------------------------------------------
+// Indexed symbol coding with escape/bypass (CompressAI bitstream framing)
+// ---------------------------------------------------------------------------
+
+// Map one signed residual to interval + optional bypass chunks and append to
+// the buffer.  `cdf` has `cdf_size` entries; the last interval (index
+// cdf_size-2) is the escape symbol.
+inline void buffer_symbol(std::vector<Buffered>& buf, int32_t value,
+                          const int32_t* cdf, int32_t cdf_size) {
+  const int32_t max_value = cdf_size - 2;
+  uint32_t raw = 0;
+  bool escaped = false;
+  if (value < 0) {
+    raw = static_cast<uint32_t>(-2 * value - 1);
+    value = max_value;
+    escaped = true;
+  } else if (value >= max_value) {
+    raw = static_cast<uint32_t>(2 * (value - max_value));
+    value = max_value;
+    escaped = true;
+  }
+  buf.push_back({static_cast<uint32_t>(cdf[value]),
+                 static_cast<uint32_t>(cdf[value + 1] - cdf[value]), 0});
+  if (escaped) {
+    // chunk count, unary-ish in base (2^kBypassBits - 1)
+    uint32_t n_chunks = 0;
+    while ((raw >> (n_chunks * kBypassBits)) != 0) ++n_chunks;
+    uint32_t rem = n_chunks;
+    while (rem >= kBypassMax) {
+      buf.push_back({kBypassMax, 0, static_cast<uint8_t>(kBypassBits)});
+      rem -= kBypassMax;
+    }
+    buf.push_back({rem, 0, static_cast<uint8_t>(kBypassBits)});
+    for (uint32_t j = 0; j < n_chunks; ++j) {
+      buf.push_back({(raw >> (j * kBypassBits)) & kBypassMax, 0,
+                     static_cast<uint8_t>(kBypassBits)});
+    }
+  }
+}
+
+int64_t flush_buffer(const std::vector<Buffered>& buf, uint8_t* out,
+                     int64_t out_cap) {
+  RansState rans;
+  WordSink sink(buf.size() + 2);
+  for (size_t i = buf.size(); i-- > 0;) {
+    const Buffered& s = buf[i];
+    if (s.raw_bits == 0) {
+      rans_enc_put(rans, sink, s.start, s.freq);
+    } else {
+      rans_enc_put_bits(rans, sink, s.start, s.raw_bits);
+    }
+  }
+  rans_enc_flush(rans, sink);
+  const int64_t nbytes = static_cast<int64_t>(sink.size_bytes());
+  if (nbytes > out_cap) return -nbytes;  // caller retries with bigger buffer
+  std::memcpy(out, sink.words.data() + sink.pos, nbytes);
+  return nbytes;
+}
+
+// Decode one symbol (interval + possible bypass) given its cdf row.
+inline int32_t decode_symbol(RansState& rans, WordSource& src,
+                             const int32_t* cdf, int32_t cdf_size) {
+  const int32_t max_value = cdf_size - 2;
+  const uint32_t cf = rans_dec_peek(rans);
+  // Linear scan; rows are short (tens of entries) and usually hit early.
+  int32_t s = 0;
+  while (s + 1 < cdf_size && static_cast<uint32_t>(cdf[s + 1]) <= cf) ++s;
+  rans_dec_advance(rans, src, cdf[s], cdf[s + 1] - cdf[s]);
+  int32_t value = s;
+  if (value == max_value) {
+    uint32_t val = rans_dec_get_bits(rans, src, kBypassBits);
+    uint32_t n_chunks = val;
+    while (val == kBypassMax) {
+      val = rans_dec_get_bits(rans, src, kBypassBits);
+      n_chunks += val;
+    }
+    uint32_t raw = 0;
+    for (uint32_t j = 0; j < n_chunks; ++j) {
+      raw |= rans_dec_get_bits(rans, src, kBypassBits) << (j * kBypassBits);
+    }
+    value = static_cast<int32_t>(raw >> 1);
+    if (raw & 1) {
+      value = -value - 1;
+    } else {
+      value += max_value;
+    }
+  }
+  return value;
+}
+
+// ---------------------------------------------------------------------------
+// PMF -> quantized CDF (integer algorithm, frequency stealing)
+// ---------------------------------------------------------------------------
+
+// Functional equivalent of the reference quantizer (ops.cpp:24-81): the exact
+// sequence round -> integer rescale -> prefix sum -> pin top -> steal from the
+// smallest >1 bin determines the bitstream, so every step here is integer
+// arithmetic in the same order.
+int quantize_pmf(const float* pmf, int32_t n, int precision, int32_t* cdf) {
+  const int64_t one = 1ll << precision;
+  std::vector<uint32_t> freq(n + 1);
+  freq[0] = 0;
+  for (int32_t i = 0; i < n; ++i) {
+    float p = pmf[i];
+    if (!(p >= 0.f)) p = 0.f;  // NaN / negative guard
+    freq[i + 1] = static_cast<uint32_t>(std::round(p * one));
+  }
+  uint32_t total = 0;
+  for (uint32_t f : freq) total += f;
+  if (total == 0) {
+    // degenerate input: uniform fallback
+    for (int32_t i = 0; i <= n; ++i)
+      cdf[i] = static_cast<int32_t>((one * i) / n);
+    cdf[n] = static_cast<int32_t>(one);
+    return 0;
+  }
+  std::vector<uint32_t> c(n + 1);
+  for (int32_t i = 0; i <= n; ++i) {
+    c[i] = static_cast<uint32_t>(
+        (static_cast<uint64_t>(one) * freq[i]) / total);
+  }
+  for (int32_t i = 1; i <= n; ++i) c[i] += c[i - 1];
+  c[n] = static_cast<uint32_t>(one);
+
+  for (int32_t i = 0; i < n; ++i) {
+    if (c[i] != c[i + 1]) continue;
+    // steal one count from the smallest bin with freq > 1
+    uint32_t best_freq = ~0u;
+    int32_t best = -1;
+    for (int32_t j = 0; j < n; ++j) {
+      const uint32_t f = c[j + 1] - c[j];
+      if (f > 1 && f < best_freq) {
+        best_freq = f;
+        best = j;
+      }
+    }
+    if (best < 0) return -1;
+    if (best < i) {
+      for (int32_t j = best + 1; j <= i; ++j) --c[j];
+    } else {
+      for (int32_t j = i + 1; j <= best; ++j) ++c[j];
+    }
+  }
+  for (int32_t i = 0; i <= n; ++i) cdf[i] = static_cast<int32_t>(c[i]);
+  return 0;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C ABI
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// ---- CDF quantization ----
+
+// pmf: [n] float; cdf_out: [n+1] int32.  Returns 0 on success.
+int hesic_pmf_to_quantized_cdf(const float* pmf, int32_t n, int32_t precision,
+                               int32_t* cdf_out) {
+  return quantize_pmf(pmf, n, precision, cdf_out);
+}
+
+// Batched variant over a padded table.
+//   pmfs:        [num, max_len]   (row i valid up to pmf_lengths[i])
+//   tail_mass:   [num]            appended as one extra bin per row
+//   cdf_out:     [num, max_len+2] zero-padded rows
+// Row i's quantized CDF has pmf_lengths[i]+2 entries.
+int hesic_pmf_to_quantized_cdf_batch(const float* pmfs,
+                                     const int32_t* pmf_lengths,
+                                     const float* tail_mass, int32_t num,
+                                     int32_t max_len, int32_t precision,
+                                     int32_t* cdf_out) {
+  std::vector<float> row(max_len + 1);
+  const int32_t stride = max_len + 2;
+  std::memset(cdf_out, 0, sizeof(int32_t) * static_cast<size_t>(num) * stride);
+  for (int32_t i = 0; i < num; ++i) {
+    const int32_t len = pmf_lengths[i];
+    if (len < 0 || len > max_len) return -2;
+    std::memcpy(row.data(), pmfs + static_cast<size_t>(i) * max_len,
+                sizeof(float) * len);
+    row[len] = tail_mass[i];
+    const int rc = quantize_pmf(row.data(), len + 1, precision,
+                                cdf_out + static_cast<size_t>(i) * stride);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// ---- rANS, indexed API (tabled CDFs shared across symbols) ----
+
+// CDF validation, compiled in only with -DHESIC_DEBUG: every table row
+// must start at 0, end at 2^16, and be non-decreasing.
+static bool cdfs_valid(const int32_t* cdfs, int32_t cdf_stride,
+                       const int32_t* cdf_sizes, int32_t ncdfs) {
+#ifdef HESIC_DEBUG
+  for (int32_t i = 0; i < ncdfs; ++i) {
+    const int32_t* cdf = cdfs + static_cast<size_t>(i) * cdf_stride;
+    const int32_t len = cdf_sizes[i];
+    if (len < 2 || len > cdf_stride) return false;
+    if (cdf[0] != 0 || cdf[len - 1] != (1 << kProbBits)) return false;
+    for (int32_t j = 1; j < len; ++j)
+      if (cdf[j] < cdf[j - 1]) return false;
+  }
+#else
+  (void)cdfs; (void)cdf_stride; (void)cdf_sizes; (void)ncdfs;
+#endif
+  return true;
+}
+
+// symbols/indexes: [n] int32.  cdfs: [ncdfs, cdf_stride] int32 row-major;
+// cdf_sizes/offsets: [ncdfs].  Returns encoded byte count, or negative
+// required capacity if out_cap is too small.
+int64_t hesic_rans_encode_with_indexes(const int32_t* symbols,
+                                       const int32_t* indexes, int64_t n,
+                                       const int32_t* cdfs, int32_t cdf_stride,
+                                       const int32_t* cdf_sizes,
+                                       const int32_t* offsets, int32_t ncdfs,
+                                       uint8_t* out, int64_t out_cap) {
+  if (!cdfs_valid(cdfs, cdf_stride, cdf_sizes, ncdfs)) return -3;
+  std::vector<Buffered> buf;
+  buf.reserve(static_cast<size_t>(n) + 16);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -1;
+    const int32_t* cdf = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    buffer_symbol(buf, symbols[i] - offsets[idx], cdf, cdf_sizes[idx]);
+  }
+  return flush_buffer(buf, out, out_cap);
+}
+
+int64_t hesic_rans_decode_with_indexes(const uint8_t* data, int64_t nbytes,
+                                       const int32_t* indexes, int64_t n,
+                                       const int32_t* cdfs, int32_t cdf_stride,
+                                       const int32_t* cdf_sizes,
+                                       const int32_t* offsets, int32_t ncdfs,
+                                       int32_t* out) {
+  if (nbytes < 8 || (nbytes % 4) != 0) return -1;
+  if (!cdfs_valid(cdfs, cdf_stride, cdf_sizes, ncdfs)) return -3;
+  RansState rans;
+  WordSource src{reinterpret_cast<const uint32_t*>(data),
+                 reinterpret_cast<const uint32_t*>(data + nbytes)};
+  rans_dec_init(rans, src);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -1;
+    const int32_t* cdf = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    out[i] = decode_symbol(rans, src, cdf, cdf_sizes[idx]) + offsets[idx];
+  }
+  return n;
+}
+
+// ---- rANS, batched multi-stream API ----
+//
+// The flagship batch container codes B pairs x 2 eyes of z latents as 2B
+// INDEPENDENT streams sharing one CDF table and one broadcast index vector
+// (channel id per element).  Encoding them as one native call removes the
+// per-stream Python dispatch loop from the encode hot path (the reference
+// has no batch concept at all — entropy_models.py:188-195 marshals one
+// Python list per image).
+
+// symbols: (n_streams, n_per) row-major; indexes: (n_per,) shared.
+// out: (n_streams, cap_per) row-major; out_lens: (n_streams,).
+// Returns 0 on success, -needed_cap if any stream outgrew cap_per,
+// -1 bad index, -3 invalid CDFs under HESIC_DEBUG.
+int64_t hesic_rans_encode_batch(const int32_t* symbols, const int32_t* indexes,
+                                int64_t n_per, int32_t n_streams,
+                                const int32_t* cdfs, int32_t cdf_stride,
+                                const int32_t* cdf_sizes,
+                                const int32_t* offsets, int32_t ncdfs,
+                                uint8_t* out, int64_t cap_per,
+                                int64_t* out_lens) {
+  if (!cdfs_valid(cdfs, cdf_stride, cdf_sizes, ncdfs)) return -3;
+  // hoist the per-element index validation + cdf row lookup: the index
+  // vector is shared by every stream
+  std::vector<const int32_t*> rows(n_per);
+  std::vector<int32_t> sizes(n_per), offs(n_per);
+  for (int64_t i = 0; i < n_per; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -1;
+    rows[i] = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    sizes[i] = cdf_sizes[idx];
+    offs[i] = offsets[idx];
+  }
+  std::vector<Buffered> buf;
+  buf.reserve(static_cast<size_t>(n_per) + 16);
+  for (int32_t s = 0; s < n_streams; ++s) {
+    buf.clear();
+    const int32_t* sym = symbols + static_cast<size_t>(s) * n_per;
+    for (int64_t i = 0; i < n_per; ++i)
+      buffer_symbol(buf, sym[i] - offs[i], rows[i], sizes[i]);
+    const int64_t n = flush_buffer(
+        buf, out + static_cast<size_t>(s) * cap_per, cap_per);
+    if (n < 0) return n;  // -needed: caller retries with a bigger cap
+    out_lens[s] = n;
+  }
+  return 0;
+}
+
+// data: one buffer holding every stream (e.g. the whole container blob);
+// begins/ends: (n_streams,) byte extents of each stream inside it (streams
+// may interleave with other container sections).  out: (n_streams, n_per).
+int64_t hesic_rans_decode_batch(const uint8_t* data, const int64_t* begins,
+                                const int64_t* ends, const int32_t* indexes,
+                                int64_t n_per, int32_t n_streams,
+                                const int32_t* cdfs, int32_t cdf_stride,
+                                const int32_t* cdf_sizes,
+                                const int32_t* offsets, int32_t ncdfs,
+                                int32_t* out) {
+  if (!cdfs_valid(cdfs, cdf_stride, cdf_sizes, ncdfs)) return -3;
+  std::vector<const int32_t*> rows(n_per);
+  std::vector<int32_t> sizes(n_per), offs(n_per);
+  for (int64_t i = 0; i < n_per; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -1;
+    rows[i] = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    sizes[i] = cdf_sizes[idx];
+    offs[i] = offsets[idx];
+  }
+  for (int32_t s = 0; s < n_streams; ++s) {
+    const int64_t lo = begins[s], hi = ends[s];
+    const int64_t nbytes = hi - lo;
+    if (nbytes < 8 || (nbytes % 4) != 0) return -1;
+    RansState rans;
+    WordSource src{reinterpret_cast<const uint32_t*>(data + lo),
+                   reinterpret_cast<const uint32_t*>(data + hi)};
+    rans_dec_init(rans, src);
+    int32_t* dst = out + static_cast<size_t>(s) * n_per;
+    for (int64_t i = 0; i < n_per; ++i)
+      dst[i] = decode_symbol(rans, src, rows[i], sizes[i]) + offs[i];
+  }
+  return n_per * n_streams;
+}
+
+}  // extern "C"

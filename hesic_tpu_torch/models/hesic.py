@@ -1,0 +1,260 @@
+"""HESIC: homography-based deep stereo image compression, NCHW.
+
+Counterpart of hesic_tpu/models/hesic.py.  The left eye is coded with a
+GMM-conditioned hyperprior; the right eye is coded conditioned on the
+homography-warped left view, in signal space (encoder/decoder fusion) and
+in bitrate space (the right GMM head sees the re-encoded decoded left
+latent).
+
+Submodules carry the JAX package's parameter names (``encoder1.Conv_0``,
+``h_s1.Deconv_2``, ``entropy_bottleneck1.matrix_0``, ...) so weights map
+one to one (utils/from_jax.py).  ``HESIC`` keeps the codec's method
+split: ``analysis1/2``, ``synthesis1/2``, ``hyper_analysis1/2``,
+``gmm1/2``.  ``dtype`` (None = float32) is the transforms' compute type;
+the GMM heads' outputs and the encoders' latents are cast to float32.
+GMM weight channels are laid out k*M + m.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..entropy_models import EntropyBottleneck
+from ..layers import GDN, Conv, Deconv
+
+
+def spatial_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global spatial max -> (B, C, 1, 1)."""
+    return torch.amax(x, dim=(2, 3), keepdim=True)
+
+
+def softmax_over_mixture(w: torch.Tensor, k: int) -> torch.Tensor:
+    """Softmax across the K mixture slabs of a (B, K*M, h, w) tensor."""
+    b, mk, h, ww = w.shape
+    return torch.softmax(w.reshape(b, k, mk // k, h, ww), dim=1).reshape(
+        w.shape)
+
+
+def upsample4(z: torch.Tensor) -> torch.Tensor:
+    """Bilinear x4 upsampling (half-pixel centres, edge-clamped): the
+    upsampling case of ``jax.image.resize(..., "bilinear")``."""
+    return F.interpolate(z, scale_factor=4, mode="bilinear",
+                         align_corners=False)
+
+
+class _Stack(nn.Module):
+    """Named layers applied in declaration order."""
+
+    def __init__(self, layers):
+        super().__init__()
+        for name, layer in layers:
+            self.add_module(name, layer)
+
+    def forward(self, x):
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+
+def _enc_layers(in_ch, n, m, d, g, pre_fuse=False):
+    layers = []
+    chans = [in_ch]
+    if pre_fuse:
+        layers += [("Conv_0", Conv(in_ch, 3, stride=1, dtype=d,
+                                   generator=g)),
+                   ("GDN_0", GDN(3, dtype=d))]
+        chans = [3]
+    off = len(layers) // 2
+    outs = [n, n, n, m]
+    for i, out in enumerate(outs):
+        layers.append((f"Conv_{i + off}", Conv(chans[-1], out, dtype=d,
+                                               generator=g)))
+        chans.append(out)
+        if i < 3:
+            layers.append((f"GDN_{i + off}", GDN(out, dtype=d)))
+    return layers
+
+
+def _dec_layers(m, n, d, g, final_gdn=False):
+    layers = []
+    ins = [m, n, n, n]
+    outs = [n, n, n, 3]
+    for i, (cin, cout) in enumerate(zip(ins, outs)):
+        layers.append((f"Deconv_{i}", Deconv(cin, cout, dtype=d,
+                                             generator=g)))
+        if i < 3 or final_gdn:
+            layers.append((f"GDN_{i}", GDN(cout, inverse=True, dtype=d)))
+    return layers
+
+
+class StereoEncoder(_Stack):
+    """4x (conv s2 + GDN) analysis transform."""
+
+    def __init__(self, n=128, m=192, dtype=None, generator=None):
+        super().__init__(_enc_layers(3, n, m, dtype, generator))
+
+    def forward(self, x):
+        return super().forward(x).float()
+
+
+class StereoDecoder(_Stack):
+    """4x (deconv s2 + IGDN) synthesis transform."""
+
+    def __init__(self, n=128, m=192, dtype=None, generator=None):
+        super().__init__(_dec_layers(m, n, dtype, generator))
+
+    def forward(self, y_hat):
+        return super().forward(y_hat).float()
+
+
+class StereoEncoder2(_Stack):
+    """Right-eye encoder: pre-fuses cat(x1_warp, x2), then the stack."""
+
+    def __init__(self, n=128, m=192, dtype=None, generator=None):
+        super().__init__(_enc_layers(6, n, m, dtype, generator,
+                                     pre_fuse=True))
+
+    def forward(self, x1_warp, x2):
+        return super().forward(torch.cat([x1_warp, x2], dim=1)).float()
+
+
+class StereoDecoder2(_Stack):
+    """Right-eye decoder: the stack, then post-fusion with the warped left
+    reconstruction."""
+
+    def __init__(self, n=128, m=192, dtype=None, generator=None):
+        super().__init__(_dec_layers(m, n, dtype, generator, final_gdn=True)
+                         + [("Deconv_4", Deconv(6, 3, stride=1, dtype=dtype,
+                                                generator=generator))])
+
+    def forward(self, y_hat, x1_hat_warp):
+        *stack, fuse = self.children()
+        x = y_hat
+        for layer in stack:
+            x = layer(x)
+        x = torch.cat([x, x1_hat_warp.to(x.dtype)], dim=1)
+        return fuse(x).float()
+
+
+class HyperEncoder(nn.Module):
+    """h_a: abs -> conv s1 -> relu -> conv s2 -> relu -> conv s2."""
+
+    def __init__(self, n=128, m=192, dtype=None, generator=None):
+        super().__init__()
+        self.Conv_0 = Conv(m, n, stride=1, dtype=dtype, generator=generator)
+        self.Conv_1 = Conv(n, n, dtype=dtype, generator=generator)
+        self.Conv_2 = Conv(n, n, dtype=dtype, generator=generator)
+
+    def forward(self, y):
+        z = F.relu(self.Conv_0(torch.abs(y)))
+        z = F.relu(self.Conv_1(z))
+        return self.Conv_2(z).float()
+
+
+class GmmHyperY1(nn.Module):
+    """Left-eye GMM hyper-decoder: (sigma, means, weights) from z1_hat;
+    weights are spatially pooled, (B, K*M, 1, 1)."""
+
+    def __init__(self, n=128, m=192, k=5, dtype=None, generator=None):
+        super().__init__()
+        self.K = k
+        mk = m * k
+        kw = dict(dtype=dtype, generator=generator)
+        self.Deconv_0, self.Deconv_1 = Deconv(n, n, **kw), Deconv(n, n, **kw)
+        self.Conv_0 = Conv(n, mk, stride=1, **kw)
+        self.Deconv_2, self.Deconv_3 = Deconv(n, n, **kw), Deconv(n, n, **kw)
+        self.Conv_1 = Conv(n, mk, stride=1, **kw)
+        self.Deconv_4, self.Deconv_5 = Deconv(n, n, **kw), Deconv(n, mk, **kw)
+        self.Conv_2 = Conv(mk, mk, kernel_size=1, stride=1, **kw)
+
+    def forward(self, z1_hat):
+        s = F.relu(self.Deconv_1(F.relu(self.Deconv_0(z1_hat))))
+        sigma = F.relu(self.Conv_0(s)).float()
+        u = F.leaky_relu(self.Deconv_3(F.leaky_relu(self.Deconv_2(z1_hat))))
+        means = self.Conv_1(u).float()
+        w = self.Deconv_5(F.leaky_relu(self.Deconv_4(z1_hat)))
+        w = self.Conv_2(F.leaky_relu(spatial_max_pool(w)))
+        return sigma, means, softmax_over_mixture(w.float(), self.K)
+
+
+class GmmHyperY2(nn.Module):
+    """Right-eye GMM hyper-decoder on cat(upsample4(z2_hat), y1_prior)."""
+
+    def __init__(self, n=128, m=192, k=5, dtype=None, generator=None):
+        super().__init__()
+        self.K = k
+        mk = m * k
+        kw = dict(stride=1, dtype=dtype, generator=generator)
+        cin = n + m
+        self.Conv_0, self.Conv_1 = Conv(cin, n, **kw), Conv(n, n, **kw)
+        self.Conv_2 = Conv(n, mk, **kw)
+        self.Conv_3, self.Conv_4 = Conv(cin, n, **kw), Conv(n, n, **kw)
+        self.Conv_5 = Conv(n, mk, **kw)
+        self.Conv_6, self.Conv_7 = Conv(cin, n, **kw), Conv(n, mk, **kw)
+        self.Conv_8 = Conv(mk, mk, kernel_size=1, **kw)
+
+    def forward(self, z2_hat, y1_prior):
+        x = torch.cat([upsample4(z2_hat), y1_prior], dim=1)
+        s = F.relu(self.Conv_1(F.relu(self.Conv_0(x))))
+        sigma = F.relu(self.Conv_2(s)).float()
+        u = F.leaky_relu(self.Conv_4(F.leaky_relu(self.Conv_3(x))))
+        means = self.Conv_5(u).float()
+        w = self.Conv_7(F.leaky_relu(self.Conv_6(x)))
+        w = self.Conv_8(F.leaky_relu(spatial_max_pool(w)))
+        return sigma, means, softmax_over_mixture(w.float(), self.K)
+
+
+class HESIC(nn.Module):
+    """The HSIC model, N=128, M=192, K=5 by default.
+
+    Parameters are drawn on the CPU from ``torch.Generator().manual_seed(
+    seed)`` and then moved to ``device``."""
+
+    entropy_bottlenecks = ("entropy_bottleneck1", "entropy_bottleneck2")
+
+    def __init__(self, N: int = 128, M: int = 192, K: int = 5, dtype=None,
+                 device="cuda", seed: int = 0):
+        super().__init__()
+        self.N, self.M, self.K, self.dtype = N, M, K, dtype
+        g = torch.Generator().manual_seed(seed)
+        kw = dict(dtype=dtype, generator=g)
+        self.encoder1 = StereoEncoder(N, M, **kw)
+        self.encoder2 = StereoEncoder2(N, M, **kw)
+        self.decoder1 = StereoDecoder(N, M, **kw)
+        self.decoder2 = StereoDecoder2(N, M, **kw)
+        self.h_a1 = HyperEncoder(N, M, **kw)
+        self.h_a2 = HyperEncoder(N, M, **kw)
+        self.h_s1 = GmmHyperY1(N, M, K, **kw)
+        self.h_s2 = GmmHyperY2(N, M, K, **kw)
+        self.entropy_bottleneck1 = EntropyBottleneck(N, generator=g)
+        self.entropy_bottleneck2 = EntropyBottleneck(N, generator=g)
+        self.to(device)
+        self.requires_grad_(False)
+
+    # ---- codec-facing sub-programs ----
+
+    def analysis1(self, x1):
+        return self.encoder1(x1)
+
+    def analysis2(self, x1_warp, x2):
+        return self.encoder2(x1_warp, x2)
+
+    def synthesis1(self, y1_hat):
+        return self.decoder1(y1_hat)
+
+    def synthesis2(self, y2_hat, x1_hat_warp):
+        return self.decoder2(y2_hat, x1_hat_warp)
+
+    def hyper_analysis1(self, y1):
+        return self.h_a1(y1)
+
+    def hyper_analysis2(self, y2):
+        return self.h_a2(y2)
+
+    def gmm1(self, z1_hat):
+        return self.h_s1(z1_hat)
+
+    def gmm2(self, z2_hat, y1_prior):
+        return self.h_s2(z2_hat, y1_prior)
