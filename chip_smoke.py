@@ -11,12 +11,29 @@ and prints no result):
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the native code from the checkout's sources, in parallel
      (g++ for the host rANS coder, one nvcc per CUDA source);
-  3. holds each kernel of the main path against its plain PyTorch twin on
-     the card, on seeded inputs at the main path's shapes (B=8, M=192,
-     K=5, 32x32 latents, ppl=8, every grid bucket mm 4, 8, 16 and 32,
-     pooled weights): the results must be bit-equal (tolerance 0); times
-     kernel and twin;
-  4. drives the main path: HESIC N=128/M=192/K=5 (bf16 transforms,
+  3. holds kernels 1-3 against their plain PyTorch twins on the card, on
+     seeded inputs at the HESIC fast path's shapes (B=8, M=192, K=5,
+     32x32 latents, ppl=8, every grid bucket mm 4, 8, 16 and 32, pooled
+     weights): the results must be bit-equal (tolerance 0); times kernel
+     and twin;
+  4. holds kernels 4 and 5 against their twins at the HESIC+ path's
+     shapes (B=11, 32x32 latents, M=192, mm 16, 8 channel groups: 125
+     levels, 2904 lanes, 1000 slots; the model's seeded weights; inputs
+     from its transforms on the smooth pairs), for both variants of the
+     level scan (eye 1 without and eye 2 with the cross-eye input):
+     kernel 5's teacher pass on the twin's own reconstruction (inputs on
+     the quantization lattice) must give equal residuals, y_hat within
+     Y_TOL and intervals within FREQ_TOL; on raw latents at most
+     RAW_FLIP_SHARE of the residuals may differ, and in each image the
+     first level where they differ must hold rounding-margin cells only
+     (the products sum in another order than the twin's torch.matmul, so
+     flips start only where y - mean lies within Y_TOL of a .5 boundary
+     and spread down the causal cone); the same gate must reject the
+     kernel run with bf16-rounded weights; kernel 4 must be bit-equal to
+     its twin on kernel
+     5's intervals; kernel 5's decode of kernel 4's stream must give
+     y_hat bit-equal to its teacher pass;
+  5. drives the HESIC fast path: HESIC N=128/M=192/K=5 (bf16 transforms,
      seeded random weights) through HESICFastCodec.compress_fast ->
      decompress_fast on 8 smooth 512x512 pairs, with the identity and a
      rotated homography (grid mm 4), once more with amplified inputs and
@@ -25,9 +42,17 @@ and prints no result):
      grids mm 16 and mm 32.  The decoded latents must equal the encoder's
      own quantized latents, the reconstructions must be finite and of the
      input's shape, the escape case must have outliers, the run must
-     reach grids 4, 16 and 32, and every kernel's launch count must be
-     > 0;
-  5. prints one JSON line with each kernel's numbers, then the device
+     reach grids 4, 16 and 32, and kernels 1-3 must have launched;
+  6. drives the HESIC+ path: HESIC+ N=192/M=192 (bf16 transforms, seeded
+     random weights) through HESICPlusDeviceCodec.compress -> decompress
+     on 11 smooth 512x512 pairs (mm 16, 8 groups, cap 64) with the
+     identity and a rotated homography, and with an mm=1 codec whose
+     residuals escape the grid.  The decoded y1_hat/y2_hat must equal the
+     encoder's, the reconstructions must be finite and of the input's
+     shape, the escape case must have escapes, and kernels 4 and 5 must
+     have launched (kernel 5 counts one launch per eye pass, its 250
+     kernel launches included);
+  7. prints one JSON line with each kernel's numbers, then the device
      line {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
@@ -64,6 +89,30 @@ OPS_PER_EDGE, OPS_PER_KBIN, OPS_PER_BIN, OPS_PER_K = 57, 3, 8, 11
 # operations run at 33.5e12/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 33.5e12
+PEAK_F32_FLOPS = 67e12          # an FMA counts as two
+
+# the HESIC+ path: bench.py's point (HESICPlus N=192/M=192 bf16, 512x512
+# pairs, batch 11, mm 16, 8 channel groups, word cap 64)
+AR_B, AR_N, AR_M, AR_MM, AR_GROUPS, AR_CAP = 11, 192, 192, 16, 8, 64
+# kernel 5 against its twin on lattice inputs (the twin's own
+# reconstruction), where no residual may differ: y_hat within Y_TOL and
+# starts/freqs within FREQ_TOL counts of 65536.  The kernel's f32 sums over
+# <= 2304 terms run in another order than the twin's torch.matmul; a sound
+# kernel read max |dy_hat| 4.2e-5 and 3/5 counts on the H100, so the
+# limits sit about 10x and 1.6x above.  Y_TOL is also the rounding margin
+# within which the first residual flips on raw latents must lie.  The gate
+# must reject a control run of the kernel with its weights rounded to bf16.
+Y_TOL = 5e-4
+FREQ_TOL = 8
+# on raw latents each flip spreads down its causal cone: a sound kernel
+# flipped 4.3-5.0% of the residuals
+RAW_FLIP_SHARE = 0.08
+# kernel 5's coder per latent, counted from codecs/det_math.py as for
+# kernel 1: each of the S+1 edges the argument (mul) and det_std_cdf (55),
+# each bin the difference, clamp and total (3) and the quantization (8),
+# each latent the scale floor, det_recip and det_qscale (23) and the
+# residual (sub, round, clip: 4)
+AR_OPS_PER_EDGE, AR_OPS_PER_BIN, AR_OPS_PER_LATENT = 56, 11, 27
 
 
 def card_line() -> str:
@@ -325,6 +374,263 @@ def phase_main_path() -> dict:
     return launches
 
 
+def ar_setup():
+    """The HESIC+ model and codec at the path's widths, the smooth pairs,
+    and the level scan's inputs for both eyes from the model's transforms
+    (identity H): {label: (weights, pre, post, y)}."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
+    from hesic_tpu_torch.models.hesic_plus import HESICPlus
+    from hesic_tpu_torch.utils.profile_fast import smooth_pairs
+
+    model = HESICPlus(N=AR_N, M=AR_M, dtype=torch.bfloat16, device=DEVICE,
+                      seed=0)
+    codec = HESICPlusDeviceCodec(model, mm=AR_MM, groups=AR_GROUPS,
+                                 cap=AR_CAP).update()
+    x1, x2 = smooth_pairs(np.random.RandomState(1), AR_B, HW_IMG)
+    h = torch.eye(3, device=DEVICE).expand(AR_B, 3, 3).contiguous()
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    with torch.no_grad():
+        y1, y2, z1, z2 = codec.transforms_enc(codec._to_device(x1),
+                                              codec._to_device(x2), h)
+        pre1 = nhwc(model.hyper_synthesis1(
+            z1.float() + codec._median("entropy_bottleneck1")))
+        pre2 = nhwc(model.hyper_synthesis2(
+            z2.float() + codec._median("entropy_bottleneck2")))
+        # the left prior's stand-in: rounded latents of the same shape
+        post = nhwc(torch.round(y1))
+    eyes = {"eye 1, no post": (codec.w1, pre1, None, nhwc(y1)),
+            "eye 2, post": (codec.w2, pre2, post, nhwc(y2))}
+    return model, codec, (x1, x2), eyes
+
+
+def first_flips_on_margin(y, yh_t, rs_t, rs_k, eps: float):
+    """(residuals that differ, of them at each image's first differing
+    level, whether all of those lie within eps of a .5 boundary of the
+    twin's y - mean)."""
+    import torch
+    _, hy, wy, _ = y.shape
+    diff = rs_k != rs_t
+    u = y - (yh_t - rs_t.float())
+    margin = (u - torch.floor(u) - 0.5).abs() < eps
+    lev = (3 * torch.arange(hy, device=y.device)[:, None]
+           + torch.arange(wy, device=y.device)[None, :])
+    lev = lev[None, :, :, None].expand_as(diff)
+    big = 3 * hy + wy
+    first = torch.where(diff, lev, big).amin(dim=(1, 2, 3))
+    at_first = diff & (lev == first[:, None, None, None])
+    return (int(diff.sum()), int(at_first.sum()),
+            bool((margin | ~at_first).all()))
+
+
+def phase_wavefront(label: str, w, pre, post, y) -> dict:
+    """Kernel 5 (one variant) and kernel 4 against their twins, and
+    kernel 5's own round trip through kernel 4."""
+    import torch
+    from hesic_tpu_torch.codecs import pairs_rans
+    from hesic_tpu_torch.models import wavefront as wf
+    from hesic_tpu_torch.models.ar_device import wavefront_valid_mask
+    b, hy, wy, m = y.shape
+
+    def teach(fn, yy, ww=w):
+        return fn(ww, pre, post, yy, None, None, None, None, None, True,
+                  AR_MM, AR_GROUPS)
+
+    valid = wavefront_valid_mask(hy, wy, b, AR_GROUPS, m, DEVICE)
+    raw_limit = int(RAW_FLIP_SHARE * y.numel())
+    _, _, yh_t, rs_t = teach(wf.ar_wavefront_plain, y)
+    # inputs on the quantization lattice: no residual may flip there
+    lattice_t = teach(wf.ar_wavefront_plain, yh_t)
+
+    def readings(ww):
+        """Kernel 5 with weights `ww` against the twin with the model's:
+        its raw-latent outputs, the raw flips (count, at first levels,
+        first ones on the margin) and the lattice readings (residuals that
+        differ, max |dy_hat|, |dstart|, |dfreq|)."""
+        out = teach(wf.ar_wavefront_cuda, y, ww)
+        st2, fr2, yh2, rs2 = teach(wf.ar_wavefront_cuda, yh_t, ww)
+        sync()
+        raw = first_flips_on_margin(y, yh_t, rs_t, out[3], Y_TOL)
+        lat = (int((rs2 != lattice_t[3]).sum()),
+               float((yh2 - lattice_t[2]).abs().max()),
+               int((st2 - lattice_t[0]).abs()[valid].max()),
+               int((fr2 - lattice_t[1]).abs()[valid].max()))
+        return out, raw, lat
+
+    def gate(raw, lat):
+        """The reasons (raw, lat) fail the gate; empty when it passes."""
+        n_lat, d_y, d_st, d_fr = lat
+        why = [f"{raw[0]} raw residuals differ (limit {raw_limit})"
+               ] if raw[0] > raw_limit else []
+        if not raw[2]:
+            why.append("a first raw flip lies off the rounding margin")
+        if n_lat or d_y > Y_TOL or max(d_st, d_fr) > FREQ_TOL:
+            why.append(f"on lattice inputs {n_lat} residuals differ, max "
+                       f"|dy_hat| {d_y}, max |dstart| {d_st}, max |dfreq| "
+                       f"{d_fr} (limits 0, {Y_TOL}, {FREQ_TOL})")
+        return why
+
+    (st_k, fr_k, yh_k, rs_k), raw, lat = readings(w)
+    why = gate(raw, lat)
+    if why:
+        raise AssertionError(f"ar_wavefront {label}: " + "; ".join(why))
+    n_raw, n_first, _ = raw
+    _, d_y, d_st, d_fr = lat
+
+    # control: the same kernel with its weights rounded to bf16 (half of
+    # a bf16 product's operands) must fail the gate
+    def bf16(t):
+        return t.to(torch.bfloat16).float().contiguous()
+
+    w_bf = w._replace(ctx_kernel=bf16(w.ctx_kernel),
+                      ep_kernels=tuple(map(bf16, w.ep_kernels)))
+    _, raw_bf, lat_bf = readings(w_bf)
+    why_bf = gate(raw_bf, lat_bf)
+    if not why_bf:
+        raise AssertionError(f"ar_wavefront {label}: the gate passes the "
+                             f"bf16-weight control")
+
+    # kernel 4 on kernel 5's intervals, with the codec's cap retry
+    cap = AR_CAP
+    while True:
+        enc = pairs_rans.rans_encode_pairs_cuda(st_k, fr_k, valid, cap)
+        if int(enc[1].max()) <= cap:
+            break
+        cap *= 2
+    ref = pairs_rans.rans_encode_pairs_plain(st_k, fr_k, valid, cap)
+    sync()
+    words, counts, states = enc
+    keep = torch.arange(cap, device=DEVICE)[None, :] < counts[:, None]
+    err4 = max(check_equal(f"pairs counts {label}", counts, ref[1]),
+               check_equal(f"pairs states {label}", states, ref[2]),
+               check_equal(f"pairs words {label}", words[keep],
+                           ref[0][keep]))
+
+    esc = rs_k.abs() > AR_MM
+    cm = esc.to(torch.int32)
+    cv = torch.where(esc, rs_k, 0).to(torch.int32)
+
+    def decode():
+        return wf.ar_wavefront_cuda(w, pre, post, None, cm, cv, words,
+                                    counts, states, False, AR_MM, AR_GROUPS)
+
+    yh_d = decode()[2]
+    sync()
+    if not torch.equal(yh_d, yh_k):
+        bad = int((yh_d != yh_k).sum())
+        raise AssertionError(f"ar_wavefront {label}: kernel decode differs "
+                             f"from its teacher pass at {bad} cells")
+
+    ms5 = cuda_ms(lambda: teach(wf.ar_wavefront_cuda, y), 3)
+    plain5 = cuda_ms(lambda: teach(wf.ar_wavefront_plain, y), 1)
+    dec_ms = cuda_ms(decode, 3)
+    ms4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_cuda(
+        st_k, fr_k, valid, cap), 10)
+    plain4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_plain(
+        st_k, fr_k, valid, cap), 1)
+
+    pix = b * hy * wy
+    q = 0 if post is None else post.shape[-1]
+    cin, (h1, h2) = pre.shape[-1] + 2 * m + q, (
+        w.ep_kernels[0].shape[1], w.ep_kernels[1].shape[1])
+    s = 2 * AR_MM + 1
+    flops = 2 * pix * (12 * m * 2 * m + cin * h1 + h1 * h2 + h2 * 2 * m)
+    coder_ops = pix * m * ((s + 1) * AR_OPS_PER_EDGE + s * AR_OPS_PER_BIN
+                           + AR_OPS_PER_LATENT)
+    w_bytes = 4 * sum(t.numel() for t in (w.ctx_kernel, w.ctx_bias,
+                                          *w.ep_kernels, *w.ep_biases))
+    t_slots, lanes = st_k.shape
+    io_bytes = 4 * pix * (cin - 2 * m + 3 * m) + 8 * t_slots * lanes
+    bound5 = {"operations": (flops / PEAK_F32_FLOPS
+                             + coder_ops / PEAK_F32_OPS) * 1e3,
+              "bytes": (w_bytes + io_bytes) / PEAK_BYTES * 1e3}
+    by5 = max(bound5, key=bound5.get)
+    # valid slots' (start, freq), every valid byte, the emitted words,
+    # counts and states: each read or written once
+    bytes4 = (8 * int(valid.sum()) + t_slots * lanes
+              + 4 * int(counts.clamp(max=cap).sum()) + 12 * lanes)
+    print(f"kernel ar_wavefront {label}: raw latents {n_raw} residuals "
+          f"differ from the twin's ({n_raw / y.numel():.4f} of them, limit "
+          f"{RAW_FLIP_SHARE}; {n_first} at each image's first differing "
+          f"level, all on the rounding margin); lattice inputs 0 differ, "
+          f"max |dy_hat| {d_y:.3e}, max |dstart| {d_st}, max |dfreq| "
+          f"{d_fr}; bf16-weight control: raw {raw_bf[0]} differ "
+          f"({raw_bf[0] / y.numel():.4f}), first flips on the margin "
+          f"{raw_bf[2]}; lattice {lat_bf[0]} differ, max |dy_hat| "
+          f"{lat_bf[1]:.3e}, max |dstart| {lat_bf[2]}, max |dfreq| "
+          f"{lat_bf[3]}: rejected ({'; '.join(why_bf)}); decode of "
+          f"kernel 4's stream bit-equal to the "
+          f"teacher pass ({int(esc.sum())} escapes); teacher {ms5:.3f} ms, "
+          f"decode {dec_ms:.3f} ms, plain {plain5:.1f} ms; bound "
+          f"{bound5[by5]:.4f} ms by {by5} ({flops:.3e} FLOP + "
+          f"{coder_ops:.3e} coder ops; {w_bytes + io_bytes:.3e} B)")
+    print(f"kernel pairs_rans_encode {label}: bit-equal to plain (words, "
+          f"counts, states); {ms4:.3f} ms kernel, {plain4:.1f} ms plain; "
+          f"cap {cap}, mean {float(counts.double().mean()):.1f} words/lane; "
+          f"bound {bytes4 / PEAK_BYTES * 1e3:.4f} ms by bytes "
+          f"({bytes4:.3e} B)")
+    return {
+        "wavefront": {"err": d_y, "ms": ms5, "plain_ms": plain5,
+                      "bound_ms": bound5[by5], "bound_by": by5},
+        "pairs": {"err": err4, "ms": ms4, "plain_ms": plain4,
+                  "bound_ms": bytes4 / PEAK_BYTES * 1e3,
+                  "bound_by": "bytes"},
+    }
+
+
+def phase_hesic_plus_path(model, codec, pairs) -> dict:
+    """Three round trips of a batch of 11 through the HESIC+ device
+    codec; returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
+    from hesic_tpu_torch.utils.profile_fast import rotated_homography
+
+    hot = HESICPlusDeviceCodec(model, mm=1, groups=AR_GROUPS,
+                               cap=AR_CAP).update()
+    x1, x2 = pairs
+    eye = np.eye(3, dtype=np.float32)
+    cases = {"identity H": (codec, eye),
+             "rotated H": (codec, rotated_homography()),
+             "escape (mm 1), identity H": (hot, eye)}
+    build.launch_counts.clear()
+    runs = {}
+    for label, (cdc, hm) in cases.items():
+        h = np.tile(hm[None], (AR_B, 1, 1))
+        out = cdc.compress(x1, x2, h)
+        runs[label] = (out, cdc.decompress(out["strings"]))
+    launches = dict(build.launch_counts)
+
+    for label, (cdc, _) in cases.items():
+        out, rec = runs[label]
+        for key in ("y1_hat", "y2_hat"):
+            if not torch.equal(rec[key], out[key]):
+                bad = int((rec[key] != out[key]).sum())
+                raise AssertionError(f"HESIC+ {label}: decoded {key} "
+                                     f"differs from the encoder's at {bad} "
+                                     f"cells")
+        for key in ("x1_hat", "x2_hat"):
+            if tuple(rec[key].shape) != x1.shape:
+                raise AssertionError(f"HESIC+ {label}: {key} shape "
+                                     f"{tuple(rec[key].shape)}")
+            if not torch.isfinite(rec[key]).all():
+                raise AssertionError(f"HESIC+ {label}: {key} not finite")
+        if cdc is hot and min(out["escapes"]) == 0:
+            raise AssertionError(f"HESIC+ {label}: no residual escaped")
+        print(f"HESIC+ path [{label}, mm {cdc.mm}]: bpp_real "
+              f"{out['bpp_real']:.6f}, escapes {out['escapes'][0]}/"
+              f"{out['escapes'][1]}, final caps {out['caps'][0]}/"
+              f"{out['caps'][1]}, encode {out['enctime'] * 1e3:.1f} ms, "
+              f"decode {rec['dectime'] * 1e3:.1f} ms wall for {AR_B} pairs; "
+              f"decoded latents equal the encoder's")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -355,7 +661,16 @@ def main() -> int:
     pmf32, rans32 = results[32]
     torch.cuda.empty_cache()
 
+    model, codec, pairs, eyes = ar_setup()
+    ar = {label: phase_wavefront(label, *args)
+          for label, args in eyes.items()}
+    ar_post = ar["eye 2, post"]
+    ar_post["wavefront"]["err"] = max(r["wavefront"]["err"]
+                                      for r in ar.values())
+    torch.cuda.empty_cache()
+
     launches = phase_main_path()
+    launches.update(phase_hesic_plus_path(model, codec, pairs))
     names = {"gmm_freq": ("hesic_tpu_torch/codecs/csrc/pmf.cu",
                           "hesic_tpu/codecs/pallas_pmf.py:110", pmf32),
              "grid_rans_encode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
@@ -363,7 +678,13 @@ def main() -> int:
                                   rans32["encode"]),
              "grid_rans_decode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
                                   "hesic_tpu/codecs/pallas_rans.py:258",
-                                  rans32["decode"])}
+                                  rans32["decode"]),
+             "pairs_rans_encode": (
+                 "hesic_tpu_torch/codecs/csrc/pairs_rans.cu",
+                 "hesic_tpu/codecs/pallas_rans.py:349", ar_post["pairs"]),
+             "ar_wavefront": ("hesic_tpu_torch/codecs/csrc/wavefront.cu",
+                              "hesic_tpu/models/pallas_wavefront.py:245",
+                              ar_post["wavefront"])}
     kernels = []
     for name, (src, replaces, r) in names.items():
         if launches.get(name, 0) <= 0:

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (plain C ABI, ctypes).
 
-Three shared libraries, each built from this package's sources on first
+Five shared libraries, each built from this package's sources on first
 use into ``hesic_tpu_torch/_build/`` (gitignored) and rebuilt when its
 source is newer than the library:
 
@@ -10,7 +10,11 @@ source is newer than the library:
   ``pmf``        csrc/pmf.cu, nvcc for sm_90a with ``-fmad=false``:
                  kernel 1 (GMM -> frequency rows);
   ``grid_rans``  csrc/grid_rans.cu, nvcc for sm_90a: kernels 2 and 3
-                 (grid rANS encode and decode).
+                 (grid rANS encode and decode);
+  ``pairs_rans`` csrc/pairs_rans.cu, nvcc for sm_90a: kernel 4 (the
+                 slot-stream rANS encoder);
+  ``wavefront``  csrc/wavefront.cu, nvcc for sm_90a with ``-fmad=false``:
+                 kernel 5 (the wavefront level scan).
 
 Nothing is compiled at import.  ``build_all`` starts every compiler at
 once (one process per source) so a cold start pays the slowest build,
@@ -38,13 +42,16 @@ SOURCES = {
     "rans": "rans.cpp",
     "pmf": "pmf.cu",
     "grid_rans": "grid_rans.cu",
+    "pairs_rans": "pairs_rans.cu",
+    "wavefront": "wavefront.cu",
 }
 
 _HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# kernel 1 must be bit-equal to eager PyTorch: no mul+add contraction
-_NVCC_EXTRA = {"pmf": ["-fmad=false"]}
+# kernel 1 and kernel 5's coder must be bit-equal to eager PyTorch: no
+# mul+add contraction (kernel 5's products use explicit __fmaf_rn)
+_NVCC_EXTRA = {"pmf": ["-fmad=false"], "wavefront": ["-fmad=false"]}
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -75,10 +82,13 @@ def _command(name: str, out: str) -> list:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or a shared csrc/*.cuh header."""
     lib = lib_path(name)
-    src = os.path.join(CSRC, SOURCES[name])
-    return (not os.path.exists(lib)
-            or os.path.getmtime(src) > os.path.getmtime(lib))
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC, SOURCES[name])] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return max(os.path.getmtime(d) for d in deps) > os.path.getmtime(lib)
 
 
 def _start(name: str):
@@ -149,6 +159,12 @@ def check_cuda_tensor(t, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_status(rc: int, kernel: str):
+def check_status(rc: int, kernel: str, limits: str = ""):
+    """Raise unless a C entry point returned 0.  -1 means the arguments
+    are outside the kernel's `limits` (it then launched nothing); any
+    other code is the launch's cudaError_t."""
+    if rc == -1:
+        raise ValueError(f"{kernel}: arguments outside the kernel's limits"
+                         + (f" ({limits})" if limits else ""))
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {rc}")

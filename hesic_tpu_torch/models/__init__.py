@@ -1,1 +1,1 @@
-"""HESIC and its fast codec."""
+"""HESIC and its fast codec; HESIC+ and its wavefront device codec."""

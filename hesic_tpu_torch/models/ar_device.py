@@ -1,0 +1,332 @@
+"""The wavefront autoregressive device codec for HESIC+.
+
+Counterpart of hesic_tpu/models/ar_device.py: the integer bookkeeping of
+the wavefront schedule (``TAPS``, ``schedule``, ``wavefront_valid_mask``),
+the container's backend byte, and ``HESICPlusDeviceCodec``.
+
+The HESIC+ raster recursion runs as a wavefront over levels s = 3i + j:
+every mask-A tap of the 5x5 context kernel lands at a strictly smaller
+level (worst tap (di=-1, dj=+2) -> s-1), so all pixels of a level, of
+every image of the batch, decode in parallel.  The level scan is kernel 5
+(models/wavefront.py); its teacher pass emits one rANS interval per
+(slot, lane), which kernel 4 (codecs/pairs_rans.py) encodes.  Residual
+symbols round(y - means) are coded on the grid [-mm, mm]; residuals
+beyond it ride an exact escape side-channel that the decode scan applies
+in place (the recursion needs the corrected value at once).
+
+Bit-exactness invariant: encoder and decoder run the same chain
+(``_chain``: hyper-synthesis -> level scan of eye 1 -> synthesis ->
+warp -> re-encode of the decoded left view -> hyper-synthesis -> level
+scan of eye 2) at the same batch, with the codec's determinism policy
+(deterministic cuDNN, no TF32); the level scan's parameters come from a
+fixed-order kernel that encode and decode both launch.  Only integers
+cross between the directions.
+
+Not carried over from the JAX codec: the TPU link devices
+(``DENSE_LINK_THRESHOLD``, ``compact_stream``, ``upload_words_auto``,
+``pow2_bucket``: words cross with ``.cpu()``), ``device_flops`` (XLA cost
+analysis), the ``HESIC_NO_PALLAS`` switch (the tensor's device selects
+the backend) and mbt2018's ``JointAutoregressiveDeviceCodec``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..codecs.device_rans import pack_stream_dense, unpack_stream
+from ..geometry import warp_perspective
+from .autoregressive import extract_ar_weights
+from .base import CompressionModel, deterministic_backends
+
+# mask-A taps of the 5x5 context kernel: two rows above (all columns)
+# plus the two left neighbours in the centre row
+TAPS = [(di - 2, dj - 2) for di in range(2) for dj in range(5)] \
+    + [(0, -2), (0, -1)]
+
+# the left prior's warp: warp_perspective_mxu's defaults in the JAX codec
+WARP_WIN = 64
+
+# Stream-format byte.  The JAX package's backends are 0 (lax.scan, XLA
+# erfc) and 2 (Pallas level scan); the port's two differ from both and
+# from each other (other product orders), so they take ids of their own.
+BACKEND_NAMES = {0: "xla-scan", 2: "pallas-level-scan",
+                 3: "torch-plain-level-scan", 4: "cuda-level-scan"}
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def schedule(hy: int, wy: int):
+    """Per-level (i_min, count) for s = 3i + j, plus max pixels/level."""
+    n_levels = 3 * (hy - 1) + (wy - 1) + 1
+    i_min = np.zeros(n_levels, np.int32)
+    count = np.zeros(n_levels, np.int32)
+    for s in range(n_levels):
+        lo = max(0, -(-(s - (wy - 1)) // 3))   # ceil((s - wy + 1) / 3)
+        hi = min(hy - 1, s // 3)
+        i_min[s] = lo
+        count[s] = max(0, hi - lo + 1)
+    return n_levels, i_min, count, int(count.max())
+
+
+def wavefront_valid_mask(hy: int, wy: int, b: int, groups: int, m: int,
+                         device="cpu") -> torch.Tensor:
+    """(T_slots, L) bool validity grid matching the level scan's lane
+    layout."""
+    n_levels, _, count, p_max = schedule(hy, wy)
+    mg = m // groups
+    valid_p = np.arange(p_max)[None, :] < count[:, None]   # (T_lv, Pmax)
+    v = np.broadcast_to(valid_p[:, None, None, :, None],
+                        (n_levels, groups, b, p_max, mg))
+    return torch.from_numpy(np.ascontiguousarray(v).reshape(
+        n_levels * groups, b * p_max * mg)).to(device)
+
+
+def wavefront_backend_id(device) -> int:
+    """The backend byte for level scans on `device`: 4 = the CUDA kernel,
+    3 = the plain twin (CPU)."""
+    return 4 if torch.device(device).type == "cuda" else 3
+
+
+def check_wavefront_backend(blob: bytes, device) -> int:
+    """Raise unless `blob` was encoded by the backend `device` runs;
+    returns the header bytes consumed (1)."""
+    tag, cur = blob[0], wavefront_backend_id(device)
+    if tag != cur:
+        raise ValueError(
+            f"wavefront container encoded with the "
+            f"{BACKEND_NAMES.get(tag, f'unknown({tag})')} backend but this "
+            f"codec runs {BACKEND_NAMES[cur]}; decode on the matching "
+            f"backend")
+    return 1
+
+
+class HESICPlusDeviceCodec(CompressionModel):
+    """Wavefront device codec for HESIC+ (both eyes autoregressive; the
+    right eye's entropy parameters also condition on the re-encoded
+    decoded-left prior, the ``post`` input of the level scan).  One blob
+    codes the whole batch of pairs.
+
+    ``cap`` is the initial word budget per lane of the pairs encoder; a
+    lane that overflows it makes the encoder retry that eye with double
+    the cap.  Images are (B, H, W, 3) float32 with H, W multiples of 64;
+    homographies (B, 3, 3) or (1, 3, 3); latents come out as
+    (B, hy, wy, M) float32."""
+
+    def __init__(self, model, mm: int = 16, groups: int = 8,
+                 cap: int = 256):
+        super().__init__(model)
+        deterministic_backends()
+        self.mm, self.groups, self.cap = mm, groups, cap
+        self.w1 = extract_ar_weights(model, "context_prediction1",
+                                     "entropy_parameters1")
+        self.w2 = extract_ar_weights(model, "context_prediction2",
+                                     "entropy_parameters2")
+
+    # ---- device programs ----
+
+    @torch.no_grad()
+    def transforms_enc(self, x1, x2, h):
+        """Encode-only: NCHW images -> float latents y1, y2 (NCHW) and
+        integer z symbols."""
+        m = self.model
+        y1 = m.analysis1(x1)
+        z1_sym = torch.round(m.hyper_analysis1(y1)
+                             - self._median("entropy_bottleneck1"))
+        x1_warp, _ = warp_perspective(x1, h, WARP_WIN)
+        y2 = m.analysis2(x1_warp, x2)
+        z2_sym = torch.round(m.hyper_analysis2(y2)
+                             - self._median("entropy_bottleneck2"))
+        return y1, y2, z1_sym.to(torch.int32), z2_sym.to(torch.int32)
+
+    @torch.no_grad()
+    def _chain(self, z1_sym, z2_sym, y1, y2, s1, s2, c1, c2, h,
+               teacher: bool):
+        """The both-eyes coding chain, shared by encode (teacher, y1/y2
+        the NHWC latents) and decode (s1/s2 the (words, counts, states)
+        streams, c1/c2 the escape (mask, value) maps or None).  Returns
+        ((starts, freqs, y_hat, resid) per eye, x1_hat NCHW)."""
+        from .wavefront import ar_wavefront
+        m = self.model
+        mm, groups = self.mm, self.groups
+        none3 = (None, None, None)
+
+        def z_hat(z_sym, name):
+            # canonical strides: a conv's result can depend on its input's
+            # strides (even of size-1 dims), and the decoder's z symbols
+            # arrive with other strides than the encoder's
+            z = z_sym.to(torch.float32, memory_format=torch.contiguous_format)
+            return z + self._median(name)
+
+        pre1 = _nhwc(m.hyper_synthesis1(z_hat(z1_sym, "entropy_bottleneck1")))
+        eye1 = ar_wavefront(self.w1, pre1, None, y1, *(c1 or (None, None)),
+                            *(s1 or none3), teacher, mm, groups)
+        x1_hat = m.synthesis1(eye1[2].permute(0, 3, 1, 2))
+        x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
+        # left prior: eval-quantized re-encode of the decoded left view
+        y1_prior = _nhwc(torch.round(m.analysis1(x1w)))
+        pre2 = _nhwc(m.hyper_synthesis2(z_hat(z2_sym, "entropy_bottleneck2")))
+        eye2 = ar_wavefront(self.w2, pre2, y1_prior, y2,
+                            *(c2 or (None, None)), *(s2 or none3), teacher,
+                            mm, groups)
+        return eye1, eye2, x1_hat
+
+    def _encode_eye(self, starts, freqs, valid):
+        """Pairs-encode one eye's slot stream, doubling the cap until no
+        lane overflows.  Returns (words, counts, states, cap)."""
+        from ..codecs.pairs_rans import rans_encode_pairs
+        cap = self.cap
+        while True:
+            words, counts, states = rans_encode_pairs(starts, freqs, valid,
+                                                      cap)
+            cmax = int(counts.max())
+            if cmax <= cap:
+                return words, counts, states, cap
+            cap *= 2    # pathological payload: retry with more room
+
+    # ---- container ----
+
+    @staticmethod
+    def _pack_escapes(resid: torch.Tensor, mm: int):
+        """Residuals beyond the grid -> (container bytes: u32 n | u32 flat
+        NHWC index[n] | i32 value[n], n)."""
+        flat = resid.reshape(-1)
+        idx = torch.nonzero(torch.abs(flat) > mm)[:, 0]
+        vals = flat[idx].cpu().numpy().astype(np.int32)
+        idx = idx.cpu().numpy().astype(np.uint32)
+        return (np.array([idx.size], np.uint32).tobytes() + idx.tobytes()
+                + vals.tobytes()), int(idx.size)
+
+    def _parse_escapes(self, blob: bytes, off: int, shape):
+        (n,) = np.frombuffer(blob, np.uint32, 1, off)
+        off += 4
+        idx = np.frombuffer(blob, np.uint32, int(n), off)
+        off += 4 * int(n)
+        val = np.frombuffer(blob, np.int32, int(n), off)
+        off += 4 * int(n)
+        if n == 0:
+            return None, off
+        cm = np.zeros(int(np.prod(shape)), np.int32)
+        cv = np.zeros(int(np.prod(shape)), np.int32)
+        cm[idx] = 1
+        cv[idx] = val
+        return ((torch.from_numpy(cm.reshape(shape)).to(self.device),
+                 torch.from_numpy(cv.reshape(shape)).to(self.device)), off)
+
+    @staticmethod
+    def _stream_host(words, counts, states) -> bytes:
+        """Device stream -> packed container stream (each lane's words in
+        lane order)."""
+        c = counts.cpu().numpy()
+        cmax = max(int(c.max()), 1)
+        w = words[:, :cmax].cpu().numpy()
+        keep = np.arange(cmax)[None, :] < c[:, None]
+        return pack_stream_dense(w[keep], c,
+                                 states.cpu().numpy().astype(np.uint32))
+
+    @torch.no_grad()
+    def compress(self, x1, x2, h_matrix) -> dict:
+        """Compress a batch of pairs into one blob.  Returns {'strings':
+        [blob], 'shape': (hy, wy), 'y1_hat', 'y2_hat' (B, hy, wy, M),
+        'bpp_real', 'enctime', 'escapes': per-eye escape counts, 'caps':
+        per-eye final word caps}."""
+        start = time.perf_counter()
+        x1, x2 = self._to_device(x1), self._to_device(x2)
+        b, _, h_img, w_img = x1.shape
+        if h_img % 64 or w_img % 64:
+            raise ValueError("input dims must be multiples of 64 (pad like "
+                             "eval_model does); got "
+                             f"{(b, h_img, w_img, 3)}")
+        h, h_np = self._homographies(h_matrix, b)
+        hy, wy = h_img // 16, w_img // 16
+
+        y1, y2, z1_sym, z2_sym = self.transforms_enc(x1, x2, h)
+        eye1, eye2, _ = self._chain(z1_sym, z2_sym, _nhwc(y1), _nhwc(y2),
+                                    None, None, None, None, h, teacher=True)
+        valid = wavefront_valid_mask(hy, wy, b, self.groups, self.model.M,
+                                     self.device)
+        streams, caps, escapes = [], [], []
+        for st, fr, _, resid in (eye1, eye2):
+            words, counts, states, cap = self._encode_eye(st, fr, valid)
+            streams.append(self._stream_host(words, counts, states))
+            caps.append(cap)
+            escapes.append(self._pack_escapes(resid, self.mm))
+
+        z_strings = [self.eb_encode_symbols(
+            name, z.permute(0, 2, 3, 1).cpu().numpy())
+            for name, z in (("entropy_bottleneck1", z1_sym),
+                            ("entropy_bottleneck2", z2_sym))]
+        blob = bytearray()
+        blob += bytes([wavefront_backend_id(self.device)])
+        blob += np.array([b, h_img, w_img, z1_sym.shape[2],
+                          z1_sym.shape[3]], np.uint32).tobytes()
+        blob += escapes[0][0] + escapes[1][0]
+        for strs in z_strings:
+            for s in strs:
+                blob += np.array([len(s)], np.uint32).tobytes() + s
+        blob += h_np.astype(np.float32).tobytes()
+        blob += streams[0] + streams[1]
+        return {"strings": [bytes(blob)], "shape": (hy, wy),
+                "y1_hat": eye1[2], "y2_hat": eye2[2],
+                "bpp_real": len(blob) * 8 / (2 * b * h_img * w_img),
+                "enctime": time.perf_counter() - start,
+                "escapes": (escapes[0][1], escapes[1][1]),
+                "caps": tuple(caps)}
+
+    @torch.no_grad()
+    def decompress(self, strings) -> dict:
+        """Inverse of compress: {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat',
+        'y2_hat' (B, hy, wy, M), 'dectime'}."""
+        start = time.perf_counter()
+        blob = strings[0] if isinstance(strings, (list, tuple)) else strings
+        off = check_wavefront_backend(blob, self.device)
+        b, h_img, w_img, zh, zw = (int(v) for v in
+                                   np.frombuffer(blob, np.uint32, 5, off))
+        off += 20
+        hy, wy = h_img // 16, w_img // 16
+        shp = (b, hy, wy, self.model.M)
+        corr1, off = self._parse_escapes(blob, off, shp)
+        corr2, off = self._parse_escapes(blob, off, shp)
+        z_syms = []
+        for name in ("entropy_bottleneck1", "entropy_bottleneck2"):
+            extents = []
+            for _ in range(b):
+                (length,) = np.frombuffer(blob, np.uint32, 1, off)
+                extents.append((off + 4, off + 4 + int(length)))
+                off += 4 + int(length)
+            z = self.eb_decode_streams(name, blob, extents, (zh, zw))
+            z_syms.append(torch.from_numpy(np.ascontiguousarray(
+                z.transpose(0, 3, 1, 2))).to(self.device))
+        h = torch.from_numpy(np.frombuffer(blob, np.float32, 9 * b, off)
+                             .reshape(b, 3, 3).copy()).to(self.device)
+        off += 36 * b
+        parts = []
+        for _ in range(2):
+            words, counts, states, off = unpack_stream(blob, off)
+            parts.append((words, counts, states))
+        # the encoder's cap, doubled until it covers the largest count
+        cap = self.cap
+        while cap < max(int(c.max()) for _, c, _ in parts):
+            cap *= 2
+        streams = []
+        for words, counts, states in parts:
+            padded = np.zeros((words.shape[0], cap), np.int32)
+            padded[:, :words.shape[1]] = words
+            streams.append(tuple(torch.from_numpy(a).to(self.device) for a in
+                                 (padded, counts.astype(np.int32),
+                                  states.astype(np.int64))))
+        eye1, eye2, x1_hat = self._chain(
+            z_syms[0], z_syms[1], None, None, streams[0], streams[1], corr1,
+            corr2, h, teacher=False)
+        x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
+        x2_hat = self.model.synthesis2(eye2[2].permute(0, 3, 1, 2), x1w)
+        out = {"x1_hat": _nhwc(x1_hat), "x2_hat": _nhwc(x2_hat),
+               "y1_hat": eye1[2], "y2_hat": eye2[2]}
+        if out["x2_hat"].is_cuda:
+            torch.cuda.synchronize(out["x2_hat"].device)
+        out["dectime"] = time.perf_counter() - start
+        return out

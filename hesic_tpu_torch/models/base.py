@@ -1,10 +1,13 @@
-"""Host-side model wrapper: the HESIC module + the integer z coder tables.
+"""Host-side model wrapper: a stereo model + the integer z coder tables.
 
-Counterpart of the parts of hesic_tpu/models/base.py that the fast codec
-uses: ``update()`` builds the EntropyBottleneck CDF tables, ``tables``
+Counterpart of the parts of hesic_tpu/models/base.py that the codecs
+use: ``update()`` builds the EntropyBottleneck CDF tables, ``tables``
 holds them, ``eb_medians`` gives the z symbol offsets, and the z-symbol
 helpers code (B, zh, zw, C) symbol tensors in NHWC order (channel as the
-table index), as hesic_tpu/models/hesic_fast.py's z path does.
+table index), as hesic_tpu/models/hesic_fast.py's z path does.  The
+input helpers move the caller's NHWC images and homographies to the
+model's device.  ``deterministic_backends`` is the codecs' shared
+determinism policy.
 """
 
 from __future__ import annotations
@@ -19,13 +22,43 @@ from ..entropy_models import (CdfTables, compress_with_indexes,
                               decode_streams_batch, tables_from_pmf)
 
 
+def deterministic_backends():
+    """The codec's determinism policy: deterministic cuDNN algorithms
+    chosen without benchmarking, and no TF32 in convolutions or matmuls."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 class CompressionModel:
-    """Pairs a HESIC module with its host coder state."""
+    """Pairs a stereo model (HESIC, HESIC+) with its host coder state."""
 
     def __init__(self, model: torch.nn.Module):
         self.model = model
+        self.device = next(model.parameters()).device
         self.tables: Dict[str, CdfTables] = {}
         self._medians: Dict[str, np.ndarray] = {}
+
+    def _median(self, name: str) -> torch.Tensor:
+        """The named bottleneck's medians as a (1, C, 1, 1) tensor on the
+        model's device."""
+        return getattr(self.model, name).medians()[None, :, None, None]
+
+    def _to_device(self, x) -> torch.Tensor:
+        """(B, H, W, 3) array -> (B, 3, H, W) float32 on the codec device."""
+        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                            dtype=torch.float32)
+        return x.to(self.device).permute(0, 3, 1, 2).contiguous()
+
+    def _homographies(self, h_matrix, b: int):
+        """(B, 3, 3) or (1, 3, 3) homographies -> ((B, 3, 3) float32 on the
+        codec device, the same as a numpy array)."""
+        h = torch.as_tensor(np.asarray(h_matrix, np.float32)
+                            if not torch.is_tensor(h_matrix) else h_matrix,
+                            dtype=torch.float32)
+        h = h.expand(b, 3, 3).contiguous() if h.shape[0] != b else h
+        return h.to(self.device), h.cpu().numpy()
 
     def update(self, force: bool = False):
         """(Re)build the integer CDF tables of every entropy bottleneck.

@@ -46,21 +46,12 @@ from ..codecs.device_rans import pack_stream_dense, unpack_stream
 from ..codecs.grid_rans import rans_decode_grid_rows, rans_encode_grid_rows
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
-from .base import CompressionModel
+from .base import CompressionModel, deterministic_backends
 
 MM_DEFAULT = 32
 MM_BUCKETS = (4, 8, 16, 32)
 TOTAL_FREQ = 1 << 16
 FORMAT_V3 = 3
-
-
-def deterministic_backends():
-    """The codec's determinism policy: deterministic cuDNN algorithms
-    chosen without benchmarking, and no TF32 in convolutions or matmuls."""
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def auto_ppl(hw: int) -> int:
@@ -166,12 +157,8 @@ class HESICFastCodec(CompressionModel):
         deterministic_backends()
         self.mm = mm
         self.codec_batch = codec_batch
-        self.device = next(model.parameters()).device
 
     # ---- shared conditioning programs (identical on both sides) ----
-
-    def _median(self, name: str) -> torch.Tensor:
-        return getattr(self.model, name).medians()[None, :, None, None]
 
     def _cond1_fn(self, z1_sym, center, mm: int):
         z1_hat = z1_sym.float() + self._median("entropy_bottleneck1")
@@ -219,12 +206,6 @@ class HESICFastCodec(CompressionModel):
         return merged if len(merged) > 1 else merged[0]
 
     # ---- encoder side ----
-
-    def _to_device(self, x) -> torch.Tensor:
-        """(B, H, W, 3) array -> (B, 3, H, W) float32 on the codec device."""
-        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                            dtype=torch.float32)
-        return x.to(self.device).permute(0, 3, 1, 2).contiguous()
 
     @torch.no_grad()
     def transforms_enc(self, x1, x2, h, win: int):
@@ -310,12 +291,7 @@ class HESICFastCodec(CompressionModel):
         start = time.perf_counter()
         x1, x2 = self._to_device(x1), self._to_device(x2)
         b, _, h_img, w_img = x1.shape
-        h = torch.as_tensor(np.asarray(h_matrix, np.float32)
-                            if not torch.is_tensor(h_matrix) else h_matrix,
-                            dtype=torch.float32)
-        h = h.expand(b, 3, 3).contiguous() if h.shape[0] != b else h
-        h_np = h.cpu().numpy()
-        h = h.to(self.device)
+        h, h_np = self._homographies(h_matrix, b)
         win = pick_warp_win(h_np, h_img, w_img)
         xw = pick_warp_xwin(h_np, h_img, w_img)
 

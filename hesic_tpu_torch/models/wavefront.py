@@ -1,0 +1,297 @@
+"""The wavefront level scan of the autoregressive codec: CUDA kernel 5 and
+its plain PyTorch twin.
+
+Counterpart of hesic_tpu/models/ar_device.py (``ar_wavefront``) and of
+its Pallas kernel hesic_tpu/models/pallas_wavefront.py
+(``ar_wavefront_pallas``, bodies ``_kernel`` and ``_kernel_nopost``).  One
+call is one eye pass over every level s = 3i + j of a (B, hy, wy, M)
+latent; per level and per pixel of every image:
+
+1. context: ctx = ctx_bias + sum over the 12 mask-A taps of
+   y_hat[b, i+di, j+dj] @ tapk[tap] (0 outside the image);
+2. entropy parameters: the MLP on cat(pre, ctx[, post]), leaky_relu(0.01)
+   after the first two layers; scales = max(g[:M], 0.11), means = g[M:];
+3. PMF: A&S 7.1.26 Phi (codecs/det_math) at the S + 1 edges
+   (k - mm) - 0.5 over the scale, S = 2mm + 1, bins max(diff, 0), the
+   total summed in ascending k;
+4. quantisation: f = max(floor(pmf * 65536 / total), 1), the deficit to
+   the first maximal bin;
+5. teacher (encode): resid = round_half_even(y - mean), symbol
+   clip(resid, -mm, mm) + mm, its interval (start, freq) at slot s*G + g,
+   lane (b*p_max + p)*Mg + mc, channel m = g*Mg + mc (0 on rows past the
+   level);
+6. decode: per lane the G groups in order, each a rANS decode transition
+   reading words[lane, count - 1] with one renormalisation; escape
+   corrections override the decoded residual;
+7. y_hat = resid + mean, written back for the next levels.
+
+Returns (starts, freqs (T, L) int32, y_hat (B, hy, wy, M) float32, resid
+(B, hy, wy, M) int32): resid is the teacher's true residual on encode and
+the decoded (corrected) one on decode.  starts/freqs are zero on decode.
+
+The plain twin loops over levels in Python, vectorised over the rows of a
+level, with torch.matmul for the products and det_math for Phi.  Its
+products sum in another order than the kernel's fixed-order GEMM, so the
+two agree on the parameters to float rounding, not bit for bit; given
+equal parameters their frequency rows are bit-equal (both strict IEEE).
+Encode and decode must therefore run the same backend: the containers
+carry a backend byte (models/ar_device.py).  ``ar_wavefront`` dispatches
+on the device of ``pre``: a CPU tensor runs the twin, a CUDA tensor
+launches the kernel (codecs/csrc/wavefront.cu) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..codecs import build
+from ..codecs.det_math import (det_freq_rows, det_qscale, det_recip,
+                               det_std_cdf, f32)
+from ..codecs.device_rans import PROB_BITS, RANS_L
+from .ar_device import TAPS, schedule
+
+SCALE_MIN = f32(0.11)
+_NAME = "ar_wavefront"
+_U32 = 0xFFFFFFFF
+
+
+def level_pixels(hy: int, wy: int):
+    """(n_levels, p_max, i, j, valid): i/j (n_levels, p_max) int64 pixel
+    coordinates of each level's rows (0 past the level), valid bool."""
+    n_levels, i_min, count, p_max = schedule(hy, wy)
+    p = np.arange(p_max)
+    valid = p[None, :] < count[:, None]
+    i = i_min[:, None].astype(np.int64) + p[None, :]
+    j = np.arange(n_levels)[:, None] - 3 * i
+    return (n_levels, p_max, np.where(valid, i, 0), np.where(valid, j, 0),
+            valid)
+
+
+def tap_kernel(weights) -> torch.Tensor:
+    """The context kernel's 12 mask-A taps stacked in TAPS order:
+    (12M, 2M) float32."""
+    k = weights.ctx_kernel
+    return torch.cat([k[2 + di, 2 + dj] for di, dj in TAPS], 0).float()
+
+
+def freq_rows(scales: torch.Tensor, mm: int) -> torch.Tensor:
+    """scales (..., M) -> quantized frequency rows (..., M, S) int32 over
+    the residual grid [-mm, mm]: steps 3 and 4 of the module docstring."""
+    s_dim = 2 * mm + 1
+    edges = torch.arange(-mm, mm + 2, dtype=torch.float32,
+                         device=scales.device) - 0.5
+    cdf = det_std_cdf(edges * det_recip(scales)[..., None])
+    pmf = torch.clamp_min(cdf[..., 1:] - cdf[..., :-1], 0.0)
+    total = pmf[..., 0]
+    for k in range(1, s_dim):
+        total = total + pmf[..., k]
+    return det_freq_rows(pmf, det_qscale(total)[..., None], dim=-1)
+
+
+def _check_args(weights, pre, post, mm: int, groups: int):
+    m = weights.ctx_kernel.shape[2]
+    if m % groups:
+        raise ValueError(f"M={m} is not divisible by groups={groups}")
+    if mm < 0:
+        raise ValueError(f"mm={mm} must be >= 0")
+    q = 0 if post is None else post.shape[-1]
+    cin = pre.shape[-1] + 2 * m + q
+    w0, w1, w2 = weights.ep_kernels
+    if (w0.shape[0] != cin or w1.shape[0] != w0.shape[1]
+            or w2.shape != (w1.shape[1], 2 * m)):
+        shapes = [tuple(w.shape) for w in weights.ep_kernels]
+        raise ValueError(f"entropy-parameter kernels {shapes} do not "
+                         f"chain from {cin} inputs to {2 * m}")
+    return m, q
+
+
+def ar_wavefront_plain(weights, pre, post, y_true, corr_mask, corr_val,
+                       words, counts, states, teacher: bool, mm: int,
+                       groups: int):
+    """Plain twin of kernel 5 (see the module docstring).  Unused inputs
+    may be None: post without a cross-eye input, y_true on decode,
+    corr_mask/corr_val without escapes, words/counts/states on encode."""
+    m, _ = _check_args(weights, pre, post, mm, groups)
+    b, hy, wy, _ = pre.shape
+    dev = pre.device
+    n_levels, p_max, i_of, j_of, valid_of = level_pixels(hy, wy)
+    mg = m // groups
+    r_dim = b * p_max
+    lanes = r_dim * mg
+    # y_hat with 2 zero rows above and 2 zero columns on each side, so
+    # every tap of a valid row reads a pixel or a zero (never wrapping)
+    buf = torch.zeros((b, hy + 2, wy + 4, m), dtype=torch.float32,
+                      device=dev)
+    resid_img = torch.zeros((b, hy, wy, m), dtype=torch.int32, device=dev)
+    starts = torch.zeros((n_levels * groups, lanes), dtype=torch.int32,
+                         device=dev)
+    freqs = torch.zeros_like(starts)
+    tapk = tap_kernel(weights)
+    w0, w1, w2 = weights.ep_kernels
+    b0, b1, b2 = weights.ep_biases
+    row_b = torch.arange(b, device=dev).repeat_interleave(p_max)
+    if not teacher:
+        x = states.to(torch.int64).clone()
+        ptr = counts.to(torch.int64).clone()
+        words64 = words.to(torch.int64)
+        cap = words.shape[1]
+        lane_ids = torch.arange(lanes, device=dev)
+
+    for s in range(n_levels):
+        ii = torch.from_numpy(np.tile(i_of[s], b)).to(dev)
+        jj = torch.from_numpy(np.tile(j_of[s], b)).to(dev)
+        vrow = torch.from_numpy(np.tile(valid_of[s], b)).to(dev)
+        taps = [buf[row_b, ii + 2 + di, jj + 2 + dj] for di, dj in TAPS]
+        ctx = torch.cat(taps, 1) @ tapk + weights.ctx_bias
+        feat = [pre[row_b, ii, jj].float(), ctx]
+        if post is not None:
+            feat.append(post[row_b, ii, jj].float())
+        g = F.leaky_relu(torch.cat(feat, 1) @ w0 + b0, 0.01)
+        g = F.leaky_relu(g @ w1 + b1, 0.01)
+        g = g @ w2 + b2
+        scales = torch.clamp_min(g[:, :m], SCALE_MIN)
+        means = g[:, m:]
+        freq = freq_rows(scales, mm)                          # (R, M, S)
+
+        if teacher:
+            resid = torch.round(y_true[row_b, ii, jj].float()
+                                - means).to(torch.int32)
+            sym = (torch.clamp(resid, -mm, mm) + mm).to(torch.int64)
+            csum = torch.cumsum(freq, dim=-1, dtype=torch.int32)
+            below = torch.gather(csum, 2,
+                                 torch.clamp_min(sym - 1, 0)[..., None])
+            st = torch.where(sym > 0, below[..., 0], 0)
+            fr = torch.gather(freq, 2, sym[..., None])[..., 0]
+            keep = vrow[:, None]
+
+            def slots(t):
+                t = torch.where(keep, t, 0).reshape(r_dim, groups, mg)
+                return t.permute(1, 0, 2).reshape(groups, lanes)
+
+            starts[s * groups:(s + 1) * groups] = slots(st)
+            freqs[s * groups:(s + 1) * groups] = slots(fr)
+        else:
+            vlane = vrow.repeat_interleave(mg)
+            sym = torch.empty((r_dim, m), dtype=torch.int32, device=dev)
+            for gi in range(groups):
+                f_g = freq[:, gi * mg:(gi + 1) * mg].reshape(lanes, -1)
+                f_g = f_g.to(torch.int64)
+                c_g = torch.cumsum(f_g, dim=-1)               # inclusive
+                cf = x & 0xFFFF
+                sym_g = (c_g <= cf[:, None]).sum(dim=-1)
+                start = torch.where(
+                    sym_g > 0, torch.gather(
+                        c_g, 1, torch.clamp_min(sym_g - 1, 0)[:, None])[:, 0],
+                    0)
+                f_d = torch.gather(f_g, 1, sym_g[:, None])[:, 0]
+                x_new = (f_d * (x >> PROB_BITS) + cf - start) & _U32
+                need = x_new < RANS_L
+                word = words64[lane_ids, torch.clamp(ptr - 1, 0, cap - 1)]
+                x_new = torch.where(need, ((x_new << PROB_BITS) | word) & _U32,
+                                    x_new)
+                x = torch.where(vlane, x_new, x)
+                ptr = torch.where(vlane & need, ptr - 1, ptr)
+                sym[:, gi * mg:(gi + 1) * mg] = sym_g.reshape(r_dim, mg)
+            resid = sym - mm
+            if corr_mask is not None:
+                resid = torch.where(corr_mask[row_b, ii, jj] != 0,
+                                    corr_val[row_b, ii, jj].to(torch.int32),
+                                    resid)
+
+        y_hat_l = resid.float() + means
+        rb, ri, rj = row_b[vrow], ii[vrow], jj[vrow]
+        buf[rb, ri + 2, rj + 2] = y_hat_l[vrow]
+        resid_img[rb, ri, rj] = resid[vrow]
+    y_hat = buf[:, 2:hy + 2, 2:wy + 2].contiguous()
+    return starts, freqs, y_hat, resid_img
+
+
+def _lib():
+    lib = build.load("wavefront")
+    if not getattr(lib, "_hesic_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.hesic_ar_wavefront.restype = ci
+        lib.hesic_ar_wavefront.argtypes = [vp] * 21 + [ci] * 13 + [vp]
+        lib._hesic_typed = True
+    return lib
+
+
+def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
+                      words, counts, states, teacher: bool, mm: int,
+                      groups: int):
+    """Kernel 5 on the card: one eye pass, 2 launches per level; same
+    contract as ar_wavefront_plain.  Counts one launch per call."""
+    m, q = _check_args(weights, pre, post, mm, groups)
+    b, hy, wy, p_dim = pre.shape
+    h1, h2 = weights.ep_kernels[0].shape[1], weights.ep_kernels[1].shape[1]
+    dev = pre.device
+    n_levels, _, _, p_max = schedule(hy, wy)
+    lanes = b * p_max * (m // groups)
+    img = (b, hy, wy, m)
+    build.check_cuda_tensor(pre, "pre", torch.float32)
+    if post is not None:
+        build.check_cuda_tensor(post, "post", torch.float32, (b, hy, wy, q))
+    w = [tap_kernel(weights), weights.ctx_bias, *[
+        t for pair in zip(weights.ep_kernels, weights.ep_biases)
+        for t in pair]]
+    for i, t in enumerate(w):
+        build.check_cuda_tensor(t, f"weights[{i}]", torch.float32)
+        if t.data_ptr() % 16:
+            raise ValueError(f"weights[{i}] must be 16-byte aligned")
+    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
+    if teacher:
+        build.check_cuda_tensor(y_true, "y_true", torch.float32, img)
+        cmask = cval = words = dummy
+        cap = 1
+        x_st = torch.zeros(1, dtype=torch.int64, device=dev)
+        p_st = dummy
+    else:
+        y_true = torch.zeros(1, dtype=torch.float32, device=dev)
+        if corr_mask is None:
+            cmask = torch.zeros(img, dtype=torch.int32, device=dev)
+            cval = cmask
+        else:
+            cmask, cval = corr_mask, corr_val
+            build.check_cuda_tensor(cmask, "corr_mask", torch.int32, img)
+            build.check_cuda_tensor(cval, "corr_val", torch.int32, img)
+        build.check_cuda_tensor(words, "words", torch.int32)
+        if words.shape[0] != lanes:
+            raise ValueError(f"words must have {lanes} lanes, got "
+                             f"{tuple(words.shape)}")
+        cap = words.shape[1]
+        build.check_cuda_tensor(counts, "counts", torch.int32, (lanes,))
+        build.check_cuda_tensor(states, "states", torch.int64, (lanes,))
+        x_st = states.clone()
+        p_st = counts.clone()
+    g = torch.empty((b * p_max, 2 * m), dtype=torch.float32, device=dev)
+    starts = torch.zeros((n_levels * groups, lanes), dtype=torch.int32,
+                         device=dev)
+    freqs = torch.zeros_like(starts)
+    y_hat = torch.zeros(img, dtype=torch.float32, device=dev)
+    resid = torch.zeros(img, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().hesic_ar_wavefront(
+        pre.data_ptr(), 0 if post is None else post.data_ptr(),
+        y_true.data_ptr(), cmask.data_ptr(), cval.data_ptr(),
+        words.data_ptr(), x_st.data_ptr(), p_st.data_ptr(),
+        *[t.data_ptr() for t in w], g.data_ptr(), starts.data_ptr(),
+        freqs.data_ptr(), y_hat.data_ptr(), resid.data_ptr(),
+        b, hy, wy, m, p_dim, q, h1, h2, groups, mm, cap, p_max,
+        1 if teacher else 0, stream)
+    build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, 2M, H1 "
+                       "and H2 multiples of 4 (float4 weight rows)")
+    build.launch_counts[_NAME] += 1
+    return starts, freqs, y_hat, resid
+
+
+def ar_wavefront(weights, pre, post, y_true, corr_mask, corr_val, words,
+                 counts, states, teacher: bool, mm: int, groups: int):
+    """One eye pass: the kernel for CUDA tensors, the plain twin on the
+    CPU."""
+    fn = ar_wavefront_cuda if pre.is_cuda else ar_wavefront_plain
+    return fn(weights, pre, post, y_true, corr_mask, corr_val, words,
+              counts, states, teacher, mm, groups)

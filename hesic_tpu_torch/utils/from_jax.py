@@ -4,13 +4,18 @@ The inverse of hesic_tpu/utils/convert_torch.py's layout rules, applied to
 a nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``; this module imports nothing of JAX):
 
-  conv    HWIO (kh, kw, in, out)   -> (out, in, kh, kw)
-  deconv  HWIO, spatially flipped  -> ConvTranspose2d (in, out, kh, kw)
+  Conv, MaskedConv2d  HWIO (kh, kw, in, out) -> (out, in, kh, kw)
+                      (1x1 kernels included)
+  Deconv              HWIO, spatially flipped -> ConvTranspose2d
+                      (in, out, kh, kw)
   GDN     beta (C,), gamma (C, C)  -> unchanged
   EntropyBottleneck matrix_i/bias_i/factor_i/quantiles -> unchanged
 
-The port's modules carry the flax module names (Conv_0, Deconv_3, ...),
-so every other path component maps as is.
+The port's modules carry the flax module names (Conv_0, Deconv_3, h_s1_4,
+context_prediction2, ...), so every path component maps as is.  Whether a
+``kernel`` is a conv's or a deconv's is decided by the type of the port's
+module at that path, never by its name: flax names list layers by their
+index (``h_s1_0`` is a deconv, ``h_s1_4`` a conv).
 """
 
 from __future__ import annotations
@@ -18,19 +23,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _leaf(path, value):
-    parent, name = path[-2] if len(path) > 1 else "", path[-1]
-    v = np.asarray(value, np.float32)
-    if name == "kernel" and parent.startswith("Conv_"):
-        return "weight", v.transpose(3, 2, 0, 1)
-    if name == "kernel" and parent.startswith("Deconv_"):
-        return "weight", np.flip(v.transpose(2, 3, 0, 1), (2, 3))
-    return name, v
+from ..layers import Conv, Deconv, MaskedConv2d
 
 
-def hesic_from_jax(params_np: dict) -> dict:
-    """flax param tree (numpy leaves) -> port state_dict (CPU tensors)."""
+def _kernel(module, path: str, v: np.ndarray) -> np.ndarray:
+    if isinstance(module, Deconv):
+        return np.flip(v.transpose(2, 3, 0, 1), (2, 3))
+    if isinstance(module, (Conv, MaskedConv2d)):
+        return v.transpose(3, 2, 0, 1)
+    raise ValueError(f"flax kernel at {path!r} has no conv module of the "
+                     f"port there (found {type(module).__name__})")
+
+
+def hesic_from_jax(params_np: dict, model: torch.nn.Module) -> dict:
+    """flax param tree (numpy leaves) -> state_dict (CPU tensors) for
+    `model`, whose module types decide each kernel's layout."""
+    modules = dict(model.named_modules())
     out = {}
 
     def walk(tree, path):
@@ -38,10 +46,13 @@ def hesic_from_jax(params_np: dict) -> dict:
             p = path + (key,)
             if hasattr(val, "items"):
                 walk(val, p)
-            else:
-                name, arr = _leaf(p, val)
-                out[".".join(p[:-1] + (name,))] = torch.from_numpy(
-                    np.array(arr, np.float32))
+                continue
+            parent = ".".join(p[:-1])
+            v = np.asarray(val, np.float32)
+            if key == "kernel":
+                key, v = "weight", _kernel(modules.get(parent), parent, v)
+            out[".".join(p[:-1] + (key,))] = torch.from_numpy(
+                np.array(v, np.float32))
 
     if "params" in params_np:
         params_np = params_np["params"]

@@ -1,19 +1,24 @@
-"""Where the time goes in one HESIC fast-codec round trip on the card.
+"""Where the time goes in one codec round trip on the card.
 
 Usage (on a machine with a CUDA card):
 
-    python -m hesic_tpu_torch.utils.profile_fast [--batch 8 --mm 32
-        --homography identity|rotated]
+    python -m hesic_tpu_torch.utils.profile_fast [--model hesic|hesic-plus
+        --batch B --mm MM --homography identity|rotated]
 
-Builds HESIC N=128/M=192/K=5 with bf16 transforms and random weights
-from seed 0, warms the codec up with one round trip on 512x512 pairs,
-then traces one ``compress_fast`` + ``decompress_fast`` with
-``torch.profiler`` (CPU and CUDA activities).  Prints the card, the
-encode and decode wall times, the device time by kernel group (kernel 1,
-kernel 2, kernel 3, cuDNN convolutions, other PyTorch kernels), the
+``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and traces
+``HESICFastCodec.compress_fast`` + ``decompress_fast`` (batch 8, grid cap
+mm 32 by default).  ``--model hesic-plus`` builds HESIC+ N=192/M=192 and
+traces ``HESICPlusDeviceCodec.compress`` + ``decompress`` (batch 11,
+mm 16, 8 channel groups, word cap 64 by default: bench.py's HESIC+
+point).  Both use bf16 transforms and random weights from seed 0, warm
+the codec up with one round trip on 512x512 pairs, then trace one round
+trip with ``torch.profiler`` (CPU and CUDA activities).  Prints the card,
+the encode and decode wall times, the device time by kernel group (the
+port's kernels 1-5, cuDNN convolutions, other PyTorch kernels), the
 device's busy and idle shares of the wall time, and the ten longest
-kernels by name, then one JSON line with the same numbers.  Device time is the sum of the kernels'
-own times on the card (one stream, so kernels do not overlap).
+kernels by name, then one JSON line with the same numbers.  Device time
+is the sum of the kernels' own times on the card (one stream, so kernels
+do not overlap).
 """
 
 from __future__ import annotations
@@ -61,6 +66,9 @@ def rotated_homography() -> np.ndarray:
 _GROUPS = (("kernel 1 gmm_freq", ("gmm_freq_kernel",)),
            ("kernel 2 grid_rans_encode", ("grid_rans_encode_kernel",)),
            ("kernel 3 grid_rans_decode", ("grid_rans_decode_kernel",)),
+           ("kernel 4 pairs_rans_encode", ("pairs_rans_encode_kernel",)),
+           ("kernel 5 wavefront params", ("wavefront_params_kernel",)),
+           ("kernel 5 wavefront coder", ("wavefront_coder_kernel",)),
            ("cuDNN convolutions", ("conv", "cudnn", "xmma", "gemm",
                                    "fprop", "dgrad", "wgrad")))
 
@@ -73,19 +81,54 @@ def _group(name: str) -> str:
     return "other PyTorch kernels"
 
 
+def _codec(model: str, batch: int, mm: int):
+    """The model's codec at its published widths (bf16 transforms, seed
+    0) as a round trip fn(x1, x2, h) -> (encode dict, decode dict,
+    per-eye outlier or escape counts)."""
+    import torch
+    if model == "hesic":
+        from ..models.hesic import HESIC
+        from ..models.hesic_fast import HESICFastCodec
+        net = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
+                    seed=0)
+        codec = HESICFastCodec(net, mm=mm, codec_batch=batch).update()
+
+        def trip(x1, x2, h):
+            out = codec.compress_fast(x1, x2, h)
+            return out, codec.decompress_fast(out["blobs"]), out["outliers"]
+    else:
+        from ..models.ar_device import HESICPlusDeviceCodec
+        from ..models.hesic_plus import HESICPlus
+        net = HESICPlus(N=192, M=192, dtype=torch.bfloat16, device="cuda",
+                        seed=0)
+        codec = HESICPlusDeviceCodec(net, mm=mm, groups=8, cap=64).update()
+
+        def trip(x1, x2, h):
+            out = codec.compress(x1, x2, h)
+            return out, codec.decompress(out["strings"]), out["escapes"]
+    return trip
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--mm", type=int, default=32)
+    p.add_argument("--model", choices=("hesic", "hesic-plus"),
+                   default="hesic")
+    p.add_argument("--batch", type=int, default=None,
+                   help="pairs per batch (default 8 for hesic, 11 for "
+                        "hesic-plus)")
+    p.add_argument("--mm", type=int, default=None,
+                   help="grid half-width cap (default 32 for hesic, 16 "
+                        "for hesic-plus)")
     p.add_argument("--homography", choices=("identity", "rotated"),
                    default="identity")
     args = p.parse_args(argv)
+    plus = args.model == "hesic-plus"
+    b = args.batch or (11 if plus else 8)
+    mm = args.mm or (16 if plus else 32)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..models.hesic import HESIC
-    from ..models.hesic_fast import HESICFastCodec
     if not torch.cuda.is_available():
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
@@ -93,21 +136,17 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    b = args.batch
-    model = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
-                  seed=0)
-    codec = HESICFastCodec(model, mm=args.mm, codec_batch=b).update()
+    trip = _codec(args.model, b, mm)
     x1, x2 = smooth_pairs(np.random.RandomState(0), b, SIZE)
     hm = (np.eye(3, dtype=np.float32) if args.homography == "identity"
           else rotated_homography())
     h = np.tile(hm[None], (b, 1, 1))
 
-    codec.decompress_fast(codec.compress_fast(x1, x2, h)["blobs"])
+    trip(x1, x2, h)
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
-        out = codec.compress_fast(x1, x2, h)
-        rec = codec.decompress_fast(out["blobs"])
+        out, rec, outliers = trip(x1, x2, h)
     wall_ms = (out["enctime"] + rec["dectime"]) * 1e3
 
     kernels = {}
@@ -127,9 +166,10 @@ def main(argv=None) -> int:
     busy_ms = sum(ms for ms, _ in kernels.values())
 
     print(f"card: {card}")
-    print(f"batch {b} pairs {SIZE}x{SIZE}, H {args.homography}, "
-          f"mm cap {args.mm}: bpp_real {out['bpp_real']:.6f}, outliers "
-          f"{out['outliers'][0]}/{out['outliers'][1]}, encode "
+    print(f"{args.model}, batch {b} pairs {SIZE}x{SIZE}, H "
+          f"{args.homography}, mm cap {mm}: bpp_real "
+          f"{out['bpp_real']:.6f}, outliers/escapes "
+          f"{outliers[0]}/{outliers[1]}, encode "
           f"{out['enctime'] * 1e3:.2f} ms, decode "
           f"{rec['dectime'] * 1e3:.2f} ms wall")
     if not kernels:
@@ -147,8 +187,8 @@ def main(argv=None) -> int:
                                 key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
     print(json.dumps({
-        "card": card, "batch": b, "size": SIZE,
-        "homography": args.homography, "mm_cap": args.mm,
+        "card": card, "model": args.model, "batch": b, "size": SIZE,
+        "homography": args.homography, "mm_cap": mm,
         "bpp_real": out["bpp_real"], "encode_ms": out["enctime"] * 1e3,
         "decode_ms": rec["dectime"] * 1e3, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,

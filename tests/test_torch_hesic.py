@@ -40,7 +40,7 @@ def models():
                                     (1, 3, 3)], seed=0)
     params = jax.tree_util.tree_map(np.asarray, cm.params)
     tm = HESIC(N=16, M=24, K=2, device="cpu")
-    tm.load_state_dict(hesic_from_jax(params))
+    tm.load_state_dict(hesic_from_jax(params, tm))
     return jm, params, tm
 
 

@@ -44,7 +44,7 @@ def codecs():
     jc.update()
     params = jax.tree_util.tree_map(np.asarray, jc.params)
     model = HESIC(N=16, M=24, K=2, device="cpu")
-    model.load_state_dict(hesic_from_jax(params))
+    model.load_state_dict(hesic_from_jax(params, model))
     return jc, HESICFastCodec(model).update()
 
 

@@ -31,7 +31,7 @@ def _run_pair(jmod, tmod, x_nhwc, name):
         params = {k: v + 0.05 * np.abs(rng.randn(*v.shape)).astype(
             np.float32) for k, v in params.items()}
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x_nhwc)))
-    sd = hesic_from_jax({name: params})
+    sd = hesic_from_jax({name: params}, torch.nn.ModuleDict({name: tmod}))
     tmod.load_state_dict({k[len(name) + 1:]: v for k, v in sd.items()})
     got = tmod(torch.from_numpy(x_nhwc.transpose(0, 3, 1, 2).copy()))
     return got.detach().numpy().transpose(0, 2, 3, 1), want

@@ -1,0 +1,169 @@
+"""Port: the wavefront schedule (hesic_tpu_torch/models/ar_device.py) and
+kernel 5's plain twin (hesic_tpu_torch/models/wavefront.py) against the
+JAX package on the CPU.
+
+* schedule, wavefront_valid_mask and the mask-A taps: equal integers.
+* Teacher pass on tests/test_pallas_wavefront.py's three CASES (no post,
+  post with B=2 and a wide latent, one group on a tall latent), f32
+  weights, against ar_wavefront_pallas in interpret mode and against the
+  lax.scan ar_wavefront, at the tolerances the JAX package holds its own
+  kernel to: residuals equal; y_hat within 1e-5 (float32 products summed
+  in another order); starts/freqs within +-2 counts on valid slots (the
+  three Phi implementations, A&S over det_math here, A&S over exact
+  division in the Pallas kernel, XLA's erfc in the scan, differ in the
+  last bits).
+* Round trip on the CPU: teacher pass -> the pairs encoder -> decode
+  pass, with the escape side-channel: y_hat and residuals bit-exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hesic_tpu.models.ar_device import _TAPS as J_TAPS
+from hesic_tpu.models.ar_device import ar_wavefront as j_ar_wavefront
+from hesic_tpu.models.ar_device import schedule as j_schedule
+from hesic_tpu.models.ar_device import (
+    wavefront_valid_mask as j_valid_mask)
+from hesic_tpu.models.autoregressive import ArWeights as JArWeights
+from hesic_tpu.models.autoregressive import raster_causal_mask
+from hesic_tpu.models.pallas_wavefront import ar_wavefront_pallas
+from hesic_tpu_torch.codecs.pairs_rans import rans_encode_pairs
+from hesic_tpu_torch.models.ar_device import (TAPS, schedule,
+                                              wavefront_valid_mask)
+from hesic_tpu_torch.models.autoregressive import ArWeights
+from hesic_tpu_torch.models.wavefront import (ar_wavefront,
+                                              ar_wavefront_cuda, freq_rows)
+
+torch.set_num_threads(2)
+
+CASES = [
+    # (b, hy, wy, m, mm, groups, q_dim), tests/test_pallas_wavefront.py
+    (1, 4, 4, 16, 3, 2, 0),
+    (2, 4, 8, 16, 3, 2, 16),
+    (1, 8, 4, 8, 2, 1, 0),
+]
+
+
+def test_taps_equal_jax():
+    assert TAPS == J_TAPS
+
+
+@pytest.mark.parametrize("hy,wy", [(4, 4), (5, 9), (8, 3), (1, 7),
+                                   (32, 32)])
+def test_schedule_and_valid_mask_equal_jax(hy, wy):
+    got, want = schedule(hy, wy), j_schedule(hy, wy)
+    assert got[0] == want[0] and got[3] == want[3]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(
+        wavefront_valid_mask(hy, wy, 2, 4, 8).numpy(),
+        np.asarray(j_valid_mask(hy, wy, 2, 4, 8)))
+
+
+def _setup(seed, b, hy, wy, m, mm, groups, q_dim):
+    """tests/test_pallas_wavefront.py's weights and inputs, numpy."""
+    rng = np.random.RandomState(seed)
+    p_dim = 2 * m
+    k = rng.randn(5, 5, m, 2 * m).astype(np.float32) * 0.1
+    k = k * np.asarray(raster_causal_mask(5, 5, "A"))[:, :, None, None]
+    cin = p_dim + 2 * m + q_dim
+    h1 = h2 = 2 * m
+    w = dict(
+        ctx_kernel=k,
+        ctx_bias=rng.randn(2 * m).astype(np.float32) * 0.05,
+        ep_kernels=(rng.randn(cin, h1).astype(np.float32) * 0.1,
+                    rng.randn(h1, h2).astype(np.float32) * 0.1,
+                    rng.randn(h2, 2 * m).astype(np.float32) * 0.1),
+        ep_biases=(rng.randn(h1).astype(np.float32) * 0.05,
+                   rng.randn(h2).astype(np.float32) * 0.05,
+                   np.concatenate([np.full(m, 0.5),
+                                   np.zeros(m)]).astype(np.float32)))
+    y = rng.randn(b, hy, wy, m).astype(np.float32) * 2
+    pre = rng.randn(b, hy, wy, p_dim).astype(np.float32) * 0.3
+    post = rng.randn(b, hy, wy, q_dim).astype(np.float32) * 0.3
+    return w, pre, post, y
+
+
+def _weights(w, lib):
+    if lib == "jax":
+        return JArWeights(
+            jnp.asarray(w["ctx_kernel"]), jnp.asarray(w["ctx_bias"]),
+            tuple(jnp.asarray(a) for a in w["ep_kernels"]),
+            tuple(jnp.asarray(a) for a in w["ep_biases"]))
+    t = torch.from_numpy
+    return ArWeights(t(w["ctx_kernel"]), t(w["ctx_bias"]),
+                     tuple(t(a) for a in w["ep_kernels"]),
+                     tuple(t(a) for a in w["ep_biases"]))
+
+
+def _port_teacher(w, pre, post, y, mm, groups):
+    post_t = torch.from_numpy(post) if post.shape[-1] else None
+    return [t.numpy() for t in ar_wavefront(
+        _weights(w, "torch"), torch.from_numpy(pre), post_t,
+        torch.from_numpy(y), None, None, None, None, None, True, mm,
+        groups)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_teacher_matches_jax(case):
+    b, hy, wy, m, mm, groups, q_dim = case
+    w, pre, post, y = _setup(0, *case)
+    _, _, _, p_max = schedule(hy, wy)
+    lanes = b * p_max * (m // groups)
+    zimg = jnp.zeros((b, hy, wy, m), jnp.int32)
+    zl = jnp.zeros((lanes,), jnp.int32)
+    args = (_weights(w, "jax"), jnp.asarray(pre), jnp.asarray(post),
+            jnp.asarray(y), zimg, zimg, jnp.zeros((lanes, 1), jnp.int32),
+            zl, zl.astype(jnp.uint32), jnp.bool_(True), hy, wy, mm, groups)
+    refs = {"pallas": ar_wavefront_pallas(*args, interpret=True),
+            "scan": j_ar_wavefront(*args)}
+    st, fr, yh, rs = _port_teacher(w, pre, post, y, mm, groups)
+    valid = wavefront_valid_mask(hy, wy, b, groups, m).numpy()
+    for name, ref in refs.items():
+        st_j, fr_j, yh_j, rs_j = (np.asarray(a) for a in ref)
+        np.testing.assert_array_equal(rs, rs_j, err_msg=name)
+        assert np.abs(yh - yh_j).max() < 1e-5, name
+        assert np.abs(st - st_j)[valid].max() <= 2, name
+        assert np.abs(fr - fr_j)[valid].max() <= 2, name
+    assert (st[~valid] == 0).all() and (fr[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_roundtrip_bit_exact(case):
+    b, hy, wy, m, mm, groups, q_dim = case
+    w, pre, post, y = _setup(1, *case)
+    st, fr, yh_enc, rs = (torch.from_numpy(a) for a in
+                          _port_teacher(w, pre, post, y, mm, groups))
+    valid = wavefront_valid_mask(hy, wy, b, groups, m)
+    words, counts, states = rans_encode_pairs(st, fr, valid, cap=256)
+    assert int(counts.max()) <= 256
+    esc = rs.abs() > mm
+    assert esc.any(), "case must produce escapes"
+    post_t = torch.from_numpy(post) if q_dim else None
+    _, _, yh_dec, rs_dec = ar_wavefront(
+        _weights(w, "torch"), torch.from_numpy(pre), post_t, None,
+        esc.to(torch.int32), torch.where(esc, rs, 0), words, counts,
+        states, False, mm, groups)
+    torch.testing.assert_close(yh_dec, yh_enc, rtol=0, atol=0)
+    torch.testing.assert_close(rs_dec, rs, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mm", [1, 3, 16])
+def test_freq_rows_are_coder_rows(mm):
+    scales = torch.from_numpy(np.random.RandomState(mm).rand(
+        5, 7).astype(np.float32) * 20 + 0.11)
+    f = freq_rows(scales, mm)
+    assert f.shape == (5, 7, 2 * mm + 1) and f.dtype == torch.int32
+    assert (f.sum(-1) == 1 << 16).all() and (f >= 1).all()
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    case = CASES[0]
+    w, pre, post, y = _setup(0, *case)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ar_wavefront_cuda(_weights(w, "torch"), torch.from_numpy(pre), None,
+                          torch.from_numpy(y), None, None, None, None, None,
+                          True, case[4], case[5])
