@@ -32,7 +32,10 @@ and prints no result):
      kernel run with bf16-rounded weights; kernel 4 must be bit-equal to
      its twin on kernel
      5's intervals; kernel 5's decode of kernel 4's stream must give
-     y_hat bit-equal to its teacher pass;
+     y_hat bit-equal to its teacher pass; kernel 5's hoisted product (the
+     scan-independent part of its first layer) must agree with its twin
+     within HOIST_TOL; times kernel 5's pass, its hoisted product, and
+     one level's four products as torch.matmul (a yardstick);
   5. drives the HESIC fast path: HESIC N=128/M=192/K=5 (bf16 transforms,
      seeded random weights) through HESICFastCodec.compress_fast ->
      decompress_fast on 8 smooth 512x512 pairs, with the identity and a
@@ -50,8 +53,9 @@ and prints no result):
      residuals escape the grid.  The decoded y1_hat/y2_hat must equal the
      encoder's, the reconstructions must be finite and of the input's
      shape, the escape case must have escapes, and kernels 4 and 5 must
-     have launched (kernel 5 counts one launch per eye pass, its 250
-     kernel launches included);
+     have launched (kernel 5 counts one launch per eye pass, its 626
+     kernel launches included: the hoisted product, then four stage
+     GEMMs and the coder per level);
   7. prints one JSON line with each kernel's numbers, then the device
      line {"ok": true, "device": {...}} last.
 
@@ -113,6 +117,10 @@ RAW_FLIP_SHARE = 0.08
 # each latent the scale floor, det_recip and det_qscale (23) and the
 # residual (sub, round, clip: 4)
 AR_OPS_PER_EDGE, AR_OPS_PER_BIN, AR_OPS_PER_LATENT = 56, 11, 27
+# the hoisted product (576 or 384 terms a sum, in the kernel's fixed
+# order) against its twin's torch.matmul: max |d| within HOIST_TOL of the
+# largest |base|; a sound kernel read about 0.1 of that limit on the H100
+HOIST_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -433,8 +441,10 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     import torch
     from hesic_tpu_torch.codecs import pairs_rans
     from hesic_tpu_torch.models import wavefront as wf
-    from hesic_tpu_torch.models.ar_device import wavefront_valid_mask
+    from hesic_tpu_torch.models.ar_device import (schedule,
+                                                  wavefront_valid_mask)
     b, hy, wy, m = y.shape
+    w_raw = w.raw   # w is the codec's PackedArWeights
 
     def teach(fn, yy, ww=w):
         return fn(ww, pre, post, yy, None, None, None, None, None, True,
@@ -442,9 +452,9 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
 
     valid = wavefront_valid_mask(hy, wy, b, AR_GROUPS, m, DEVICE)
     raw_limit = int(RAW_FLIP_SHARE * y.numel())
-    _, _, yh_t, rs_t = teach(wf.ar_wavefront_plain, y)
+    _, _, yh_t, rs_t = teach(wf.ar_wavefront_plain, y, w_raw)
     # inputs on the quantization lattice: no residual may flip there
-    lattice_t = teach(wf.ar_wavefront_plain, yh_t)
+    lattice_t = teach(wf.ar_wavefront_plain, yh_t, w_raw)
 
     def readings(ww):
         """Kernel 5 with weights `ww` against the twin with the model's:
@@ -486,8 +496,8 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     def bf16(t):
         return t.to(torch.bfloat16).float().contiguous()
 
-    w_bf = w._replace(ctx_kernel=bf16(w.ctx_kernel),
-                      ep_kernels=tuple(map(bf16, w.ep_kernels)))
+    w_bf = w_raw._replace(ctx_kernel=bf16(w_raw.ctx_kernel),
+                          ep_kernels=tuple(map(bf16, w_raw.ep_kernels)))
     _, raw_bf, lat_bf = readings(w_bf)
     why_bf = gate(raw_bf, lat_bf)
     if not why_bf:
@@ -526,23 +536,48 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
                              f"from its teacher pass at {bad} cells")
 
     ms5 = cuda_ms(lambda: teach(wf.ar_wavefront_cuda, y), 3)
-    plain5 = cuda_ms(lambda: teach(wf.ar_wavefront_plain, y), 1)
+    plain5 = cuda_ms(lambda: teach(wf.ar_wavefront_plain, y, w_raw), 1)
     dec_ms = cuda_ms(decode, 3)
     ms4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_cuda(
         st_k, fr_k, valid, cap), 10)
     plain4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_plain(
         st_k, fr_k, valid, cap), 1)
 
+    # the hoisted product (pre and post rows of the first layer, every
+    # pixel) against its twin, and one level's four stage products as
+    # torch.matmul at a full level's rows (a yardstick, never called by
+    # the port)
+    base_k = wf.hoisted_base_cuda(w, pre, post)
+    base_p = wf.hoisted_base_plain(w, pre, post)
+    sync()
+    d_base = float((base_k - base_p).abs().max())
+    base_lim = HOIST_TOL * float(base_p.abs().max())
+    if not d_base <= base_lim:
+        raise AssertionError(f"ar_wavefront {label}: hoisted product "
+                             f"differs from its twin by {d_base} (limit "
+                             f"{base_lim})")
+    hoist_ms = cuda_ms(lambda: wf.hoisted_base_cuda(w, pre, post), 10)
+    n_levels, _, _, p_max = schedule(hy, wy)
+    rows = b * p_max
+    h1, h2 = w_raw.ep_kernels[1].shape
+    shapes = wf.stage_shapes(m, h1, h2)
+    blocks = wf.stage_blocks(wf.stage_plan(m, h1, h2), shapes, rows)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    mats = [(torch.randn(rows, k, generator=gen, device=DEVICE), wt)
+            for (k, _), wt in zip(shapes.values(),
+                                  (w.tapk, w.w0_ctx, *w_raw.ep_kernels[1:]))]
+    level_mm_ms = cuda_ms(lambda: [a @ wt for a, wt in mats], 50)
+
     pix = b * hy * wy
     q = 0 if post is None else post.shape[-1]
-    cin, (h1, h2) = pre.shape[-1] + 2 * m + q, (
-        w.ep_kernels[0].shape[1], w.ep_kernels[1].shape[1])
+    cin = pre.shape[-1] + 2 * m + q
     s = 2 * AR_MM + 1
     flops = 2 * pix * (12 * m * 2 * m + cin * h1 + h1 * h2 + h2 * 2 * m)
     coder_ops = pix * m * ((s + 1) * AR_OPS_PER_EDGE + s * AR_OPS_PER_BIN
                            + AR_OPS_PER_LATENT)
-    w_bytes = 4 * sum(t.numel() for t in (w.ctx_kernel, w.ctx_bias,
-                                          *w.ep_kernels, *w.ep_biases))
+    w_bytes = 4 * sum(t.numel() for t in (
+        w_raw.ctx_kernel, w_raw.ctx_bias, *w_raw.ep_kernels,
+        *w_raw.ep_biases))
     t_slots, lanes = st_k.shape
     io_bytes = 4 * pix * (cin - 2 * m + 3 * m) + 8 * t_slots * lanes
     bound5 = {"operations": (flops / PEAK_F32_FLOPS
@@ -567,7 +602,15 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
           f"teacher pass ({int(esc.sum())} escapes); teacher {ms5:.3f} ms, "
           f"decode {dec_ms:.3f} ms, plain {plain5:.1f} ms; bound "
           f"{bound5[by5]:.4f} ms by {by5} ({flops:.3e} FLOP + "
-          f"{coder_ops:.3e} coder ops; {w_bytes + io_bytes:.3e} B)")
+          f"{coder_ops:.3e} coder ops; {w_bytes + io_bytes:.3e} B); "
+          f"{4 * n_levels + 1} stage launches per pass (the hoisted "
+          f"product, then ctx and layers 0-2 per level) and {n_levels} "
+          f"coder launches; blocks per stage at {rows} rows {blocks}; "
+          f"{wf.weight_bytes_per_level(shapes, rows):.3e} weight bytes "
+          f"read per level at {rows} rows; hoisted product {hoist_ms:.4f} "
+          f"ms (max |d| {d_base:.3e} against its twin, limit "
+          f"{base_lim:.3e}); one level's four products as torch.matmul at "
+          f"{rows} rows {level_mm_ms:.4f} ms (yardstick)")
     print(f"kernel pairs_rans_encode {label}: bit-equal to plain (words, "
           f"counts, states); {ms4:.3f} ms kernel, {plain4:.1f} ms plain; "
           f"cap {cap}, mean {float(counts.double().mean()):.1f} words/lane; "

@@ -122,10 +122,13 @@ class HESICPlusDeviceCodec(CompressionModel):
         super().__init__(model)
         deterministic_backends()
         self.mm, self.groups, self.cap = mm, groups, cap
-        self.w1 = extract_ar_weights(model, "context_prediction1",
-                                     "entropy_parameters1")
-        self.w2 = extract_ar_weights(model, "context_prediction2",
-                                     "entropy_parameters2")
+        from .wavefront import pack_weights
+        # packed once for the level scan: eye 2's post input is the M
+        # channels of the re-encoded decoded left view
+        self.w1 = pack_weights(extract_ar_weights(
+            model, "context_prediction1", "entropy_parameters1"))
+        self.w2 = pack_weights(extract_ar_weights(
+            model, "context_prediction2", "entropy_parameters2"), model.M)
 
     # ---- device programs ----
 

@@ -38,11 +38,19 @@ Encode and decode must therefore run the same backend: the containers
 carry a backend byte (models/ar_device.py).  ``ar_wavefront`` dispatches
 on the device of ``pre``: a CPU tensor runs the twin, a CUDA tensor
 launches the kernel (codecs/csrc/wavefront.cu) or raises.
+
+The kernel computes the first MLP layer in split form: the hoisted
+product ``base = pre @ w0[0:P] + post @ w0[P+2M:] + b0`` (twin
+``hoisted_base_plain``) once per pass for every pixel, then per level
+``base + ctx @ w0[P:P+2M]``.  It works on each level's compacted rows
+(``level_rows``) and tiles its four stage products by ``stage_plan``.
+The weights are packed for it once (``pack_weights``, kept by the codec).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +61,7 @@ from ..codecs.det_math import (det_freq_rows, det_qscale, det_recip,
                                det_std_cdf, f32)
 from ..codecs.device_rans import PROB_BITS, RANS_L
 from .ar_device import TAPS, schedule
+from .autoregressive import ArWeights
 
 SCALE_MIN = f32(0.11)
 _NAME = "ar_wavefront"
@@ -210,24 +219,177 @@ def ar_wavefront_plain(weights, pre, post, y_true, corr_mask, corr_val,
     return starts, freqs, y_hat, resid_img
 
 
+class PackedArWeights(NamedTuple):
+    """An eye's ArWeights in the kernel's layout, built once
+    (``pack_weights``): the context taps stacked, and w0 split into the
+    rows the hoisted product reads and the rows the level scan reads."""
+
+    raw: ArWeights         # the weights as the plain twin takes them
+    q_dim: int             # width of the post input (0: none)
+    tapk: torch.Tensor     # (12M, 2M): tap_kernel(raw)
+    w0_pp: torch.Tensor    # (P + Q, H1): w0's pre rows, then its post rows
+    w0_ctx: torch.Tensor   # (2M, H1): w0[P:P+2M]
+
+
+def pack_weights(weights: ArWeights, q_dim: int = 0) -> PackedArWeights:
+    """Pack `weights` for an eye whose post input is `q_dim` wide."""
+    m = weights.ctx_kernel.shape[2]
+    w0 = weights.ep_kernels[0].float()
+    p_dim = w0.shape[0] - 2 * m - q_dim
+    if p_dim < 0:
+        raise ValueError(f"w0 has {w0.shape[0]} rows, fewer than 2M + Q = "
+                         f"{2 * m + q_dim}")
+    return PackedArWeights(
+        weights, q_dim, tap_kernel(weights).contiguous(),
+        torch.cat([w0[:p_dim], w0[p_dim + 2 * m:]], 0).contiguous(),
+        w0[p_dim:p_dim + 2 * m].contiguous())
+
+
+def raw_weights(weights) -> ArWeights:
+    """The ArWeights of `weights` (an ArWeights or a PackedArWeights)."""
+    return weights.raw if isinstance(weights, PackedArWeights) else weights
+
+
+def hoisted_base_plain(packed: PackedArWeights, pre, post) -> torch.Tensor:
+    """Plain twin of the hoisted product: the part of the first MLP layer
+    that does not depend on the scan, pre @ w0[0:P] + post @ w0[P+2M:] +
+    b0 for every pixel, (B, hy, wy, H1).  The level scan adds
+    ctx @ w0[P:P+2M] to it (the split form of cat(pre, ctx, post) @ w0 +
+    b0)."""
+    feat = pre.float() if post is None else torch.cat(
+        [pre.float(), post.float()], -1)
+    return feat @ packed.w0_pp + packed.raw.ep_biases[0]
+
+
+def level_rows(hy: int, wy: int, b: int, s: int):
+    """Level s's compacted rows r = bi * cnt_s + p, p < cnt_s, in (b, p)
+    order, as wavefront.cu maps them: (bi, i, j) int64 arrays of length
+    b * cnt_s, pixel (i_min[s] + p, s - 3i) of image bi."""
+    _, i_min, count, _ = schedule(hy, wy)
+    r = np.arange(b * int(count[s]))
+    bi, p = np.divmod(r, int(count[s]))
+    i = i_min[s].astype(np.int64) + p
+    return bi, i, s - 3 * i
+
+
+# wavefront.cu's stage tiles: ROW_TILE rows (kBM) by one of TILE_WIDTHS
+# columns
+ROW_TILE = 64
+TILE_WIDTHS = (8, 16, 32, 64)
+
+
+class StagePlan(NamedTuple):
+    """A stage's tiles: `bn` columns, `kc` k per block (its chunk of K),
+    `kt` k per shared-memory step (multiples of 16)."""
+
+    bn: int
+    kc: int
+    kt: int
+
+
+def stage_shapes(m: int, h1: int, h2: int) -> dict:
+    """Each level stage's (K, N): the context product and the three
+    layers (layer 0 on its 2M context rows only)."""
+    return {"ctx": (12 * m, 2 * m), "layer0": (2 * m, h1),
+            "layer1": (h1, h2), "layer2": (h2, 2 * m)}
+
+
+def stage_plan(m: int, h1: int, h2: int) -> dict:
+    """The level stages' tiles, fixed by the layer widths alone (never by
+    the direction, so encode and decode sum in one order).  At M=192
+    (H1 640, H2 512) and a full level of 121 rows (B=11, 32x32 latents)
+    every launch has >= 96 blocks: ctx 12 column tiles x 4 chunks of 3
+    taps, layer 0 20 x 3, layer 1 32 x 2, layer 2 48 x 1, times 2 row
+    tiles.  Layer 2 is one chunk: it writes g itself."""
+    def part(k, n):    # k / n rounded up to whole k-groups of float4s
+        return -(-k // (16 * n)) * 16
+
+    return {"ctx": StagePlan(32, 3 * m, m),
+            "layer0": StagePlan(32, part(2 * m, 3), part(2 * m, 3)),
+            "layer1": StagePlan(16, part(h1, 2), part(h1, 4)),
+            "layer2": StagePlan(8, h2, part(h2, 2))}
+
+
+# the hoisted product: one chunk of all P + Q rows (kc unused)
+HOIST_PLAN = StagePlan(32, 0, 192)
+
+
+def stage_blocks(plan: dict, shapes: dict, rows: int) -> dict:
+    """Blocks of each stage launch on a level of `rows` compacted rows."""
+    return {name: (-(-rows // ROW_TILE)) * (-(-shapes[name][1] // p.bn))
+            * (-(-shapes[name][0] // p.kc)) for name, p in plan.items()}
+
+
+def weight_bytes_per_level(shapes: dict, rows: int) -> int:
+    """float32 weight bytes the level stages read on a level of `rows`
+    rows: each row tile reads each weight element once."""
+    return sum(4 * k * n for k, n in shapes.values()) * -(-rows // ROW_TILE)
+
+
 def _lib():
     lib = build.load("wavefront")
     if not getattr(lib, "_hesic_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.hesic_ar_hoist.restype = ci
+        lib.hesic_ar_hoist.argtypes = [vp] * 5 + [ci] * 4 + [vp, vp]
         lib.hesic_ar_wavefront.restype = ci
-        lib.hesic_ar_wavefront.argtypes = [vp] * 21 + [ci] * 13 + [vp]
+        lib.hesic_ar_wavefront.argtypes = [vp] * 22 + [ci] * 11 + [vp, vp]
         lib._hesic_typed = True
     return lib
+
+
+def _plan_arg(*plans):
+    flat = [v for p in plans for v in p]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _check_packed(pk: PackedArWeights, dev):
+    raw = pk.raw
+    ts = {"tapk": pk.tapk, "w0_pp": pk.w0_pp, "w0_ctx": pk.w0_ctx,
+          "ctx_bias": raw.ctx_bias, "b0": raw.ep_biases[0],
+          "w1": raw.ep_kernels[1], "b1": raw.ep_biases[1],
+          "w2": raw.ep_kernels[2], "b2": raw.ep_biases[2]}
+    for name, t in ts.items():
+        build.check_cuda_tensor(t, name, torch.float32)
+        if t.device != dev or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned on {dev}")
+
+
+def hoisted_base_cuda(pk: PackedArWeights, pre, post) -> torch.Tensor:
+    """The hoisted product on the card (one wavefront_hoist_kernel
+    launch); same contract as hoisted_base_plain, pk checked by the
+    caller."""
+    b, hy, wy, p_dim = pre.shape
+    h1 = pk.w0_pp.shape[1]
+    base = torch.empty((b, hy, wy, h1), dtype=torch.float32,
+                       device=pre.device)
+    rc = _lib().hesic_ar_hoist(
+        pre.data_ptr(), 0 if post is None else post.data_ptr(),
+        pk.w0_pp.data_ptr(), pk.raw.ep_biases[0].data_ptr(),
+        base.data_ptr(), b * hy * wy, p_dim, pk.q_dim, h1,
+        _plan_arg((HOIST_PLAN.bn, HOIST_PLAN.kt)),
+        torch.cuda.current_stream(pre.device).cuda_stream)
+    build.check_status(rc, "ar_wavefront hoist", "P, Q and H1 multiples "
+                       "of 4, P + Q of 16")
+    return base
 
 
 def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
                       words, counts, states, teacher: bool, mm: int,
                       groups: int):
-    """Kernel 5 on the card: one eye pass, 2 launches per level; same
-    contract as ar_wavefront_plain.  Counts one launch per call."""
-    m, q = _check_args(weights, pre, post, mm, groups)
+    """Kernel 5 on the card: one eye pass, the hoisted product then 5
+    launches per level; same contract as ar_wavefront_plain.  `weights`
+    is a PackedArWeights (an ArWeights is packed on the spot).  Counts
+    one launch per call."""
+    q = 0 if post is None else post.shape[-1]
+    pk = (weights if isinstance(weights, PackedArWeights)
+          else pack_weights(weights, q))
+    if pk.q_dim != q:
+        raise ValueError(f"weights packed for a post input of {pk.q_dim} "
+                         f"channels, got {q}")
+    m, q = _check_args(pk.raw, pre, post, mm, groups)
     b, hy, wy, p_dim = pre.shape
-    h1, h2 = weights.ep_kernels[0].shape[1], weights.ep_kernels[1].shape[1]
+    h1, h2 = pk.raw.ep_kernels[1].shape
     dev = pre.device
     n_levels, _, _, p_max = schedule(hy, wy)
     lanes = b * p_max * (m // groups)
@@ -235,13 +397,7 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
     build.check_cuda_tensor(pre, "pre", torch.float32)
     if post is not None:
         build.check_cuda_tensor(post, "post", torch.float32, (b, hy, wy, q))
-    w = [tap_kernel(weights), weights.ctx_bias, *[
-        t for pair in zip(weights.ep_kernels, weights.ep_biases)
-        for t in pair]]
-    for i, t in enumerate(w):
-        build.check_cuda_tensor(t, f"weights[{i}]", torch.float32)
-        if t.data_ptr() % 16:
-            raise ValueError(f"weights[{i}] must be 16-byte aligned")
+    _check_packed(pk, dev)
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
     if teacher:
         build.check_cuda_tensor(y_true, "y_true", torch.float32, img)
@@ -267,23 +423,39 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
         build.check_cuda_tensor(states, "states", torch.int64, (lanes,))
         x_st = states.clone()
         p_st = counts.clone()
-    g = torch.empty((b * p_max, 2 * m), dtype=torch.float32, device=dev)
+    base = hoisted_base_cuda(pk, pre, post)
+    plan = stage_plan(m, h1, h2)
+    shapes = stage_shapes(m, h1, h2)
+    r_max = b * p_max
+
+    def scratch(name):
+        k, n = shapes[name]
+        chunks = -(-k // plan[name].kc)
+        return torch.empty((chunks, r_max, n), dtype=torch.float32,
+                           device=dev)
+
+    parts = [scratch(name) for name in ("ctx", "layer0", "layer1")]
+    g = torch.empty((r_max, 2 * m), dtype=torch.float32, device=dev)
     starts = torch.zeros((n_levels * groups, lanes), dtype=torch.int32,
                          device=dev)
     freqs = torch.zeros_like(starts)
     y_hat = torch.zeros(img, dtype=torch.float32, device=dev)
     resid = torch.zeros(img, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    raw = pk.raw
     rc = _lib().hesic_ar_wavefront(
-        pre.data_ptr(), 0 if post is None else post.data_ptr(),
-        y_true.data_ptr(), cmask.data_ptr(), cval.data_ptr(),
-        words.data_ptr(), x_st.data_ptr(), p_st.data_ptr(),
-        *[t.data_ptr() for t in w], g.data_ptr(), starts.data_ptr(),
+        base.data_ptr(), y_true.data_ptr(), cmask.data_ptr(),
+        cval.data_ptr(), words.data_ptr(), x_st.data_ptr(), p_st.data_ptr(),
+        pk.tapk.data_ptr(), raw.ctx_bias.data_ptr(), pk.w0_ctx.data_ptr(),
+        raw.ep_kernels[1].data_ptr(), raw.ep_biases[1].data_ptr(),
+        raw.ep_kernels[2].data_ptr(), raw.ep_biases[2].data_ptr(),
+        *[t.data_ptr() for t in parts], g.data_ptr(), starts.data_ptr(),
         freqs.data_ptr(), y_hat.data_ptr(), resid.data_ptr(),
-        b, hy, wy, m, p_dim, q, h1, h2, groups, mm, cap, p_max,
-        1 if teacher else 0, stream)
-    build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, 2M, H1 "
-                       "and H2 multiples of 4 (float4 weight rows)")
+        b, hy, wy, m, h1, h2, groups, mm, cap, p_max, 1 if teacher else 0,
+        _plan_arg(*plan.values()),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, M, H1 "
+                       "and H2 multiples of 16, a stage plan that fits "
+                       "shared memory")
     build.launch_counts[_NAME] += 1
     return starts, freqs, y_hat, resid
 
@@ -292,6 +464,10 @@ def ar_wavefront(weights, pre, post, y_true, corr_mask, corr_val, words,
                  counts, states, teacher: bool, mm: int, groups: int):
     """One eye pass: the kernel for CUDA tensors, the plain twin on the
     CPU."""
-    fn = ar_wavefront_cuda if pre.is_cuda else ar_wavefront_plain
-    return fn(weights, pre, post, y_true, corr_mask, corr_val, words,
-              counts, states, teacher, mm, groups)
+    if pre.is_cuda:
+        return ar_wavefront_cuda(weights, pre, post, y_true, corr_mask,
+                                 corr_val, words, counts, states, teacher,
+                                 mm, groups)
+    return ar_wavefront_plain(raw_weights(weights), pre, post, y_true,
+                              corr_mask, corr_val, words, counts, states,
+                              teacher, mm, groups)

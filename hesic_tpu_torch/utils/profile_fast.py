@@ -11,14 +11,17 @@ mm 32 by default).  ``--model hesic-plus`` builds HESIC+ N=192/M=192 and
 traces ``HESICPlusDeviceCodec.compress`` + ``decompress`` (batch 11,
 mm 16, 8 channel groups, word cap 64 by default: bench.py's HESIC+
 point).  Both use bf16 transforms and random weights from seed 0, warm
-the codec up with one round trip on 512x512 pairs, then trace one round
-trip with ``torch.profiler`` (CPU and CUDA activities).  Prints the card,
-the encode and decode wall times, the device time by kernel group (the
-port's kernels 1-5, cuDNN convolutions, other PyTorch kernels), the
-device's busy and idle shares of the wall time, and the ten longest
-kernels by name, then one JSON line with the same numbers.  Device time
-is the sum of the kernels' own times on the card (one stream, so kernels
-do not overlap).
+the codec up with one round trip on 512x512 pairs, time one untraced
+round trip, then trace one with ``torch.profiler`` (CPU and CUDA
+activities).  Prints the card, the encode and decode wall times, traced
+and untraced (tracing adds host time to every launch), the device time
+by kernel group (the port's kernels 1-5, cuDNN convolutions, other
+PyTorch kernels), the device's busy and idle shares of the traced wall
+time, and the ten longest
+kernels by name, then one JSON line with the same numbers.  Kernel 5's
+launches group as its hoisted product, its context stage, its three MLP
+stages and its coder.  Device time is the sum of the kernels' own times
+on the card (one stream, so kernels do not overlap).
 """
 
 from __future__ import annotations
@@ -67,8 +70,12 @@ _GROUPS = (("kernel 1 gmm_freq", ("gmm_freq_kernel",)),
            ("kernel 2 grid_rans_encode", ("grid_rans_encode_kernel",)),
            ("kernel 3 grid_rans_decode", ("grid_rans_decode_kernel",)),
            ("kernel 4 pairs_rans_encode", ("pairs_rans_encode_kernel",)),
-           ("kernel 5 wavefront params", ("wavefront_params_kernel",)),
-           ("kernel 5 wavefront coder", ("wavefront_coder_kernel",)),
+           ("kernel 5 hoisted product", ("wavefront_hoist_kernel",)),
+           ("kernel 5 ctx", ("wavefront_ctx_kernel",)),
+           ("kernel 5 MLP", ("wavefront_layer0_kernel",
+                             "wavefront_layer1_kernel",
+                             "wavefront_layer2_kernel")),
+           ("kernel 5 coder", ("wavefront_coder_kernel",)),
            ("cuDNN convolutions", ("conv", "cudnn", "xmma", "gemm",
                                    "fprop", "dgrad", "wgrad")))
 
@@ -144,6 +151,9 @@ def main(argv=None) -> int:
 
     trip(x1, x2, h)
     torch.cuda.synchronize()
+    # the same round trip untraced: tracing adds host time to every launch
+    plain, plain_rec, _ = trip(x1, x2, h)
+    torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         out, rec, outliers = trip(x1, x2, h)
@@ -171,7 +181,9 @@ def main(argv=None) -> int:
           f"{out['bpp_real']:.6f}, outliers/escapes "
           f"{outliers[0]}/{outliers[1]}, encode "
           f"{out['enctime'] * 1e3:.2f} ms, decode "
-          f"{rec['dectime'] * 1e3:.2f} ms wall")
+          f"{rec['dectime'] * 1e3:.2f} ms wall traced; untraced encode "
+          f"{plain['enctime'] * 1e3:.2f} ms, decode "
+          f"{plain_rec['dectime'] * 1e3:.2f} ms wall")
     if not kernels:
         print("device time: not measured (the profiler saw no CUDA "
               "kernels)")
@@ -190,7 +202,10 @@ def main(argv=None) -> int:
         "card": card, "model": args.model, "batch": b, "size": SIZE,
         "homography": args.homography, "mm_cap": mm,
         "bpp_real": out["bpp_real"], "encode_ms": out["enctime"] * 1e3,
-        "decode_ms": rec["dectime"] * 1e3, "device_busy_ms": busy_ms,
+        "decode_ms": rec["dectime"] * 1e3,
+        "untraced_encode_ms": plain["enctime"] * 1e3,
+        "untraced_decode_ms": plain_rec["dectime"] * 1e3,
+        "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
         "groups_ms": {k: v[0] for k, v in groups.items()},
         "launches": {k: v[1] for k, v in groups.items()}}))

@@ -14,6 +14,11 @@ JAX package on the CPU.
   last bits).
 * Round trip on the CPU: teacher pass -> the pairs encoder -> decode
   pass, with the escape side-channel: y_hat and residuals bit-exact.
+* The CUDA kernel's arithmetic layout, in plain torch: the packed weights,
+  the compacted row map of every level, the split form of the first MLP
+  layer (the hoisted product plus the context rows) against JAX's
+  concatenated form and against JAX's level scan, and the stage tile plan
+  against the design's rules at HESIC+'s shapes.
 """
 
 import numpy as np
@@ -34,8 +39,11 @@ from hesic_tpu_torch.codecs.pairs_rans import rans_encode_pairs
 from hesic_tpu_torch.models.ar_device import (TAPS, schedule,
                                               wavefront_valid_mask)
 from hesic_tpu_torch.models.autoregressive import ArWeights
-from hesic_tpu_torch.models.wavefront import (ar_wavefront,
-                                              ar_wavefront_cuda, freq_rows)
+from hesic_tpu_torch.models.wavefront import (
+    HOIST_PLAN, ROW_TILE, TILE_WIDTHS, PackedArWeights, ar_wavefront,
+    ar_wavefront_cuda, freq_rows, hoisted_base_plain, level_pixels,
+    level_rows, pack_weights, raw_weights, stage_blocks, stage_plan,
+    stage_shapes, tap_kernel, weight_bytes_per_level)
 
 torch.set_num_threads(2)
 
@@ -167,3 +175,136 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         ar_wavefront_cuda(_weights(w, "torch"), torch.from_numpy(pre), None,
                           torch.from_numpy(y), None, None, None, None, None,
                           True, case[4], case[5])
+
+
+@pytest.mark.parametrize("q_dim", [0, 16])
+def test_pack_weights_split_w0(q_dim):
+    w, _, _, _ = _setup(0, 1, 4, 4, 16, 3, 2, q_dim)
+    raw = _weights(w, "torch")
+    pk = pack_weights(raw, q_dim)
+    m = 16
+    w0 = raw.ep_kernels[0]
+    p_dim = w0.shape[0] - 2 * m - q_dim
+    assert raw_weights(pk) is raw and raw_weights(raw) is raw
+    assert pk.q_dim == q_dim
+    torch.testing.assert_close(pk.tapk, tap_kernel(raw), rtol=0, atol=0)
+    torch.testing.assert_close(pk.w0_ctx, w0[p_dim:p_dim + 2 * m], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        pk.w0_pp, torch.cat([w0[:p_dim], w0[p_dim + 2 * m:]]), rtol=0, atol=0)
+    assert all(t.is_contiguous() for t in (pk.tapk, pk.w0_pp, pk.w0_ctx))
+    with pytest.raises(ValueError, match="fewer than"):
+        pack_weights(raw, w0.shape[0])
+
+
+@pytest.mark.parametrize("hy,wy", [(4, 4), (5, 9), (8, 3), (1, 7),
+                                   (32, 32)])
+def test_level_rows_name_valid_pixels(hy, wy):
+    """Level s's compacted rows are exactly the valid pixels of
+    level_pixels, image by image, in (b, p) order."""
+    b = 3
+    n_levels, p_max, i_of, j_of, valid = level_pixels(hy, wy)
+    for s in range(n_levels):
+        bi, i, j = level_rows(hy, wy, b, s)
+        p = np.flatnonzero(valid[s])
+        np.testing.assert_array_equal(bi, np.repeat(np.arange(b), p.size))
+        np.testing.assert_array_equal(i, np.tile(i_of[s, p], b))
+        np.testing.assert_array_equal(j, np.tile(j_of[s, p], b))
+        assert ((i >= 0) & (i < hy) & (j >= 0) & (j < wy)).all()
+
+
+def _ctx_rows(raw, y_hat, bi, i, j):
+    """The context input of pixels (bi, i, j) from a finished y_hat (every
+    mask-A tap lies at an earlier level, so its value is final)."""
+    b, hy, wy, m = y_hat.shape
+    buf = torch.zeros((b, hy + 2, wy + 4, m))
+    buf[:, 2:, 2:wy + 2] = y_hat
+    bi, i, j = (torch.from_numpy(a) for a in (bi, i, j))
+    taps = [buf[bi, i + 2 + di, j + 2 + dj] for di, dj in TAPS]
+    return torch.cat(taps, 1) @ tap_kernel(raw) + raw.ctx_bias
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[1]])
+def test_split_first_layer_matches_jax(case):
+    """The kernel's split first layer, base (the hoisted product) + ctx @
+    w0[P:P+2M], against cat(pre, ctx, post) @ w0 + b0 in JAX within 2e-6
+    (f32, sums in another order), and carried through the MLP to the means
+    it reproduces JAX's level scan: residuals equal, resid + means within
+    1e-5 of its y_hat.  Eye 1 (no post) and eye 2 (post)."""
+    b, hy, wy, m, mm, groups, q_dim = case
+    w, pre, post, y = _setup(0, *case)
+    _, _, _, p_max = schedule(hy, wy)
+    lanes = b * p_max * (m // groups)
+    zimg = jnp.zeros((b, hy, wy, m), jnp.int32)
+    zl = jnp.zeros((lanes,), jnp.int32)
+    _, _, yh_j, rs_j = (np.asarray(a) for a in j_ar_wavefront(
+        _weights(w, "jax"), jnp.asarray(pre), jnp.asarray(post),
+        jnp.asarray(y), zimg, zimg, jnp.zeros((lanes, 1), jnp.int32), zl,
+        zl.astype(jnp.uint32), jnp.bool_(True), hy, wy, mm, groups))
+    raw = _weights(w, "torch")
+    pk = pack_weights(raw, q_dim)
+    post_t = torch.from_numpy(post) if q_dim else None
+    base = hoisted_base_plain(pk, torch.from_numpy(pre), post_t)
+    assert base.shape == (b, hy, wy, raw.ep_kernels[0].shape[1])
+    w0, w1, w2 = raw.ep_kernels
+    b0, b1, b2 = raw.ep_biases
+    n_levels = schedule(hy, wy)[0]
+    for s in range(n_levels):
+        bi, i, j = level_rows(hy, wy, b, s)
+        ctx = _ctx_rows(raw, torch.tensor(yh_j), bi, i, j)
+        split = base[bi, i, j] + ctx @ pk.w0_ctx
+        feat = [pre[bi, i, j], ctx.numpy()] + ([post[bi, i, j]] if q_dim
+                                               else [])
+        cat = np.asarray(jnp.dot(jnp.concatenate(feat, -1), w["ep_kernels"][0])
+                         + w["ep_biases"][0])
+        assert np.abs(split.numpy() - cat).max() <= 2e-6, s
+        g = torch.nn.functional.leaky_relu(split, 0.01)
+        g = torch.nn.functional.leaky_relu(g @ w1 + b1, 0.01) @ w2 + b2
+        means = g[:, m:].numpy()
+        np.testing.assert_array_equal(
+            np.round(y[bi, i, j] - means).astype(np.int32), rs_j[bi, i, j])
+        assert np.abs(rs_j[bi, i, j] + means - yh_j[bi, i, j]).max() < 1e-5
+
+
+def test_packed_weights_run_the_plain_twin():
+    case = CASES[1]
+    w, pre, post, y = _setup(2, *case)
+    raw = _weights(w, "torch")
+    args = (torch.from_numpy(pre), torch.from_numpy(post),
+            torch.from_numpy(y), None, None, None, None, None, True,
+            case[4], case[5])
+    got = ar_wavefront(pack_weights(raw, case[6]), *args)
+    want = ar_wavefront(raw, *args)
+    assert isinstance(pack_weights(raw, case[6]), PackedArWeights)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_stage_plan_meets_design_rules():
+    """HESIC+ at M=192 (H1 640, H2 512), B=11, 32x32 latents: every stage
+    launch of a full level (121 rows) has >= 96 blocks; rows come in tiles
+    of >= 64, so each weight element is read by <= 2 blocks per level;
+    the context chunks are whole taps; layer 2 is one chunk (it writes
+    g); every level's launches have blocks; the hoisted product is one
+    chunk per column tile."""
+    m, h1, h2, b = 192, 640, 512, 11
+    plan = stage_plan(m, h1, h2)
+    shapes = stage_shapes(m, h1, h2)
+    assert list(plan) == ["ctx", "layer0", "layer1", "layer2"]
+    assert ROW_TILE >= 64
+    _, _, count, p_max = schedule(32, 32)
+    full = b * p_max
+    assert full == 121 and -(-full // ROW_TILE) <= 2
+    assert min(stage_blocks(plan, shapes, full).values()) >= 96
+    for rows in b * np.unique(count):
+        assert min(stage_blocks(plan, shapes, int(rows)).values()) >= 1
+    for name, p in plan.items():
+        k, _ = shapes[name]
+        assert p.bn in TILE_WIDTHS
+        assert p.kc % 16 == 0 and p.kt % 16 == 0 and p.kt <= p.kc
+    assert plan["ctx"].kc % m == 0 and m % plan["ctx"].kt == 0
+    assert plan["layer2"].kc >= h2
+    assert HOIST_PLAN.bn in TILE_WIDTHS and HOIST_PLAN.kt % 16 == 0
+    weights = sum(4 * k * n for k, n in shapes.values())
+    assert weight_bytes_per_level(shapes, full) == 2 * weights
+    assert weight_bytes_per_level(shapes, b) == weights
