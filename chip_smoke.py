@@ -15,7 +15,12 @@ and prints no result):
      seeded inputs at the HESIC fast path's shapes (B=8, M=192, K=5,
      32x32 latents, ppl=8, every grid bucket mm 4, 8, 16 and 32, pooled
      weights): the results must be bit-equal (tolerance 0); times kernel
-     and twin;
+     and twin.  Kernels 2 and 3 also on kernel 1's rows at mm 64 (S=129),
+     at ragged lane layouts (ppl 1, 10x10 and 9x10 latents) and at
+     bench.py's batch 64, mm 16; prints each launch's plan (lane group,
+     ring depth, blocks, shared memory), and where kernel 3 could use
+     either CDF search also holds and times the one its plan did not
+     pick;
   4. holds kernels 4 and 5 against their twins at the HESIC+ path's
      shapes (B=11, 32x32 latents, M=192, mm 16, 8 channel groups: 125
      levels, 2904 lanes, 1000 slots; the model's seeded weights; inputs
@@ -164,17 +169,18 @@ def check_equal(name: str, got, want) -> int:
     return err
 
 
-def pmf_inputs(mm: int, seed: int):
+def pmf_inputs(mm: int, seed: int, b: int = B, hy: int = LAT,
+               wy: int = LAT):
     """Seeded head outputs at the main path's shapes: sigma, means
-    (B, K*M, h, w), pooled softmax weights (B, K*M, 1, 1), centres."""
+    (b, K*M, hy, wy), pooled softmax weights (b, K*M, 1, 1), centres."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
-    center = rng.randint(-6, 7, (B, M)).astype(np.int32)
+    center = rng.randint(-6, 7, (b, M)).astype(np.int32)
     mu = (np.repeat(center[:, None, :], K, 1)[..., None, None]
-          + rng.randn(B, K, M, LAT, LAT) * (mm / 6.0))
-    sigma = np.abs(rng.randn(B, K, M, LAT, LAT)) * (mm / 8.0) + 0.05
-    logits = rng.randn(B, K, M)
+          + rng.randn(b, K, M, hy, wy) * (mm / 6.0))
+    sigma = np.abs(rng.randn(b, K, M, hy, wy)) * (mm / 8.0) + 0.05
+    logits = rng.randn(b, K, M)
     w = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
     dev = DEVICE
 
@@ -182,12 +188,30 @@ def pmf_inputs(mm: int, seed: int):
         return torch.from_numpy(np.ascontiguousarray(
             a.reshape(shape), np.float32)).to(dev)
 
-    return (t(sigma, (B, K * M, LAT, LAT)), t(mu, (B, K * M, LAT, LAT)),
-            t(w, (B, K * M, 1, 1)), torch.from_numpy(center).to(dev))
+    return (t(sigma, (b, K * M, hy, wy)), t(mu, (b, K * M, hy, wy)),
+            t(w, (b, K * M, 1, 1)), torch.from_numpy(center).to(dev))
+
+
+def kernel1_rows(mm: int, seed: int, b: int, hy: int, wy: int):
+    """Frequency rows (b, M, 2*mm+1, hy*wy) from kernel 1 on seeded head
+    outputs: valid rows (sum 65536, every bin >= 1) shaped as the codec's."""
+    from hesic_tpu_torch.codecs import pmf
+    sigma, mu, w, center = pmf_inputs(mm, seed, b, hy, wy)
+    return pmf.gmm_freq_cuda(sigma, mu, w, mm, K, center)
+
+
+def row_symbols(freq, seed: int):
+    """Symbols (M, B, hw) int32 drawn from each row's own distribution."""
+    import torch
+    b, m, _, hw = freq.shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = torch.randint(0, 1 << 16, (b, m, 1, hw), generator=g,
+                      device=DEVICE)
+    sym = (torch.cumsum(freq, dim=2) <= u).sum(dim=2).to(torch.int32)
+    return sym.permute(1, 0, 2).contiguous()
 
 
 def phase_pmf(mm: int, seed: int) -> dict:
-    import torch
     from hesic_tpu_torch.codecs import pmf
     sigma, mu, w, center = pmf_inputs(mm, seed)
     got = pmf.gmm_freq_cuda(sigma, mu, w, mm, K, center)
@@ -214,44 +238,70 @@ def phase_pmf(mm: int, seed: int) -> dict:
             "bound_ms": bound[by], "bound_by": by}
 
 
-def phase_rans(freq, mm: int, seed: int) -> dict:
+def plan_text(plan) -> str:
+    return (f"LG {plan.lg}, D {plan.d}, ahead {plan.ahead}, {plan.blocks} "
+            f"blocks x {plan.threads} threads, {plan.smem} B shared, "
+            f"{4 * plan.vec}-byte copies")
+
+
+def phase_rans(freq, label: str, seed: int, ppl: int = PPL,
+               reps: int = 5) -> dict:
     """Kernels 2 and 3 on realistic rows: symbols drawn from each row's
-    own distribution, the main path's ppl and initial word budget."""
+    own distribution, `ppl` positions per lane and the codec's initial
+    word budget for it (retried with room for every word, as the codec
+    does).  Both must be bit-equal to their twins; times both."""
     import torch
     from hesic_tpu_torch.codecs import grid_rans
     from hesic_tpu_torch.models.hesic_fast import enc_cap
     b, m, s, hw = freq.shape
-    ls = hw // PPL
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    u = torch.randint(0, 1 << 16, (b, m, 1, hw), generator=g,
-                      device=DEVICE)
-    sym = (torch.cumsum(freq, dim=2) <= u).sum(dim=2).to(torch.int32)
-    sym_mbl = sym.permute(1, 0, 2).contiguous()
-    cap = enc_cap(PPL, m)
-    enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap)
-    ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, PPL, cap)
+    ls = hw // ppl
+    sym_mbl = row_symbols(freq, seed)
+    sym = sym_mbl.permute(1, 0, 2)
+    cap = enc_cap(ppl, m) or grid_rans.default_cap(m, ppl)
+    enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, ppl, cap)
+    ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, ppl, cap)
     sync()
-    err_e = max(check_equal(f"encode {n} mm={mm}", a, r)
+    err_e = max(check_equal(f"encode {n} {label}", a, r)
                 for n, a, r in zip(("words", "counts", "states"), enc, ref))
     cmax = int(enc[1].max())
     if cmax > cap:      # the codec's retry: re-encode with room for all
         cap = -(-cmax // 16) * 16
-        enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap)
+        enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, ppl, cap)
+        ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, ppl, cap)
+        sync()
+        err_e = max([err_e] + [
+            check_equal(f"encode {n} {label}, cap {cap}", a, r)
+            for n, a, r in zip(("words", "counts", "states"), enc, ref)])
     enc_ms = cuda_ms(
-        lambda: grid_rans.rans_encode_grid_cuda(freq, sym_mbl, PPL, cap), 5)
+        lambda: grid_rans.rans_encode_grid_cuda(freq, sym_mbl, ppl, cap),
+        reps)
     enc_plain_ms = cuda_ms(
-        lambda: grid_rans.rans_encode_grid_plain(freq, sym_mbl, PPL, cap), 1)
+        lambda: grid_rans.rans_encode_grid_plain(freq, sym_mbl, ppl, cap), 1)
 
     words, counts, states = enc
-    dec = grid_rans.rans_decode_grid_cuda(freq, words, counts, states, PPL)
-    dref = grid_rans.rans_decode_grid_plain(freq, words, counts, states, PPL)
+    dec = grid_rans.rans_decode_grid_cuda(freq, words, counts, states, ppl)
+    dref = grid_rans.rans_decode_grid_plain(freq, words, counts, states, ppl)
     sync()
-    err_d = check_equal(f"decode mm={mm}", dec, dref)
-    check_equal(f"decode inverts encode mm={mm}", dec, sym_mbl)
+    err_d = check_equal(f"decode {label}", dec, dref)
+    check_equal(f"decode inverts encode {label}", dec, sym_mbl)
     dec_ms = cuda_ms(lambda: grid_rans.rans_decode_grid_cuda(
-        freq, words, counts, states, PPL), 5)
+        freq, words, counts, states, ppl), reps)
     dec_plain_ms = cuda_ms(lambda: grid_rans.rans_decode_grid_plain(
-        freq, words, counts, states, PPL), 1)
+        freq, words, counts, states, ppl), 1)
+    plan_d = grid_rans._launch_plan(ppl, False, freq)
+    alt = ""
+    if grid_rans.split_entries(s):
+        # the search the plan did not pick, on the same words: the
+        # measurement behind grid_rans.SPLIT_MAX_S (not counted)
+        other = plan_d._replace(
+            search="binary" if plan_d.search == "split" else "split")
+        dec_o = grid_rans._launch_decode(other, freq, words, counts, states,
+                                         ppl)
+        sync()
+        check_equal(f"decode, {other.search} search, {label}", dec_o, dref)
+        other_ms = cuda_ms(lambda: grid_rans._launch_decode(
+            other, freq, words, counts, states, ppl), reps)
+        alt = f"; {other.search} search {other_ms:.4f} ms, bit-equal"
 
     # data-dependent bytes: a symbol's interval needs its row's first
     # sym+1 entries; each input read once, each output written once
@@ -261,19 +311,22 @@ def phase_rans(freq, mm: int, seed: int) -> dict:
     enc_bytes = row_bytes + 4 * m * b * hw + words_bytes + io_lanes
     dec_bytes = row_bytes + words_bytes + io_lanes + 4 * m * b * hw
     words_per_lane = float(counts.double().mean())
-    print(f"kernel grid_rans_encode mm={mm}: bit-equal to plain (words, "
-          f"counts, states); {enc_ms:.3f} ms kernel, {enc_plain_ms:.1f} ms "
-          f"plain; cap {cap}, mean {words_per_lane:.1f} words/lane")
-    print(f"kernel grid_rans_decode mm={mm}: bit-equal to plain and to the "
-          f"encoded symbols; {dec_ms:.3f} ms kernel, {dec_plain_ms:.1f} ms "
-          f"plain")
+    plan_e = grid_rans._launch_plan(ppl, True, freq, sym_mbl)
+    bound_e = enc_bytes / PEAK_BYTES * 1e3
+    bound_d = dec_bytes / PEAK_BYTES * 1e3
+    print(f"kernel grid_rans_encode {label}: bit-equal to plain (words, "
+          f"counts, states); {enc_ms:.4f} ms kernel, {enc_plain_ms:.1f} ms "
+          f"plain, bound {bound_e:.4f} ms by bytes; cap {cap}, mean "
+          f"{words_per_lane:.1f} words/lane; plan {plan_text(plan_e)}")
+    print(f"kernel grid_rans_decode {label}: bit-equal to plain and to the "
+          f"encoded symbols; {dec_ms:.4f} ms kernel, {dec_plain_ms:.1f} ms "
+          f"plain, bound {bound_d:.4f} ms by bytes; plan "
+          f"{plan_text(plan_d)}, {plan_d.search} search{alt}")
     return {
         "encode": {"err": err_e, "ms": enc_ms, "plain_ms": enc_plain_ms,
-                   "bound_ms": enc_bytes / PEAK_BYTES * 1e3,
-                   "bound_by": "bytes"},
+                   "bound_ms": bound_e, "bound_by": "bytes"},
         "decode": {"err": err_d, "ms": dec_ms, "plain_ms": dec_plain_ms,
-                   "bound_ms": dec_bytes / PEAK_BYTES * 1e3,
-                   "bound_by": "bytes"},
+                   "bound_ms": bound_d, "bound_by": "bytes"},
     }
 
 
@@ -699,10 +752,20 @@ def main() -> int:
     results = {}
     for i, mm in enumerate(MM_BUCKETS):
         pmf_r = phase_pmf(mm, seed=2 * i + 1)
-        results[mm] = (pmf_r, phase_rans(pmf_r.pop("freq"), mm,
+        results[mm] = (pmf_r, phase_rans(pmf_r.pop("freq"), f"mm={mm}",
                                          seed=2 * i + 2))
     pmf32, rans32 = results[32]
-    torch.cuda.empty_cache()
+    # kernels 2 and 3 beyond the buckets, on kernel 1's rows: a codec
+    # built with mm 64 (S = 129), ragged lane groups at ppl 1 (10x10
+    # latents: 100 lanes, 16-byte copies; 9x10: 90 lanes, 4-byte copies),
+    # and bench.py's point (batch 64, mm 16)
+    for label, mm, b, hy, wy, ppl in (
+            ("mm=64", 64, B, LAT, LAT, PPL),
+            ("mm=16 10x10 ppl 1", 16, B, 10, 10, 1),
+            ("mm=16 9x10 ppl 1", 16, B, 9, 10, 1),
+            ("mm=16 B=64", 16, 64, LAT, LAT, PPL)):
+        phase_rans(kernel1_rows(mm, 11, b, hy, wy), label, seed=12, ppl=ppl)
+        torch.cuda.empty_cache()
 
     model, codec, pairs, eyes = ar_setup()
     ar = {label: phase_wavefront(label, *args)

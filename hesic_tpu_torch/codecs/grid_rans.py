@@ -17,11 +17,14 @@ larger cap.
 
 ``rans_encode_grid_rows``/``rans_decode_grid_rows`` dispatch on the
 device of their input: a CPU tensor runs the plain twin, a CUDA tensor
-launches the kernel (csrc/grid_rans.cu) or raises.
+launches the kernel (csrc/grid_rans.cu) or raises.  ``rans_plan`` picks
+each launch's lane groups, shared-memory ring and search from the
+layout and the card's SM count.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -31,6 +34,75 @@ from .device_rans import freq_to_cdf, rans_decode_grid, rans_encode_grid
 
 _ENC = "grid_rans_encode"
 _DEC = "grid_rans_decode"
+
+# Hopper: the dynamic shared memory one block may opt into (227 KB), and
+# one SM's shared memory (228 KB, of which each resident block reserves
+# 1 KB); the H100 SXM's SM count, the plan's default off the card
+SM_COUNT = 132
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+WARPS_SM = 64           # resident warps an SM holds
+LANE_GROUP = 8          # lanes a block owns: a 32-byte row segment
+HELPER_WARPS = 8        # staging warps per block, beside the chain warp
+MAX_STAGES = 32         # ring depth D, in steps
+MAX_AHEAD = 4           # own steps each helper keeps loading ahead
+SPLIT_ENTRIES = (4, 8, 16)      # CDF entries per thread the kernel takes
+# the widest rows the decoder searches by split count: on the H100 it beat
+# the binary search at mm 4-16 (S <= 33) and lost at mm 32 (PERF.md)
+SPLIT_MAX_S = 33
+WORD_RING_BYTES = 4 * 32 * 32   # the decoder's per-thread word slots
+
+RansPlan = collections.namedtuple(
+    "RansPlan", "lg d helpers ahead vec search blocks threads smem")
+
+
+def stage_ints(s: int, lg: int, encode: bool) -> int:
+    """int32 per ring stage: S rows of LG lanes, then the LG symbols; the
+    encoder's also hold LG (start, f, 1/f) intervals."""
+    return (s + 4) * lg if encode else (s + 1) * lg
+
+
+def split_entries(s: int) -> int:
+    """CDF entries per thread of the split search (a lane's first S-1
+    entries over its 4 threads; the helpers' segments are one row longer),
+    0 when S is too wide for it (the kernels then loop)."""
+    return next((n for n in SPLIT_ENTRIES if 4 * n >= s - 1), 0)
+
+
+def rans_plan(b: int, s: int, hw: int, ppl: int, encode: bool = False,
+              sm_count: int = SM_COUNT) -> RansPlan:
+    """The launch plan of kernel 2 (``encode``) or 3 for (B, S, hw, ppl).
+
+    LG = LANE_GROUP lanes of one pair per block (each staged row segment
+    is one 32-byte sector), B * ceil(ls / LG) blocks of H helper warps
+    and one chain warp (H = HELPER_WARPS, fewer when the blocks each of
+    the card's ``sm_count`` SMs must hold would exceed its warps).  A
+    ring of D stages (even, <= MAX_STAGES), the deepest with which the
+    blocks that share an SM fit its shared memory (at least 2H); each
+    helper keeps ``ahead`` =
+    min(MAX_AHEAD, D/H - 1) of its own steps loading.  Copies of 16
+    bytes when every row segment is 16-byte aligned (hw and ls multiples
+    of 4), else of 4.  The decoder's search: ``split`` (4 threads a
+    lane, each counting its CDF entries held in registers) up to S =
+    SPLIT_MAX_S, else ``binary``.  A plan whose ring exceeds SMEM_BLOCK
+    is refused by the kernel's entry point.
+    """
+    ls = hw // ppl
+    lg = LANE_GROUP
+    blocks = b * -(-ls // lg)
+    per_sm = -(-blocks // sm_count)
+    stage = 4 * stage_ints(s, lg, encode) + 24       # + three mbarriers
+    extra = 0 if encode else WORD_RING_BYTES
+    h = max(2, min(HELPER_WARPS, WARPS_SM // per_sm - 1))
+    for d in range(MAX_STAGES, 2 * h - 1, -2):
+        smem = d * stage + extra
+        if smem <= SMEM_BLOCK and per_sm * (smem + 1024) <= SMEM_SM:
+            break
+    ahead = max(1, min(MAX_AHEAD, d // h - 1))
+    search = "split" if s <= SPLIT_MAX_S else "binary"
+    vec = 4 if hw % 4 == 0 and ls % 4 == 0 else 1
+    return RansPlan(lg, d, h, ahead, vec, search, blocks, 32 * (h + 1),
+                    smem)
 
 
 def default_cap(m: int, ppl: int) -> int:
@@ -91,9 +163,9 @@ def _lib():
     if not getattr(lib, "_hesic_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.hesic_grid_rans_encode.restype = ci
-        lib.hesic_grid_rans_encode.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        lib.hesic_grid_rans_encode.argtypes = [vp] * 5 + [ci] * 12 + [vp]
         lib.hesic_grid_rans_decode.restype = ci
-        lib.hesic_grid_rans_decode.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        lib.hesic_grid_rans_decode.argtypes = [vp] * 5 + [ci] * 13 + [vp]
         lib._hesic_typed = True
     return lib
 
@@ -105,6 +177,24 @@ def _check_layout(s, hw, ppl):
         raise ValueError(f"row length S={s} out of range")
 
 
+def _launch_plan(ppl: int, encode: bool, *staged) -> RansPlan:
+    """rans_plan for the layout of staged[0] (freq) on its card, with
+    4-byte copies unless every staged tensor starts 16-byte aligned."""
+    b, _, s, hw = staged[0].shape
+    sms = torch.cuda.get_device_properties(
+        staged[0].device).multi_processor_count
+    plan = rans_plan(b, s, hw, ppl, encode, sms)
+    if any(t.data_ptr() % 16 for t in staged):
+        plan = plan._replace(vec=1)
+    return plan
+
+
+def _limits(plan: RansPlan, s: int) -> str:
+    return (f"S={s}, D={plan.d}, H={plan.helpers}, ahead={plan.ahead}: "
+            f"the ring's {plan.smem} bytes must fit {SMEM_BLOCK}, S >= 2, "
+            f"D >= (ahead + 1) * H, H <= 15")
+
+
 def rans_encode_grid_cuda(freq, sym_mbl, ppl: int = 1, cap: int = None):
     """Kernel 2 on the card; same contract as rans_encode_grid_plain."""
     b, m, s, hw = freq.shape
@@ -113,14 +203,17 @@ def rans_encode_grid_cuda(freq, sym_mbl, ppl: int = 1, cap: int = None):
     cap = default_cap(m, ppl) if cap is None else cap
     build.check_cuda_tensor(freq, "freq", torch.int32)
     build.check_cuda_tensor(sym_mbl, "sym", torch.int32, (m, b, hw))
+    plan = _launch_plan(ppl, True, freq, sym_mbl)
     words = torch.empty((b, cap, ls), dtype=torch.int32, device=freq.device)
     counts = torch.empty((b, ls), dtype=torch.int32, device=freq.device)
     states = torch.empty((b, ls), dtype=torch.int64, device=freq.device)
     stream = torch.cuda.current_stream(freq.device).cuda_stream
     rc = _lib().hesic_grid_rans_encode(
         freq.data_ptr(), sym_mbl.data_ptr(), words.data_ptr(),
-        counts.data_ptr(), states.data_ptr(), b, m, s, hw, ppl, cap, stream)
-    build.check_status(rc, _ENC)
+        counts.data_ptr(), states.data_ptr(), b, m, s, hw, ppl, cap,
+        plan.d, plan.helpers, plan.ahead, plan.vec, split_entries(s),
+        plan.smem, stream)
+    build.check_status(rc, _ENC, _limits(plan, s))
     build.launch_counts[_ENC] += 1
     return words, counts, states
 
@@ -137,13 +230,23 @@ def rans_decode_grid_cuda(freq, words, counts, states, ppl: int = 1):
     build.check_cuda_tensor(states, "states", torch.int64, (b, ls))
     if cap < 1:
         raise ValueError("words must hold at least one column")
+    syms = _launch_decode(_launch_plan(ppl, False, freq), freq, words,
+                         counts, states, ppl)
+    build.launch_counts[_DEC] += 1
+    return syms
+
+
+def _launch_decode(plan: RansPlan, freq, words, counts, states, ppl: int):
+    """Kernel 3 under `plan` on checked arguments; counts no launch."""
+    b, m, s, hw = freq.shape
     syms = torch.empty((m, b, hw), dtype=torch.int32, device=freq.device)
     stream = torch.cuda.current_stream(freq.device).cuda_stream
     rc = _lib().hesic_grid_rans_decode(
         freq.data_ptr(), words.data_ptr(), counts.data_ptr(),
-        states.data_ptr(), syms.data_ptr(), b, m, s, hw, ppl, cap, stream)
-    build.check_status(rc, _DEC)
-    build.launch_counts[_DEC] += 1
+        states.data_ptr(), syms.data_ptr(), b, m, s, hw, ppl,
+        words.shape[1], plan.d, plan.helpers, plan.ahead, plan.vec,
+        split_entries(s), int(plan.search == "split"), plan.smem, stream)
+    build.check_status(rc, _DEC, _limits(plan, s))
     return syms
 
 

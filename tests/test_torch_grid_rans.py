@@ -6,8 +6,11 @@ Integer arithmetic is the same on every backend, so on IDENTICAL frequency
 rows and symbols the port must reproduce the JAX package exactly:
 words, counts and states bit-equal to ``rans_encode_grid_pallas``
 (interpret mode) and to ``device_rans.rans_encode_grid``, for ppl 1 and 2
-and when the word budget overflows; the port decodes the JAX words back
-to the symbols; the container packing is byte-identical.
+and when the word budget overflows, and at the fast codec's own layout
+(ppl 8, hw 1024) and a ragged one (ppl 1, hw 100); the port decodes the
+JAX words back to the symbols; the container packing is byte-identical.
+The kernels' launch plan (``grid_rans.rans_plan``) is checked on the
+shapes the codec and bench.py give it.
 """
 
 import numpy as np
@@ -100,6 +103,92 @@ def test_port_decodes_jax_words(ppl):
     jdec = rans_decode_grid_pallas(jnp.asarray(freq), wp, cp, sp, ppl=ppl,
                                    interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jdec))
+
+
+@pytest.mark.parametrize("b,m,s,hw,ppl", [(2, 4, 9, 1024, 8),
+                                           (2, 6, 33, 100, 1)],
+                         ids=["main-path-ppl8-hw1024", "ragged-ppl1-hw100"])
+def test_codec_layouts_bit_equal_to_pallas(b, m, s, hw, ppl):
+    """The layouts kernels 2 and 3 meet: the fast codec's (ppl 8, ls 128)
+    and a ragged lane count (ls 100, not a multiple of the lane group)."""
+    freq, sym = _case(20 + ppl, b=b, m=m, s=s, hw=hw)
+    cap = grid_rans.default_cap(m, ppl)
+    words, counts, states = grid_rans.rans_encode_grid_rows(
+        torch.from_numpy(freq), torch.from_numpy(sym), ppl=ppl, cap=cap)
+    wp, cp, sp = rans_encode_grid_pallas(jnp.asarray(freq), jnp.asarray(sym),
+                                         ppl=ppl, cap=cap, interpret=True)
+    np.testing.assert_array_equal(words.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(cp))
+    np.testing.assert_array_equal(states.numpy(),
+                                  np.asarray(sp).astype(np.int64))
+    got = grid_rans.rans_decode_grid_rows(torch.from_numpy(freq), words,
+                                          counts, states, ppl=ppl)
+    np.testing.assert_array_equal(got.numpy(), sym)
+    jdec = rans_decode_grid_pallas(jnp.asarray(freq), wp, cp, sp, ppl=ppl,
+                                   interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jdec))
+
+
+_PLAN_LAYOUTS = [(1024, 8), (100, 1), (90, 1), (16, 1)]
+
+
+@pytest.mark.parametrize("hw,ppl", _PLAN_LAYOUTS,
+                         ids=[f"hw{h}-ppl{p}" for h, p in _PLAN_LAYOUTS])
+@pytest.mark.parametrize("encode", [False, True], ids=["decode", "encode"])
+def test_rans_plan_fits_and_covers_every_lane(hw, ppl, encode):
+    ls = hw // ppl
+    for b in (1, 8, 64):
+        for s in (9, 17, 33, 65, 129):
+            plan = grid_rans.rans_plan(b, s, hw, ppl, encode=encode)
+            assert plan.lg % 4 == 0 and 32 % plan.lg == 0
+            assert plan.smem <= grid_rans.SMEM_BLOCK == 227 * 1024
+            stages = plan.d * (4 * grid_rans.stage_ints(s, plan.lg, encode)
+                               + 24)
+            extra = 0 if encode else grid_rans.WORD_RING_BYTES
+            assert plan.smem >= stages + extra
+            assert plan.d % 2 == 0 and plan.ahead >= 1
+            assert plan.d >= (plan.ahead + 1) * plan.helpers
+            assert plan.threads == 32 * (plan.helpers + 1) <= 512
+            # 16-byte copies only where every staged row segment is aligned
+            assert plan.vec == (4 if hw % 4 == 0 and ls % 4 == 0 else 1)
+            assert plan.search in ("split", "binary")
+            if plan.search == "split":
+                assert plan.lg == 8 and 4 * grid_rans.split_entries(s) >= s - 1
+            # block k owns pair k // G, lanes [g*LG, min((g+1)*LG, ls)),
+            # g = k % G, G = ceil(ls / LG): the kernels' block_geometry
+            groups = -(-ls // plan.lg)
+            assert plan.blocks == b * groups
+            seen = np.zeros((b, ls), np.int64)
+            for k in range(plan.blocks):
+                lo = (k % groups) * plan.lg
+                seen[k // groups, lo:min(lo + plan.lg, ls)] += 1
+            assert (seen == 1).all()
+
+
+def test_rans_plan_spreads_the_main_path_over_the_card():
+    """B=8, hw 1024, ppl 8: 8-lane groups, 128 blocks, the deepest ring."""
+    for s in (9, 17, 33, 65):
+        for encode in (False, True):
+            plan = grid_rans.rans_plan(8, s, 1024, 8, encode=encode)
+            assert (plan.lg, plan.blocks, plan.vec) == (8, 128, 4)
+            assert plan.d == grid_rans.MAX_STAGES
+    assert grid_rans.rans_plan(8, 33, 1024, 8).search == "split"
+    assert grid_rans.rans_plan(8, 65, 1024, 8).search == "binary"
+    # the split search's widest rows are within what its kernels take
+    assert grid_rans.split_entries(grid_rans.SPLIT_MAX_S) > 0
+
+
+def test_rans_plan_follows_the_cards_sm_count():
+    """bench.py's B=64: 1024 blocks share the SMs, so fewer SMs give
+    each block fewer helper warps and a ring no deeper; B=8 fits any."""
+    big = grid_rans.rans_plan(64, 33, 1024, 8, sm_count=132)
+    small = grid_rans.rans_plan(64, 33, 1024, 8, sm_count=66)
+    assert grid_rans.rans_plan(64, 33, 1024, 8) == big
+    assert small.blocks == big.blocks == 1024
+    assert small.helpers < big.helpers and small.d <= big.d
+    assert 16 * (small.smem + 1024) <= grid_rans.SMEM_SM
+    assert grid_rans.rans_plan(8, 33, 1024, 8, sm_count=66) == (
+        grid_rans.rans_plan(8, 33, 1024, 8))
 
 
 def test_generic_grid_with_skipped_slots_matches_jax():
