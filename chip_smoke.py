@@ -35,12 +35,17 @@ and prints no result):
      flips start only where y - mean lies within Y_TOL of a .5 boundary
      and spread down the causal cone); the same gate must reject the
      kernel run with bf16-rounded weights; kernel 4 must be bit-equal to
-     its twin on kernel
-     5's intervals; kernel 5's decode of kernel 4's stream must give
-     y_hat bit-equal to its teacher pass; kernel 5's hoisted product (the
-     scan-independent part of its first layer) must agree with its twin
-     within HOIST_TOL; times kernel 5's pass, its hoisted product, and
-     one level's four products as torch.matmul (a yardstick);
+     its twin on kernel 5's intervals at the codec's one-launch cap (T
+     words a lane), at a cap below the counts, on a seeded mask under
+     which the lanes of one group differ, at 21 lanes and 37 slots (a
+     ragged lane group, a T that is not a multiple of a stage) and under
+     another plan (stages of 8 slots, 2 helpers); prints its plan and
+     times it beside its bound; kernel 5's decode of kernel 4's stream
+     must give y_hat bit-equal to its teacher pass; kernel 5's hoisted
+     product (the scan-independent part of its first layer) must agree
+     with its twin within HOIST_TOL; times kernel 5's pass, its hoisted
+     product, and one level's four products as torch.matmul (a
+     yardstick);
   5. drives the HESIC fast path: HESIC N=128/M=192/K=5 (bf16 transforms,
      seeded random weights) through HESICFastCodec.compress_fast ->
      decompress_fast on 8 smooth 512x512 pairs, with the identity and a
@@ -48,7 +53,9 @@ and prints no result):
      the grid capped at mm=4 so latents escape the grid, and twice with
      the analysis transforms' last conv scaled so the default codec picks
      grids mm 16 and mm 32.  The decoded latents must equal the encoder's
-     own quantized latents, the reconstructions must be finite and of the
+     own quantized latents (also for pair 3's container decoded alone and
+     for the identity case's list reversed), kernel 2 must have launched
+     once per eye, the reconstructions must be finite and of the
      input's shape, the escape case must have outliers, the run must
      reach grids 4, 16 and 32, and kernels 1-3 must have launched;
   6. drives the HESIC+ path: HESIC+ N=192/M=192 (bf16 transforms, seeded
@@ -57,10 +64,11 @@ and prints no result):
      identity and a rotated homography, and with an mm=1 codec whose
      residuals escape the grid.  The decoded y1_hat/y2_hat must equal the
      encoder's, the reconstructions must be finite and of the input's
-     shape, the escape case must have escapes, and kernels 4 and 5 must
-     have launched (kernel 5 counts one launch per eye pass, its 626
-     kernel launches included: the hoisted product, then four stage
-     GEMMs and the coder per level);
+     shape, the escape case must have escapes, kernel 4 must have
+     launched exactly once per eye and kernel 5 must have launched
+     (kernel 5 counts one launch per eye pass, its 626 kernel launches
+     included: the hoisted product, then four stage GEMMs and the coder
+     per level);
   7. prints one JSON line with each kernel's numbers, then the device
      line {"ok": true, "device": {...}} last.
 
@@ -69,6 +77,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,6 +88,7 @@ HW_IMG = 512
 LAT = HW_IMG // 16              # 32x32 latents
 PPL = 8
 DEVICE = "cuda"
+ALONE = 3                       # the pair whose container decodes alone
 # f32 and integer instructions per evaluation, counted from
 # codecs/det_math.py and csrc/pmf.cu: arithmetic, min/max, floor,
 # conversions, compares and selects.  abs and negation are not counted:
@@ -101,7 +111,7 @@ PEAK_F32_OPS = 33.5e12
 PEAK_F32_FLOPS = 67e12          # an FMA counts as two
 
 # the HESIC+ path: bench.py's point (HESICPlus N=192/M=192 bf16, 512x512
-# pairs, batch 11, mm 16, 8 channel groups, word cap 64)
+# pairs, batch 11, mm 16, 8 channel groups, the decoder's word cap 64)
 AR_B, AR_N, AR_M, AR_MM, AR_GROUPS, AR_CAP = 11, 192, 192, 16, 8, 64
 # kernel 5 against its twin on lattice inputs (the twin's own
 # reconstruction), where no residual may differ: y_hat within Y_TOL and
@@ -238,6 +248,16 @@ def phase_pmf(mm: int, seed: int) -> dict:
             "bound_ms": bound[by], "bound_by": by}
 
 
+def overflow_budget(ppl: int, m: int) -> int:
+    """A word budget per lane of ~5 bits a symbol, below kernel 2's counts
+    at the wider grids (the codec launches at the guaranteed bound): it
+    holds kernel 2's overflow contract, true counts and the words within
+    the budget."""
+    if ppl == 1:
+        return m + 2
+    return max(64, -(-m * ppl * 5 // 16 // 16) * 16)
+
+
 def plan_text(plan) -> str:
     return (f"LG {plan.lg}, D {plan.d}, ahead {plan.ahead}, {plan.blocks} "
             f"blocks x {plan.threads} threads, {plan.smem} B shared, "
@@ -247,24 +267,23 @@ def plan_text(plan) -> str:
 def phase_rans(freq, label: str, seed: int, ppl: int = PPL,
                reps: int = 5) -> dict:
     """Kernels 2 and 3 on realistic rows: symbols drawn from each row's
-    own distribution, `ppl` positions per lane and the codec's initial
-    word budget for it (retried with room for every word, as the codec
-    does).  Both must be bit-equal to their twins; times both."""
+    own distribution, `ppl` positions per lane and the overflow budget
+    (re-encoded with room for every word when a lane passes it).  Both
+    must be bit-equal to their twins; times both."""
     import torch
     from hesic_tpu_torch.codecs import grid_rans
-    from hesic_tpu_torch.models.hesic_fast import enc_cap
     b, m, s, hw = freq.shape
     ls = hw // ppl
     sym_mbl = row_symbols(freq, seed)
     sym = sym_mbl.permute(1, 0, 2)
-    cap = enc_cap(ppl, m) or grid_rans.default_cap(m, ppl)
+    cap = overflow_budget(ppl, m)
     enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, ppl, cap)
     ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, ppl, cap)
     sync()
     err_e = max(check_equal(f"encode {n} {label}", a, r)
                 for n, a, r in zip(("words", "counts", "states"), enc, ref))
     cmax = int(enc[1].max())
-    if cmax > cap:      # the codec's retry: re-encode with room for all
+    if cmax > cap:      # re-encode with room for every word
         cap = -(-cmax // 16) * 16
         enc = grid_rans.rans_encode_grid_cuda(freq, sym_mbl, ppl, cap)
         ref = grid_rans.rans_encode_grid_plain(freq, sym_mbl, ppl, cap)
@@ -400,7 +419,16 @@ def phase_main_path() -> dict:
         out = cdc.compress_fast(a, b, h)
         rec = cdc.decompress_fast(out["blobs"])
         runs[label] = (out, rec)
+    # one pair's container decoded alone (row 0 of a padded chunk), and
+    # the list reversed (every pair in another row)
+    blobs = runs["identity H"][0]["blobs"]
+    alone = codec.decompress_fast(blobs[ALONE])
+    reverse = codec.decompress_fast(blobs[::-1])
     launches = dict(build.launch_counts)
+    if launches.get("grid_rans_encode") != 2 * len(cases):
+        raise AssertionError(f"kernel 2 launched "
+                             f"{launches.get('grid_rans_encode')} times in "
+                             f"{len(cases)} round trips, not once per eye")
 
     grids = {g for out, _ in runs.values() for g in out["blob"][1:3]}
     if not {4, 16, 32} <= grids:
@@ -418,6 +446,16 @@ def phase_main_path() -> dict:
                 bad = int((rec[key] != want).sum())
                 raise AssertionError(f"{label}: decoded {key} differs from "
                                      f"the encoder's latents at {bad} cells")
+            if label != "identity H":
+                continue
+            for what, got in ((f"blob {ALONE} alone", alone[key][0]),
+                              ("the reversed list", reverse[key].flip(0))):
+                ref = want[ALONE] if what.startswith("blob") else want
+                if not torch.equal(got, ref):
+                    bad = int((got != ref).sum())
+                    raise AssertionError(f"{label}, {what}: decoded {key} "
+                                         f"differs from the encoder's "
+                                         f"latents at {bad} cells")
         for key in ("x1_hat", "x2_hat"):
             if tuple(rec[key].shape) != x1.shape:
                 raise AssertionError(f"{label}: {key} shape "
@@ -426,12 +464,14 @@ def phase_main_path() -> dict:
                 raise AssertionError(f"{label}: {key} not finite")
         if cdc is hot_codec and min(out["outliers"]) == 0:
             raise AssertionError(f"{label}: no latent left the grid")
+        extra = (f"; blob {ALONE} alone and the reversed list too"
+                 if label == "identity H" else "")
         print(f"main path [{label}, win {win}, mm {out['blob'][1]}/"
               f"{out['blob'][2]}]: bpp_real {out['bpp_real']:.6f}, "
               f"outliers {out['outliers'][0]}/{out['outliers'][1]}, "
               f"encode {out['enctime'] * 1e3:.1f} ms, decode "
               f"{rec['dectime'] * 1e3:.1f} ms wall for {B} pairs; decoded "
-              f"latents equal the encoder's")
+              f"latents equal the encoder's{extra}")
     return launches
 
 
@@ -488,11 +528,116 @@ def first_flips_on_margin(y, yh_t, rs_t, rs_k, eps: float):
             bool((margin | ~at_first).all()))
 
 
+def pairs_plan_text(plan) -> str:
+    return (f"D {plan.d}, H {plan.helpers}, ahead {plan.ahead}, R "
+            f"{plan.ring}, {plan.blocks} blocks x {plan.threads} threads, "
+            f"{plan.smem} B shared, {4 * plan.vec}-byte copies")
+
+
+# kernel 4's other plan is the one pairs_plan makes for a card of 22 SMs:
+# at the HESIC+ point 17 blocks an SM, so 2 helpers and a ring of 4
+# stages, against 4 helpers and 16 stages on the H100's 132 SMs
+ALT_SMS = 22
+
+
+@contextlib.contextmanager
+def pairs_planned_for(sm_count: int):
+    """Kernel 4's wrapper plans as on a card of `sm_count` SMs (with the
+    copy width its own plan chooses); yields a plan function."""
+    from hesic_tpu_torch.codecs import pairs_rans
+    own = pairs_rans.launch_plan
+
+    def plan(starts, freqs):
+        return pairs_rans.pairs_plan(*starts.shape, sm_count)._replace(
+            vec=own(starts, freqs).vec)
+
+    pairs_rans.launch_plan = plan
+    try:
+        yield plan
+    finally:
+        pairs_rans.launch_plan = own
+
+
+def check_pairs(label: str, st, fr, valid, cap: int):
+    """Kernel 4 against its twin: counts, states and the words within
+    each count and the cap must be equal.  Returns ((words, counts,
+    states), max |err|)."""
+    import torch
+    from hesic_tpu_torch.codecs import pairs_rans
+    enc = pairs_rans.rans_encode_pairs_cuda(st, fr, valid, cap)
+    ref = pairs_rans.rans_encode_pairs_plain(st, fr, valid, cap)
+    sync()
+    words, counts, states = enc
+    keep = torch.arange(cap, device=DEVICE)[None, :] < counts[:, None]
+    err = max(check_equal(f"pairs counts {label}", counts, ref[1]),
+              check_equal(f"pairs states {label}", states, ref[2]),
+              check_equal(f"pairs words {label}", words[keep],
+                          ref[0][keep]))
+    return enc, err
+
+
+def phase_pairs(label: str, st, fr, valid) -> dict:
+    """Kernel 4 against its twin on kernel 5's intervals: at the codec's
+    one-launch cap (T words a lane), at a cap below the counts, on a
+    seeded mask under which lanes of one group differ, at 21 lanes (a
+    ragged lane group) and 37 slots (not a multiple of a stage), and
+    under another plan.  Times the kernel at the codec's launch."""
+    import torch
+    from hesic_tpu_torch.codecs import pairs_rans
+    t_slots, lanes = st.shape
+    stream, err = check_pairs(label, st, fr, valid, t_slots)
+    counts = stream[1]
+    cmax = int(counts.max())
+    if cmax > t_slots:
+        raise AssertionError(f"pairs {label}: a lane counted {cmax} words "
+                             f"in {t_slots} slots")
+    low = max(1, cmax // 2 - 1)
+    errs = [err, check_pairs(f"{label}, cap {low}", st, fr, valid, low)[1]]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    mixed = valid & (torch.rand(valid.shape, generator=gen,
+                                device=DEVICE) < 0.7)
+    errs.append(check_pairs(f"{label}, mixed mask", st, fr, mixed,
+                            t_slots)[1])
+    t_r, l_r = 37, 21
+    errs.append(check_pairs(
+        f"{label}, {t_r} slots x {l_r} lanes", st[-t_r:, :l_r].contiguous(),
+        fr[-t_r:, :l_r].contiguous(), mixed[-t_r:, :l_r].contiguous(),
+        t_r)[1])
+    plan = pairs_rans.launch_plan(st, fr)
+    with pairs_planned_for(ALT_SMS) as alt_plan:
+        alt = alt_plan(st, fr)
+        errs.append(check_pairs(f"{label}, plan D {alt.d} H {alt.helpers}",
+                                st, fr, valid, t_slots)[1])
+        alt_ms = cuda_ms(lambda: pairs_rans.rans_encode_pairs_cuda(
+            st, fr, valid, t_slots), 100)
+
+    # 100 launches: a window of 10 (~0.6 ms) read 0.051-0.083 ms for one
+    # input on the H100
+    ms = cuda_ms(lambda: pairs_rans.rans_encode_pairs_cuda(
+        st, fr, valid, t_slots), 100)
+    plain_ms = cuda_ms(lambda: pairs_rans.rans_encode_pairs_plain(
+        st, fr, valid, t_slots), 1)
+    # valid slots' (start, freq), every valid byte, the emitted words,
+    # counts and states: each read or written once
+    nbytes = (8 * int(valid.sum()) + t_slots * lanes
+              + 4 * int(counts.sum()) + 12 * lanes)
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"kernel pairs_rans_encode {label}: bit-equal to plain (words, "
+          f"counts, states) at cap {t_slots}, at cap {low} (below the "
+          f"counts), on a mixed mask, at {t_r} slots x {l_r} lanes and "
+          f"under plan {pairs_plan_text(alt)}; {ms:.4f} ms kernel "
+          f"(other plan {alt_ms:.4f} ms), {plain_ms:.1f} ms plain, bound "
+          f"{bound:.4f} ms by bytes ({nbytes:.3e} B); mean "
+          f"{float(counts.double().mean()):.1f} words/lane, max {cmax}; "
+          f"plan {pairs_plan_text(plan)}")
+    return {"err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "stream": stream}
+
+
 def phase_wavefront(label: str, w, pre, post, y) -> dict:
     """Kernel 5 (one variant) and kernel 4 against their twins, and
     kernel 5's own round trip through kernel 4."""
     import torch
-    from hesic_tpu_torch.codecs import pairs_rans
     from hesic_tpu_torch.models import wavefront as wf
     from hesic_tpu_torch.models.ar_device import (schedule,
                                                   wavefront_valid_mask)
@@ -557,21 +702,9 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
         raise AssertionError(f"ar_wavefront {label}: the gate passes the "
                              f"bf16-weight control")
 
-    # kernel 4 on kernel 5's intervals, with the codec's cap retry
-    cap = AR_CAP
-    while True:
-        enc = pairs_rans.rans_encode_pairs_cuda(st_k, fr_k, valid, cap)
-        if int(enc[1].max()) <= cap:
-            break
-        cap *= 2
-    ref = pairs_rans.rans_encode_pairs_plain(st_k, fr_k, valid, cap)
-    sync()
-    words, counts, states = enc
-    keep = torch.arange(cap, device=DEVICE)[None, :] < counts[:, None]
-    err4 = max(check_equal(f"pairs counts {label}", counts, ref[1]),
-               check_equal(f"pairs states {label}", states, ref[2]),
-               check_equal(f"pairs words {label}", words[keep],
-                           ref[0][keep]))
+    # kernel 4 on kernel 5's intervals, in every regime
+    pairs = phase_pairs(label, st_k, fr_k, valid)
+    words, counts, states = pairs.pop("stream")
 
     esc = rs_k.abs() > AR_MM
     cm = esc.to(torch.int32)
@@ -591,10 +724,6 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     ms5 = cuda_ms(lambda: teach(wf.ar_wavefront_cuda, y), 3)
     plain5 = cuda_ms(lambda: teach(wf.ar_wavefront_plain, y, w_raw), 1)
     dec_ms = cuda_ms(decode, 3)
-    ms4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_cuda(
-        st_k, fr_k, valid, cap), 10)
-    plain4 = cuda_ms(lambda: pairs_rans.rans_encode_pairs_plain(
-        st_k, fr_k, valid, cap), 1)
 
     # the hoisted product (pre and post rows of the first layer, every
     # pixel) against its twin, and one level's four stage products as
@@ -637,10 +766,6 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
                              + coder_ops / PEAK_F32_OPS) * 1e3,
               "bytes": (w_bytes + io_bytes) / PEAK_BYTES * 1e3}
     by5 = max(bound5, key=bound5.get)
-    # valid slots' (start, freq), every valid byte, the emitted words,
-    # counts and states: each read or written once
-    bytes4 = (8 * int(valid.sum()) + t_slots * lanes
-              + 4 * int(counts.clamp(max=cap).sum()) + 12 * lanes)
     print(f"kernel ar_wavefront {label}: raw latents {n_raw} residuals "
           f"differ from the twin's ({n_raw / y.numel():.4f} of them, limit "
           f"{RAW_FLIP_SHARE}; {n_first} at each image's first differing "
@@ -664,17 +789,10 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
           f"ms (max |d| {d_base:.3e} against its twin, limit "
           f"{base_lim:.3e}); one level's four products as torch.matmul at "
           f"{rows} rows {level_mm_ms:.4f} ms (yardstick)")
-    print(f"kernel pairs_rans_encode {label}: bit-equal to plain (words, "
-          f"counts, states); {ms4:.3f} ms kernel, {plain4:.1f} ms plain; "
-          f"cap {cap}, mean {float(counts.double().mean()):.1f} words/lane; "
-          f"bound {bytes4 / PEAK_BYTES * 1e3:.4f} ms by bytes "
-          f"({bytes4:.3e} B)")
     return {
         "wavefront": {"err": d_y, "ms": ms5, "plain_ms": plain5,
                       "bound_ms": bound5[by5], "bound_by": by5},
-        "pairs": {"err": err4, "ms": ms4, "plain_ms": plain4,
-                  "bound_ms": bytes4 / PEAK_BYTES * 1e3,
-                  "bound_by": "bytes"},
+        "pairs": pairs,
     }
 
 
@@ -701,6 +819,10 @@ def phase_hesic_plus_path(model, codec, pairs) -> dict:
         out = cdc.compress(x1, x2, h)
         runs[label] = (out, cdc.decompress(out["strings"]))
     launches = dict(build.launch_counts)
+    if launches.get("pairs_rans_encode") != 2 * len(cases):
+        raise AssertionError(f"kernel 4 launched "
+                             f"{launches.get('pairs_rans_encode')} times in "
+                             f"{len(cases)} round trips, not once per eye")
 
     for label, (cdc, _) in cases.items():
         out, rec = runs[label]
@@ -720,7 +842,7 @@ def phase_hesic_plus_path(model, codec, pairs) -> dict:
             raise AssertionError(f"HESIC+ {label}: no residual escaped")
         print(f"HESIC+ path [{label}, mm {cdc.mm}]: bpp_real "
               f"{out['bpp_real']:.6f}, escapes {out['escapes'][0]}/"
-              f"{out['escapes'][1]}, final caps {out['caps'][0]}/"
+              f"{out['escapes'][1]}, decoder caps {out['caps'][0]}/"
               f"{out['caps'][1]}, encode {out['enctime'] * 1e3:.1f} ms, "
               f"decode {rec['dectime'] * 1e3:.1f} ms wall for {AR_B} pairs; "
               f"decoded latents equal the encoder's")

@@ -53,6 +53,16 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # mul+add contraction (kernel 5's products use explicit __fmaf_rn)
 _NVCC_EXTRA = {"pmf": ["-fmad=false"], "wavefront": ["-fmad=false"]}
 
+# Hopper, as the rANS kernels' plans size their blocks: the dynamic
+# shared memory one block may opt into (227 KB), and one SM's shared
+# memory (228 KB, of which each resident block reserves 1 KB); the H100
+# SXM's SM count, the plans' default off the card
+SM_COUNT = 132
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+WARPS_SM = 64           # resident warps an SM holds
+LANE_GROUP = 8          # lanes a rANS block owns: a 32-byte row segment
+
 launch_counts: collections.Counter = collections.Counter()
 
 _loaded: dict = {}

@@ -30,19 +30,12 @@ import ctypes
 import torch
 
 from . import build
+from .build import LANE_GROUP, SM_COUNT, SMEM_BLOCK, SMEM_SM, WARPS_SM
 from .device_rans import freq_to_cdf, rans_decode_grid, rans_encode_grid
 
 _ENC = "grid_rans_encode"
 _DEC = "grid_rans_decode"
 
-# Hopper: the dynamic shared memory one block may opt into (227 KB), and
-# one SM's shared memory (228 KB, of which each resident block reserves
-# 1 KB); the H100 SXM's SM count, the plan's default off the card
-SM_COUNT = 132
-SMEM_BLOCK = 232448
-SMEM_SM = 233472
-WARPS_SM = 64           # resident warps an SM holds
-LANE_GROUP = 8          # lanes a block owns: a 32-byte row segment
 HELPER_WARPS = 8        # staging warps per block, beside the chain warp
 MAX_STAGES = 32         # ring depth D, in steps
 MAX_AHEAD = 4           # own steps each helper keeps loading ahead

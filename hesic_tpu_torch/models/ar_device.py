@@ -111,11 +111,13 @@ class HESICPlusDeviceCodec(CompressionModel):
     decoded-left prior, the ``post`` input of the level scan).  One blob
     codes the whole batch of pairs.
 
-    ``cap`` is the initial word budget per lane of the pairs encoder; a
-    lane that overflows it makes the encoder retry that eye with double
-    the cap.  Images are (B, H, W, 3) float32 with H, W multiples of 64;
-    homographies (B, 3, 3) or (1, 3, 3); latents come out as
-    (B, hy, wy, M) float32."""
+    ``cap`` is the decoder's initial word budget per lane, doubled until
+    it covers the largest count (the encoder launches once per eye with
+    room for every word).  It sets only the width of the decoder's word
+    buffer and the reported ``caps``, never the container's bytes; it
+    stays to keep the JAX class's signature.  Images are (B, H, W, 3) float32 with H, W
+    multiples of 64; homographies (B, 3, 3) or (1, 3, 3); latents come
+    out as (B, hy, wy, M) float32."""
 
     def __init__(self, model, mm: int = 16, groups: int = 8,
                  cap: int = 256):
@@ -178,18 +180,28 @@ class HESICPlusDeviceCodec(CompressionModel):
                             mm, groups)
         return eye1, eye2, x1_hat
 
-    def _encode_eye(self, starts, freqs, valid):
-        """Pairs-encode one eye's slot stream, doubling the cap until no
-        lane overflows.  Returns (words, counts, states, cap)."""
-        from ..codecs.pairs_rans import rans_encode_pairs
+    def _decoder_cap(self, cmax: int) -> int:
+        """The decoder's word cap: ``self.cap`` doubled until it covers
+        the largest count."""
         cap = self.cap
-        while True:
-            words, counts, states = rans_encode_pairs(starts, freqs, valid,
-                                                      cap)
-            cmax = int(counts.max())
-            if cmax <= cap:
-                return words, counts, states, cap
-            cap *= 2    # pathological payload: retry with more room
+        while cap < cmax:
+            cap *= 2
+        return cap
+
+    def _encode_eye(self, starts, freqs, valid):
+        """Pairs-encode one eye's slot stream in one launch.  A valid slot
+        emits at most one word (below 2^32 before the renorm, the state
+        is below 2^16 <= f * 2^16 after one shift), so no lane's count
+        can pass T, the cap of that launch.  Returns (words, counts,
+        states, the cap the decoder derives for this eye)."""
+        from ..codecs.pairs_rans import rans_encode_pairs
+        cap = starts.shape[0]
+        words, counts, states = rans_encode_pairs(starts, freqs, valid, cap)
+        cmax = int(counts.max())
+        if cmax > cap:
+            raise RuntimeError(f"pairs encoder counted {cmax} words in a "
+                               f"lane of {cap} slots")
+        return words, counts, states, self._decoder_cap(cmax)
 
     # ---- container ----
 
@@ -236,7 +248,7 @@ class HESICPlusDeviceCodec(CompressionModel):
         """Compress a batch of pairs into one blob.  Returns {'strings':
         [blob], 'shape': (hy, wy), 'y1_hat', 'y2_hat' (B, hy, wy, M),
         'bpp_real', 'enctime', 'escapes': per-eye escape counts, 'caps':
-        per-eye final word caps}."""
+        per eye, ``cap`` doubled until it covers the eye's counts}."""
         start = time.perf_counter()
         x1, x2 = self._to_device(x1), self._to_device(x2)
         b, _, h_img, w_img = x1.shape
@@ -311,10 +323,7 @@ class HESICPlusDeviceCodec(CompressionModel):
         for _ in range(2):
             words, counts, states, off = unpack_stream(blob, off)
             parts.append((words, counts, states))
-        # the encoder's cap, doubled until it covers the largest count
-        cap = self.cap
-        while cap < max(int(c.max()) for _, c, _ in parts):
-            cap *= 2
+        cap = self._decoder_cap(max(int(c.max()) for _, c, _ in parts))
         streams = []
         for words, counts, states in parts:
             padded = np.zeros((words.shape[0], cap), np.int32)

@@ -1,8 +1,8 @@
 """HESIC fast codec: compress_fast -> decompress_fast on the card.
 
 Counterpart of hesic_tpu/models/hesic_fast.py (``HESICFastCodec``), with
-the same per-pair container (format v3, byte for byte the same layout)
-and the same public layouts: images (B, H, W, 3) float32, homographies
+the per-pair container of format v3 (byte for byte its layout after a
+writer byte of the port's own) and the same public layouts: images (B, H, W, 3) float32, homographies
 (B, 3, 3), latents out as (B, hy, wy, M).
 
 Pipeline.  Encode: transforms (analysis, hyper-analysis, z symbols, warp
@@ -22,6 +22,12 @@ padded and chunked), with cuDNN deterministic, not benchmarking, and TF32
 off (``deterministic_backends``), so cuDNN runs the same algorithms on the
 same shapes; the rows themselves come from kernel 1, whose float chain is
 strict IEEE.  Only integers cross between the stages.
+
+Writer byte.  Byte 0 names the writer: the two conditioning chains (the
+JAX package's XLA programs, the port's card and its CPU twin) differ in
+their last bits, so a container decodes exactly only where it was
+written, and any other writer's container is refused.  Bytes 1 onward
+keep the v3 layout.
 
 Format notes (as the JAX package): y symbols are coded on a per-channel
 grid [c_m - mm, c_m + mm] around the data-derived centre c_m (i8 in the
@@ -43,7 +49,8 @@ import numpy as np
 import torch
 
 from ..codecs.device_rans import pack_stream_dense, unpack_stream
-from ..codecs.grid_rans import rans_decode_grid_rows, rans_encode_grid_rows
+from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
+                                rans_encode_grid_rows)
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
 from .base import CompressionModel, deterministic_backends
@@ -51,7 +58,13 @@ from .base import CompressionModel, deterministic_backends
 MM_DEFAULT = 32
 MM_BUCKETS = (4, 8, 16, 32)
 TOTAL_FREQ = 1 << 16
-FORMAT_V3 = 3
+# Byte 0 of a container.  The JAX package's are 0-2 (formats before v3)
+# and 3 (format v3); the port's two writers take ids of their own.
+WRITER_NAMES = {0: "the JAX package's pre-v2 xla-erfc format",
+                1: "the JAX package's pre-v2 pallas-erfc format",
+                2: "the JAX package's format v2",
+                3: "the JAX package's format v3",
+                16: "torch-plain-fast-v3", 17: "cuda-fast-v3"}
 
 
 def auto_ppl(hw: int) -> int:
@@ -73,15 +86,6 @@ def pick_mm(spread: int, cap: int) -> int:
         if spread <= mm:
             return mm
     return cap
-
-
-def enc_cap(ppl: int, n_ch: int):
-    """Initial encoder word budget per lane (~5 bits/symbol of headroom);
-    None = the guaranteed bound.  Overflow is retried with double the
-    cap."""
-    if ppl == 1:
-        return None
-    return max(64, -(-n_ch * ppl * 5 // 16 // 16) * 16)
 
 
 def _data_center(y_hat: torch.Tensor):
@@ -139,12 +143,22 @@ def _decode_stream(freq, words, counts, states, mm: int, hy: int, wy: int,
     return y.reshape(b, m, hy, wy)
 
 
-def _check_format(blob: bytes) -> int:
-    """Validate the container's format byte; returns the header bytes
-    consumed (1)."""
-    if blob[0] != FORMAT_V3:
-        raise ValueError(f"fast container has format byte {blob[0]}; this "
-                         f"build reads format v3 only")
+def writer_id(device) -> int:
+    """The writer byte of containers encoded on `device`: 17 = the card,
+    16 = the plain twins (CPU)."""
+    return 17 if torch.device(device).type == "cuda" else 16
+
+
+def _check_format(blob: bytes, device) -> int:
+    """Raise unless `blob` was written by the writer `device` runs;
+    returns the header bytes consumed (1)."""
+    tag, cur = blob[0], writer_id(device)
+    if tag != cur:
+        raise ValueError(
+            f"fast container written by "
+            f"{WRITER_NAMES.get(tag, f'an unknown writer ({tag})')} but "
+            f"this codec reads {WRITER_NAMES[cur]} only; decode it with "
+            f"its writer")
     return 1
 
 
@@ -304,14 +318,15 @@ class HESICFastCodec(CompressionModel):
 
         hy, wy = y1_hat.shape[2], y1_hat.shape[3]
         ppl = auto_ppl(hy * wy)
-        cap = enc_cap(ppl, self.model.M)
-        while True:
-            s1 = _encode_stream(freq1, y1_hat, mm1, dc1, ppl, cap)
-            s2 = _encode_stream(freq2, y2_hat, mm2, dc2, ppl, cap)
-            cmax = int(torch.maximum(s1[1].amax(), s2[1].amax()))
-            if cap is None or cmax <= cap:
-                break
-            cap *= 2    # pathological payload: retry with more room
+        # one launch per eye at the guaranteed bound (one word per
+        # micro-step + 2), so no lane can overflow it
+        cap = default_cap(self.model.M, ppl)
+        s1 = _encode_stream(freq1, y1_hat, mm1, dc1, ppl, cap)
+        s2 = _encode_stream(freq2, y2_hat, mm2, dc2, ppl, cap)
+        cmax = int(torch.maximum(s1[1].amax(), s2[1].amax()))
+        if cmax > cap:
+            raise RuntimeError(f"grid encoder counted {cmax} words in a "
+                               f"lane, past its bound {cap}")
         over = torch.stack([s1[3], s2[3]]).cpu().numpy()
         dead = torch.stack([s1[4], s2[4]]).cpu().numpy()
         outliers1 = self._collect_outliers(y1_hat, over[0], dc1, mm1)
@@ -327,7 +342,7 @@ class HESICFastCodec(CompressionModel):
         blobs = []
         for i in range(b):
             header = bytearray()
-            header += bytes([FORMAT_V3, mm1, mm2, win,
+            header += bytes([writer_id(self.device), mm1, mm2, win,
                              0 if xw is None else xw // 16])
             header += np.array([h_img, w_img], np.uint16).tobytes()
             for s in (z1_strs[i], z2_strs[i]):
@@ -390,7 +405,7 @@ class HESICFastCodec(CompressionModel):
         z1_l, z2_l, h_l, o1_l, o2_l = [], [], [], [], []
         d1_l, d2_l, c1_l, c2_l, s1_l, s2_l = [], [], [], [], [], []
         for blob in blobs:
-            off = _check_format(blob)
+            off = _check_format(blob, self.device)
             h_img, w_img = (int(v) for v in
                             np.frombuffer(blob, np.uint16, 2, off + 4))
             blob_key = (blob[off], blob[off + 1], blob[off + 2],

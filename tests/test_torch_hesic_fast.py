@@ -5,9 +5,14 @@ the JAX codec's weights carried over by hesic_from_jax.
 
 * Round trip: the decoded latents EQUAL the port encoder's own quantized
   latents, for the identity H, a rotated H (which selects a narrower
-  warp window, stored in the header) and a case forced into outliers.
+  warp window, stored in the header) and a case forced into outliers;
+  each pair's container decoded alone, and the list reversed, give the
+  whole list's latents; the grid encoder launches once per eye.
+* The writer byte: a container of the JAX package, or of the port's
+  other backend, is refused, naming both writers.
 * Against the JAX codec at the same weights and inputs:
-  - the header bytes (format 3, mm1, mm2, win, xwin/16, shape) are equal;
+  - the header bytes after the writer byte (mm1, mm2, win, xwin/16,
+    shape) are equal;
   - the decoded y1_hat/y2_hat are equal on every cell that is not within
     a rounding margin of a .5 boundary (2e-4 for y1, 2e-3 for y2, whose
     input passes the bf16 warp), the audit of tests/test_trained_parity;
@@ -29,6 +34,7 @@ from hesic_tpu.geometry.fast_warp import pick_warp_xwin as j_pick_xwin
 from hesic_tpu.models import HESIC as JHESIC
 from hesic_tpu.models import HESICFastCodec as JCodec
 from hesic_tpu_torch.geometry import warp_perspective
+from hesic_tpu_torch.models import hesic_fast
 from hesic_tpu_torch.models.hesic import HESIC
 from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
 from hesic_tpu_torch.utils.from_jax import hesic_from_jax
@@ -96,6 +102,67 @@ def test_outliers_roundtrip_bit_exact(codecs):
     np.testing.assert_array_equal(rec["y2_hat"].numpy(), y2)
 
 
+def test_each_blob_alone_and_reversed(codecs):
+    """Pair i decoded alone sits in row 0 of a padded chunk, and the
+    reversed list in another row: the latents must not depend on it."""
+    _, codec = codecs
+    x1, x2, h = _pair(3, seed=6, deg=6.0)
+    blobs = codec.compress_fast(x1, x2, h)["blobs"]
+    whole = codec.decompress_fast(blobs)
+    rev = codec.decompress_fast(blobs[::-1])
+    for key in ("y1_hat", "y2_hat"):
+        np.testing.assert_array_equal(rev[key].numpy()[::-1],
+                                      whole[key].numpy())
+    for i, blob in enumerate(blobs):
+        alone = codec.decompress_fast(blob)
+        for key in ("y1_hat", "y2_hat"):
+            np.testing.assert_array_equal(alone[key].numpy()[0],
+                                          whole[key].numpy()[i])
+
+
+def test_grid_encoder_launches_once_per_eye(codecs, monkeypatch):
+    _, codec = codecs
+    calls = []
+    encode = hesic_fast.rans_encode_grid_rows
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["cap"])
+        return encode(*args, **kwargs)
+
+    monkeypatch.setattr(hesic_fast, "rans_encode_grid_rows", counted)
+    x1, x2, h = _pair(2, seed=7)
+    out = codec.compress_fast(x1, x2, h)
+    assert calls == [24 * hesic_fast.auto_ppl(16) + 2] * 2
+    rec = codec.decompress_fast(out["blobs"])
+    y1, y2 = _enc_latents(codec, x1, x2, h, out["blob"][3])
+    np.testing.assert_array_equal(rec["y1_hat"].numpy(), y1)
+    np.testing.assert_array_equal(rec["y2_hat"].numpy(), y2)
+
+
+def test_jax_container_raises_naming_both_writers(codecs):
+    jc, codec = codecs
+    x1, x2, h = _pair(1, seed=8)
+    j_blob = jc.compress_fast(jnp.asarray(x1), jnp.asarray(x2),
+                              jnp.asarray(h))["blob"]
+    assert j_blob[0] == 3
+    with pytest.raises(ValueError) as err:
+        codec.decompress_fast(j_blob)
+    assert "the JAX package's format v3" in str(err.value)
+    assert "torch-plain-fast-v3" in str(err.value)
+
+
+def test_card_container_raises_on_the_cpu_codec(codecs):
+    _, codec = codecs
+    x1, x2, h = _pair(1, seed=9)
+    blob = codec.compress_fast(x1, x2, h)["blob"]
+    assert blob[0] == hesic_fast.writer_id("cpu") == 16
+    card = bytes([hesic_fast.writer_id("cuda")]) + blob[1:]
+    with pytest.raises(ValueError) as err:
+        codec.decompress_fast(card)
+    assert "cuda-fast-v3" in str(err.value)
+    assert "torch-plain-fast-v3" in str(err.value)
+
+
 def test_mixed_grid_blobs_raise(codecs):
     _, codec = codecs
     x1, x2, h = _pair(1, seed=3)
@@ -107,7 +174,8 @@ def test_mixed_grid_blobs_raise(codecs):
 
 
 def _header(blob):
-    return bytes(blob[:9])
+    """Bytes 1-8: byte 0 names the writer, the port's own by design."""
+    return bytes(blob[1:9])
 
 
 def _margin(y, eps):

@@ -19,6 +19,8 @@ hesic_from_jax (strict load: every parameter maps, by module type).
   count or two; measured equal).
 * The backend byte: a container of another backend is refused, naming
   both.
+* The pairs encoder launches once per eye, and the containers do not
+  depend on the codec's initial word cap.
 * HESIC's carry-over gives the same state_dict as the name rule it
   replaced.
 """
@@ -37,6 +39,7 @@ from hesic_tpu.models import HESICPlusDeviceCodec as JDeviceCodec
 from hesic_tpu.models.autoregressive import (
     extract_ar_weights as j_extract_ar_weights)
 from hesic_tpu.models.base import CompressionModel as JCompressionModel
+from hesic_tpu_torch.codecs import pairs_rans
 from hesic_tpu_torch.geometry import warp_perspective
 from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
 from hesic_tpu_torch.models.autoregressive import extract_ar_weights
@@ -146,6 +149,37 @@ def test_roundtrip_bit_exact(codec, deg):
     for key in ("x1_hat", "x2_hat"):
         assert tuple(rec[key].shape) == x1.shape
         assert torch.isfinite(rec[key]).all()
+
+
+def test_pairs_encoder_launches_once_per_eye(codec, monkeypatch):
+    calls = []
+    encode = pairs_rans.rans_encode_pairs
+
+    def counted(starts, freqs, valid, cap):
+        calls.append(cap)
+        return encode(starts, freqs, valid, cap)
+
+    monkeypatch.setattr(pairs_rans, "rans_encode_pairs", counted)
+    x1, x2, h = _pair(seed=6)
+    out = codec.compress(x1, x2, h)
+    t_slots = codec.groups * (3 * (4 - 1) + (4 - 1) + 1)
+    assert calls == [t_slots, t_slots]
+    rec = codec.decompress(out["strings"])
+    for key in ("y1_hat", "y2_hat"):
+        torch.testing.assert_close(rec[key], out[key], rtol=0, atol=0)
+
+
+def test_containers_do_not_depend_on_the_cap(models, codec):
+    """cap is the decoder's starting budget only: a cap below the counts
+    (8, which the decoder doubles), the codec path's 64 and 4096 give the
+    same bytes."""
+    x1, x2, h = _pair(seed=7)
+    outs = {cap: HESICPlusDeviceCodec(models[2], mm=8, groups=4,
+                                      cap=cap).update().compress(x1, x2, h)
+            for cap in (8, 64, 4096)}
+    assert outs[8]["strings"] == outs[64]["strings"] == outs[4096]["strings"]
+    assert outs[4096]["caps"] == (4096, 4096)
+    assert min(outs[8]["caps"]) > 8
 
 
 def test_escape_corrections_roundtrip(models):

@@ -9,7 +9,8 @@ rows quantized by JAX's quantize_pmf_device, symbols drawn per slot and
 coder is integer-only) to rans_encode_pairs_pallas in interpret mode and
 to JAX's lockstep rans_encode_grid: words within counts, counts and
 states.  The CUDA kernel is held to the twin on the card by
-chip_smoke.py."""
+chip_smoke.py; its launch plan (``pairs_plan``) is checked here on the
+shapes the codec and the tests give it."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 from hesic_tpu.codecs.device_rans import quantize_pmf_device
 from hesic_tpu.codecs.device_rans import rans_encode_grid as j_encode_grid
 from hesic_tpu.codecs.pallas_rans import rans_encode_pairs_pallas
+from hesic_tpu_torch.codecs import build, pairs_rans
 from hesic_tpu_torch.codecs.pairs_rans import (rans_encode_pairs,
                                                rans_encode_pairs_cuda,
                                                rans_encode_pairs_plain)
@@ -96,3 +98,38 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     starts, frs, valid = _torch(*_case(4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         rans_encode_pairs_cuda(starts, frs, valid, cap=64)
+
+
+# (T, L, sm_count): the HESIC+ point (B=11, 32x32 latents, M=192, 8
+# groups), its batch 22, the test case above (21 lanes: a ragged lane
+# group), a T that is not a multiple of a stage, and a smaller card
+PLAN_SHAPES = [(1000, 2904, 132), (1000, 5808, 132), (40, 21, 132),
+               (37, 96, 132), (1000, 2904, 66)]
+
+
+@pytest.mark.parametrize("t_dim,lanes,sms", PLAN_SHAPES)
+def test_pairs_plan_within_limits(t_dim, lanes, sms):
+    plan = pairs_rans.pairs_plan(t_dim, lanes, sms)
+    assert plan.lg == build.LANE_GROUP == 8
+    assert plan.blocks == -(-lanes // plan.lg)
+    assert plan.threads == 32 * (plan.helpers + 1) <= 512
+    assert plan.d % 2 == 0 and plan.ahead >= 1
+    assert plan.d >= (plan.ahead + 1) * plan.helpers
+    assert plan.ring & (plan.ring - 1) == 0
+    assert plan.ring >= plan.d * pairs_rans.SLOTS + 4
+    assert plan.smem >= (plan.d * (24 + 4 * pairs_rans.STAGE_INTS)
+                         + 4 * plan.lg * (plan.ring + 4))
+    assert plan.smem <= build.SMEM_BLOCK
+    per_sm = -(-plan.blocks // sms)
+    assert per_sm * (plan.smem + 1024) <= build.SMEM_SM
+    assert per_sm * (plan.helpers + 1) <= build.WARPS_SM
+    assert plan.vec == (4 if lanes % 4 == 0 else 1)
+
+
+def test_pairs_plan_at_the_hesic_plus_point():
+    """363 lane groups, three to an SM: the deepest ring and every
+    helper fit."""
+    plan = pairs_rans.pairs_plan(1000, 2904)
+    assert (plan.blocks, plan.d, plan.helpers, plan.vec) == (
+        363, pairs_rans.MAX_STAGES, pairs_rans.HELPERS, 4)
+    assert pairs_rans.pairs_plan(1000, 2904, 132) == plan
