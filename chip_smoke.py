@@ -69,8 +69,24 @@ and prints no result):
      (kernel 5 counts one launch per eye pass, its 626 kernel launches
      included: the hoisted product, then four stage GEMMs and the coder
      per level);
-  7. prints one JSON line with each kernel's numbers, then the device
-     line {"ok": true, "device": {...}} last.
+  7. trains HESIC N=128/M=192/K=5 at bench.py's train point (512x512,
+     batch 8, lambda 1e-2, Adam 1e-4 main / 1e-3 aux), in bf16 and in
+     f32: one warm-up step, then 12 timed steps; prints ms a step, pairs/s
+     and peak memory beside the card's name and power limit; raises on a
+     non-finite loss or gradient and unless both parameter groups moved.
+     It also runs the training warp's backward under
+     torch.use_deterministic_algorithms(True), which must not raise and
+     must agree with the default backward;
+  8. calibrates as bench.py does (bf16, 256x256, batch 4, 60 steps,
+     seeded noise), printing loss and bpp every 10 steps; the mean loss
+     of the last 10 steps must be below the first 10's.  Then the
+     calibrated model goes through compress_fast -> decompress_fast on
+     phase 5's 8 pairs (identity H): the decoded latents must equal the
+     encoder's, kernels 1-3 must have launched, and bpp_real must be
+     below phase 5's random-weights bpp_real of the same pairs;
+  9. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6 and 8's round trips), then the device line {"ok": true,
+     "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -136,6 +152,13 @@ AR_OPS_PER_EDGE, AR_OPS_PER_BIN, AR_OPS_PER_LATENT = 56, 11, 27
 # order) against its twin's torch.matmul: max |d| within HOIST_TOL of the
 # largest |base|; a sound kernel read about 0.1 of that limit on the H100
 HOIST_TOL = 1e-5
+
+# the training step at bench.py's points (training.recipe.trainer: lambda
+# 1e-2, Adam lr 1e-4, aux 1e-3): BENCH_MODE=train (512x512, batch 8, 12
+# timed steps after a warm-up, bf16 and f32) and _calibrate (bf16,
+# 256x256, batch 4, 60 steps)
+TRAIN_B, TRAIN_STEPS = 8, 12
+CAL_HW, CAL_B, CAL_STEPS = 256, 4, 60
 
 
 def card_line() -> str:
@@ -383,16 +406,41 @@ def wide_codec(model, x1, x2, mm: int):
     raise AssertionError(f"no analysis gain makes both eyes pick grid {mm}")
 
 
-def phase_main_path() -> dict:
+def check_fast_round_trip(label: str, cdc, a, b, hm, out, rec):
+    """Raise unless the fast codec's decode `rec` of `out` (pairs a, b
+    under homography hm) gives the encoder's own quantized latents and
+    finite reconstructions of the input's shape.  Returns the encoder's
+    (y1_hat, y2_hat), NHWC float."""
+    import numpy as np
+    import torch
+    h = torch.from_numpy(np.tile(hm[None], (len(a), 1, 1))).to(DEVICE)
+    enc = cdc.transforms_enc(cdc._to_device(a), cdc._to_device(b), h,
+                             out["blob"][3])
+    want = [enc[i].permute(0, 2, 3, 1).float() for i in (0, 1)]
+    for key, w in zip(("y1_hat", "y2_hat"), want):
+        if not torch.equal(rec[key], w):
+            bad = int((rec[key] != w).sum())
+            raise AssertionError(f"{label}: decoded {key} differs from "
+                                 f"the encoder's latents at {bad} cells")
+    for key in ("x1_hat", "x2_hat"):
+        if tuple(rec[key].shape) != a.shape:
+            raise AssertionError(f"{label}: {key} shape "
+                                 f"{tuple(rec[key].shape)}")
+        if not torch.isfinite(rec[key]).all():
+            raise AssertionError(f"{label}: {key} not finite")
+    return want
+
+
+def phase_main_path():
     """Five round trips of a batch, over grids mm 4, 16 and 32; returns
-    the kernels' launch counts."""
+    the kernels' launch counts and the identity case's bpp_real."""
     import numpy as np
     import torch
     from hesic_tpu_torch.codecs import build
     from hesic_tpu_torch.models.hesic import HESIC
     from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
-    from hesic_tpu_torch.utils.profile_fast import (rotated_homography,
-                                                    smooth_pairs)
+    from hesic_tpu_torch.training.recipe import smooth_pairs
+    from hesic_tpu_torch.utils.profile_fast import rotated_homography
 
     model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
                   seed=0)
@@ -436,32 +484,19 @@ def phase_main_path() -> dict:
                              f"not all of 4, 16 and 32")
     for label, (cdc, a, b, hm) in cases.items():
         out, rec = runs[label]
-        h = torch.from_numpy(np.tile(hm[None], (B, 1, 1))).to(DEVICE)
         win = out["blob"][3]
-        enc = cdc.transforms_enc(cdc._to_device(a), cdc._to_device(b), h,
-                                 win)
-        for eye_i, key in ((0, "y1_hat"), (1, "y2_hat")):
-            want = enc[eye_i].permute(0, 2, 3, 1).float()
-            if not torch.equal(rec[key], want):
-                bad = int((rec[key] != want).sum())
-                raise AssertionError(f"{label}: decoded {key} differs from "
-                                     f"the encoder's latents at {bad} cells")
-            if label != "identity H":
-                continue
-            for what, got in ((f"blob {ALONE} alone", alone[key][0]),
-                              ("the reversed list", reverse[key].flip(0))):
-                ref = want[ALONE] if what.startswith("blob") else want
-                if not torch.equal(got, ref):
-                    bad = int((got != ref).sum())
-                    raise AssertionError(f"{label}, {what}: decoded {key} "
-                                         f"differs from the encoder's "
-                                         f"latents at {bad} cells")
-        for key in ("x1_hat", "x2_hat"):
-            if tuple(rec[key].shape) != x1.shape:
-                raise AssertionError(f"{label}: {key} shape "
-                                     f"{tuple(rec[key].shape)}")
-            if not torch.isfinite(rec[key]).all():
-                raise AssertionError(f"{label}: {key} not finite")
+        want = check_fast_round_trip(label, cdc, a, b, hm, out, rec)
+        if label == "identity H":
+            for key, w in zip(("y1_hat", "y2_hat"), want):
+                for what, got, ref in (
+                        (f"blob {ALONE} alone", alone[key][0], w[ALONE]),
+                        ("the reversed list", reverse[key].flip(0), w)):
+                    if not torch.equal(got, ref):
+                        bad = int((got != ref).sum())
+                        raise AssertionError(f"{label}, {what}: decoded "
+                                             f"{key} differs from the "
+                                             f"encoder's latents at {bad} "
+                                             f"cells")
         if cdc is hot_codec and min(out["outliers"]) == 0:
             raise AssertionError(f"{label}: no latent left the grid")
         extra = (f"; blob {ALONE} alone and the reversed list too"
@@ -472,7 +507,7 @@ def phase_main_path() -> dict:
               f"encode {out['enctime'] * 1e3:.1f} ms, decode "
               f"{rec['dectime'] * 1e3:.1f} ms wall for {B} pairs; decoded "
               f"latents equal the encoder's{extra}")
-    return launches
+    return launches, runs["identity H"][0]["bpp_real"]
 
 
 def ar_setup():
@@ -483,7 +518,7 @@ def ar_setup():
     import torch
     from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
     from hesic_tpu_torch.models.hesic_plus import HESICPlus
-    from hesic_tpu_torch.utils.profile_fast import smooth_pairs
+    from hesic_tpu_torch.training.recipe import smooth_pairs
 
     model = HESICPlus(N=AR_N, M=AR_M, dtype=torch.bfloat16, device=DEVICE,
                       seed=0)
@@ -849,6 +884,155 @@ def phase_hesic_plus_path(model, codec, pairs) -> dict:
     return launches
 
 
+def check_step(label: str, model, opt, before: dict, losses) -> None:
+    """Raise on a non-finite loss or gradient, or a parameter group that
+    did not move from `before`."""
+    import torch
+    bad = [i for i, v in enumerate(losses) if not torch.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train {label}: non-finite loss at steps {bad}")
+    names = {p: n for n, p in model.named_parameters()}
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"train {label}: gradient of "
+                                     f"{names[p]} missing or not finite")
+        if all(torch.equal(p.detach(), before[names[p]])
+               for p in group["params"]):
+            raise AssertionError(f"train {label}: the {group['name']} "
+                                 f"group did not move")
+
+
+def check_warp_backward(dtype) -> str:
+    """The training warp's backward (the gather's scatter-add) run under
+    torch.use_deterministic_algorithms(True) against the default one, at
+    the step's shapes (rotated H); returns a line with the times of
+    forward + backward both ways."""
+    import torch
+    from hesic_tpu_torch.geometry import warp_perspective_train
+    from hesic_tpu_torch.utils.profile_fast import rotated_homography
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    src = torch.rand(TRAIN_B, 3, HW_IMG, HW_IMG, generator=gen,
+                     device=DEVICE, requires_grad=True)
+    h = torch.from_numpy(rotated_homography()).to(DEVICE).expand(
+        TRAIN_B, 3, 3).contiguous()
+    cot = torch.rand(src.shape, generator=gen, device=DEVICE)
+
+    def grad(deterministic: bool = False):
+        out = warp_perspective_train(src, h, dtype)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            return torch.autograd.grad(out, src, cot)[0]
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    g_det = grad(True)
+    det_ms = cuda_ms(lambda: grad(True), 5)
+    g = grad()
+    ms = cuda_ms(grad, 5)
+    sync()
+    err = float((g_det - g).abs().max())
+    if not err <= 1e-5 * float(g.abs().max()):
+        raise AssertionError(f"warp backward: deterministic and default "
+                             f"gradients differ by {err}")
+    return (f"warp forward+backward (rotated H) {ms:.3f} ms, under "
+            f"deterministic algorithms {det_ms:.3f} ms, max |d grad| "
+            f"{err:.3e}")
+
+
+def phase_train(card: str) -> None:
+    """bench.py's train point: the full-width step at 512x512, batch 8,
+    in bf16 and in f32; one warm-up step, then TRAIN_STEPS timed."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.models.hesic import HESIC
+    from hesic_tpu_torch.training.recipe import train_batch, trainer
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        model = HESIC(N=N, M=M, K=K, dtype=dtype, device=DEVICE, seed=0)
+        opt, step, gen = trainer(model)
+        batch = train_batch(np.random.RandomState(0), TRAIN_B, HW_IMG,
+                            DEVICE)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(batch, gen)["loss"]]
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(batch, gen)["loss"])
+        sync()
+        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check_step(name, model, opt, before, losses)
+        print(f"train {name} [{card}]: N{N}/M{M}/K{K} {HW_IMG}x{HW_IMG} "
+              f"batch {TRAIN_B}: {ms:.2f} ms a step, "
+              f"{TRAIN_B * 1e3 / ms:.2f} pairs/s over {TRAIN_STEPS} steps "
+              f"after a warm-up; peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"loss {float(losses[0]):.3f} -> {float(losses[-1]):.3f}; "
+              f"both groups moved, gradients finite; "
+              f"{check_warp_backward(dtype)}")
+        del model, opt, step, batch, before, losses
+        torch.cuda.empty_cache()
+
+
+def phase_calibrate(random_bpp: float) -> dict:
+    """bench.py's calibration: CAL_STEPS bf16 steps at CAL_HW, batch
+    CAL_B, then the fast codec's round trip at the calibrated weights on
+    phase 5's pairs (identity H).  Returns the round trip's launches."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.hesic import HESIC
+    from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
+    from hesic_tpu_torch.training.recipe import (smooth_pairs, train_batch,
+                                                 trainer)
+
+    model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
+                  seed=0)
+    _, step, gen = trainer(model)
+    batch = train_batch(np.random.RandomState(2), CAL_B, CAL_HW, DEVICE)
+    losses, bpps = [], []
+    for i in range(CAL_STEPS):
+        m = step(batch, gen)
+        losses.append(m["loss"])
+        bpps.append(m["bpp"])
+        if (i + 1) % 10 == 0:
+            print(f"calibrate step {i + 1}: loss {float(m['loss']):.4f}, "
+                  f"bpp {float(m['bpp']):.4f}")
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError("calibration: non-finite loss")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not last < first:
+        raise AssertionError(f"calibration: mean loss of the last 10 steps "
+                             f"{last} is not below the first 10's {first}")
+
+    codec = HESICFastCodec(model, codec_batch=B).update()
+    x1, x2 = smooth_pairs(np.random.RandomState(0), B, HW_IMG)
+    eye = np.eye(3, dtype=np.float32)
+    build.launch_counts.clear()
+    out = codec.compress_fast(x1, x2, np.tile(eye[None], (B, 1, 1)))
+    rec = codec.decompress_fast(out["blobs"])
+    launches = dict(build.launch_counts)
+    check_fast_round_trip("calibrated", codec, x1, x2, eye, out, rec)
+    for name in ("gmm_freq", "grid_rans_encode", "grid_rans_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"calibrated round trip never launched "
+                                 f"{name}")
+    bpp = out["bpp_real"]
+    if not bpp < random_bpp:
+        raise AssertionError(f"calibrated bpp_real {bpp} is not below the "
+                             f"random weights' {random_bpp}")
+    print(f"calibrate: mean loss of the first 10 steps {first:.4f}, of the "
+          f"last 10 {last:.4f}; bpp (training estimate) {float(bpps[0]):.4f}"
+          f" -> {float(bpps[-1]):.4f}; calibrated round trip [identity H, "
+          f"mm {out['blob'][1]}/{out['blob'][2]}]: bpp_real {bpp:.6f} "
+          f"against the random weights' {random_bpp:.6f}, outliers "
+          f"{out['outliers'][0]}/{out['outliers'][1]}; decoded latents "
+          f"equal the encoder's; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -897,8 +1081,14 @@ def main() -> int:
                                       for r in ar.values())
     torch.cuda.empty_cache()
 
-    launches = phase_main_path()
+    launches, random_bpp = phase_main_path()
     launches.update(phase_hesic_plus_path(model, codec, pairs))
+    del model, codec, pairs, eyes, ar
+    torch.cuda.empty_cache()
+
+    phase_train(card)
+    for name, n in phase_calibrate(random_bpp).items():
+        launches[name] = launches.get(name, 0) + n
     names = {"gmm_freq": ("hesic_tpu_torch/codecs/csrc/pmf.cu",
                           "hesic_tpu/codecs/pallas_pmf.py:110", pmf32),
              "grid_rans_encode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",

@@ -1,9 +1,12 @@
-"""Entropy models and host-side coder tables."""
+"""Entropy models (training forward and likelihoods) and host-side coder
+tables."""
 
 from .codec import (CdfTables, compress_with_indexes, decode_streams_batch,
                     decompress_with_indexes, tables_from_pmf)
-from .entropy_models import EntropyBottleneck
+from .entropy_models import (EntropyBottleneck, GaussianMixtureConditional,
+                             standardized_cumulative)
 
-__all__ = ["CdfTables", "EntropyBottleneck", "compress_with_indexes",
-           "decode_streams_batch", "decompress_with_indexes",
+__all__ = ["CdfTables", "EntropyBottleneck", "GaussianMixtureConditional",
+           "compress_with_indexes", "decode_streams_batch",
+           "decompress_with_indexes", "standardized_cumulative",
            "tables_from_pmf"]

@@ -1,10 +1,12 @@
-"""EntropyBottleneck: the fully-factorized learned prior (Balle et al.
-2018, appendix 6.1), as hesic_tpu/entropy_models/entropy_models.py.
+"""Entropy models, NCHW, as hesic_tpu/entropy_models/entropy_models.py.
 
-This slice carries what the codec's ``update()`` needs: the parameters,
-``_logits_cumulative``, ``medians`` and ``pmf_data`` (the PMF table the
-z CDFs are quantized from).  The training forward waits for the training
-slice.  Numerics stay float32; softplus is ``logaddexp(x, 0)``, the JAX
+``EntropyBottleneck`` is the fully-factorized learned prior (Balle et al.
+2018, appendix 6.1): its forward (noise in training, rounding about the
+medians in eval), the auxiliary ``loss`` that pulls the quantiles to the
+tail-mass targets, and ``pmf_data`` (the PMF table the codec's z CDFs are
+quantized from).  ``GaussianMixtureConditional`` is HESIC's K-component
+mixture over the y latents.  Likelihoods are float32 (erfc near the
+1e-9 bound underflows in bf16); softplus is ``logaddexp(x, 0)``, the JAX
 package's formulation.
 """
 
@@ -15,6 +17,16 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from ..ops import lower_bound, quantize
+
+LIKELIHOOD_BOUND = 1e-9    # every likelihood's floor, through lower_bound
+SCALE_BOUND = 0.11         # the mixture's smallest scale
+
+
+def standardized_cumulative(x: torch.Tensor) -> torch.Tensor:
+    """0.5 * erfc(-x / sqrt(2)): the standard normal CDF, in float32."""
+    return 0.5 * torch.erfc(-(2 ** -0.5) * x.float())
 
 
 class EntropyBottleneck(nn.Module):
@@ -44,17 +56,60 @@ class EntropyBottleneck(nn.Module):
         """(C,) per-channel medians (the z symbol offsets)."""
         return self.quantiles[:, 0, 1]
 
-    def _logits_cumulative(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (C, 1, N) -> logits of the cumulative at x, same shape."""
+    def _logits_cumulative(self, x: torch.Tensor,
+                           stop_gradient: bool) -> torch.Tensor:
+        """x: (C, 1, N) -> logits of the cumulative at x, same shape.
+        With `stop_gradient` the density's parameters are detached."""
+
+        def param(name):
+            p = getattr(self, name)
+            return p.detach() if stop_gradient else p
+
         logits = x.float()
         for i in range(len(self.filters) + 1):
-            m = getattr(self, f"matrix_{i}")
+            m = param(f"matrix_{i}")
             sp = torch.logaddexp(m, torch.zeros_like(m))
-            logits = torch.matmul(sp, logits) + getattr(self, f"bias_{i}")
+            logits = torch.matmul(sp, logits) + param(f"bias_{i}")
             if i < len(self.filters):
-                f = getattr(self, f"factor_{i}")
+                f = param(f"factor_{i}")
                 logits = logits + torch.tanh(f) * torch.tanh(logits)
         return logits
+
+    def _likelihood(self, x: torch.Tensor) -> torch.Tensor:
+        lower = self._logits_cumulative(x - 0.5, stop_gradient=False)
+        upper = self._logits_cumulative(x + 0.5, stop_gradient=False)
+        sign = -torch.sign(lower + upper).detach()
+        return torch.abs(torch.sigmoid(sign * upper)
+                         - torch.sigmoid(sign * lower))
+
+    def loss(self) -> torch.Tensor:
+        """Auxiliary loss pushing the quantiles to the tail-mass targets;
+        its gradient reaches the quantiles only."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        # the logits of tail_mass/2, 1/2 and 1 - tail_mass/2
+        t = math.log(2 / self.tail_mass - 1)
+        target = torch.tensor([-t, 0.0, t], device=logits.device)
+        return torch.sum(torch.abs(logits - target))
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None):
+        """x: (B, C, H, W) -> (x_hat, likelihoods), both (B, C, H, W).
+        Training adds U(-0.5, 0.5) noise drawn from `generator`; eval
+        rounds about the medians.  The values are laid out (C, 1, N) with
+        N in (h, w, b) order, as the JAX package lays them out."""
+        b, c, h, w = x.shape
+        values = x.permute(1, 2, 3, 0).reshape(c, 1, -1)
+        if training:
+            values = quantize(values, "noise", generator=generator)
+        else:
+            values = quantize(values, "dequantize",
+                              means=self.quantiles[:, :, 1:2])
+        likelihood = lower_bound(self._likelihood(values), LIKELIHOOD_BOUND)
+
+        def nchw(t):
+            return t.reshape(c, h, w, b).permute(3, 0, 1, 2)
+
+        return nchw(values), nchw(likelihood)
 
     @torch.no_grad()
     def pmf_data(self):
@@ -72,11 +127,49 @@ class EntropyBottleneck(nn.Module):
         samples = torch.arange(max_length, dtype=torch.float32,
                                device=q.device)
         samples = samples[None, :] + pmf_start[:, None, None]
-        lower = self._logits_cumulative(samples - 0.5)
-        upper = self._logits_cumulative(samples + 0.5)
+        lower = self._logits_cumulative(samples - 0.5, stop_gradient=True)
+        upper = self._logits_cumulative(samples + 0.5, stop_gradient=True)
         sign = -torch.sign(lower + upper)
         pmf = torch.abs(torch.sigmoid(sign * upper)
                         - torch.sigmoid(sign * lower))[:, 0, :]
         tail_mass = (torch.sigmoid(lower[:, 0, 0])
                      + torch.sigmoid(-upper[:, 0, -1]))
         return pmf, tail_mass, pmf_length, -minima
+
+
+class GaussianMixtureConditional(nn.Module):
+    """K-component Gaussian-mixture conditional, HESIC's y entropy model.
+
+    Scales, means and weights carry M*K channels, K slabs of M (channel
+    k*M + m); weights may be spatially pooled (B, M*K, 1, 1).  Scales are
+    bounded below at SCALE_BOUND through ``lower_bound``; likelihoods are
+    float32.  Quantization ignores the means (the reference's quirk, kept
+    by the JAX package)."""
+
+    def __init__(self, K: int = 5):
+        super().__init__()
+        self.K = K
+
+    def _likelihood(self, inputs, scales, means, weights):
+        m = inputs.shape[1]
+
+        def slab(t):
+            return t.float().reshape(t.shape[0], self.K, m, *t.shape[2:])
+
+        x = inputs.float()[:, None]
+        sc = lower_bound(slab(scales), SCALE_BOUND)
+        values = torch.abs(x - slab(means))
+        upper = standardized_cumulative((0.5 - values) / sc)
+        lower = standardized_cumulative((-0.5 - values) / sc)
+        return torch.sum((upper - lower) * slab(weights), dim=1)
+
+    def forward(self, inputs, scales, means, weights, training: bool = False,
+                generator=None):
+        """inputs (B, M, h, w) -> (outputs, likelihoods), both that shape."""
+        if training:
+            outputs = quantize(inputs, "noise", generator=generator)
+        else:
+            outputs = quantize(inputs, "dequantize")
+        return outputs, lower_bound(
+            self._likelihood(outputs, scales, means, weights),
+            LIKELIHOOD_BOUND)

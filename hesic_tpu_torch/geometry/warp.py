@@ -193,3 +193,20 @@ def warp_perspective(src: torch.Tensor, m: torch.Tensor, win: int = 64,
            + wy1.reshape(b, 1, -1) * row(y0 + 1, my1))
     out = out.reshape(b, c, nb * r, w)[:, :, :h]
     return out.contiguous(), overflow
+
+
+TRAIN_WIN = 64
+TRAIN_ROWS_PER_BLOCK = 8
+
+
+def warp_perspective_train(src: torch.Tensor, m: torch.Tensor,
+                           dtype=None) -> torch.Tensor:
+    """The model forward's warp, as the JAX package's
+    ``warp_perspective_train``: windows of 64 source rows for blocks
+    of 8 output rows, computed in `dtype` (the model's transform dtype;
+    None means float32, not the codec's bf16).  Differentiable with
+    respect to `src`: the gather's backward is a scatter-add.  Returns
+    the (B, C, H, W) float32 warp; overflowed taps are masked to zero."""
+    return warp_perspective(src, m, TRAIN_WIN,
+                            rows_per_block=TRAIN_ROWS_PER_BLOCK,
+                            compute_dtype=dtype or torch.float32)[0]

@@ -13,6 +13,11 @@ split: ``analysis1/2``, ``synthesis1/2``, ``hyper_analysis1/2``,
 ``gmm1/2``.  ``dtype`` (None = float32) is the transforms' compute type;
 the GMM heads' outputs and the encoders' latents are cast to float32.
 GMM weight channels are laid out k*M + m.
+
+``forward`` is the training (and likelihood) forward of the JAX package's
+``HESIC.__call__``; ``aux_loss`` is the bottlenecks' quantile loss.  The
+model is built with gradients off (the codecs run it under ``no_grad``);
+``training.make_optimizer`` turns them on for what it trains.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..entropy_models import EntropyBottleneck
+from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
+from ..geometry import warp_perspective_train
 from ..layers import GDN, Conv, Deconv
+from ..ops import quantize
 
 
 def spatial_max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -230,8 +237,53 @@ class HESIC(nn.Module):
         self.h_s2 = GmmHyperY2(N, M, K, **kw)
         self.entropy_bottleneck1 = EntropyBottleneck(N, generator=g)
         self.entropy_bottleneck2 = EntropyBottleneck(N, generator=g)
+        self.gaussian1 = GaussianMixtureConditional(K)
+        self.gaussian2 = GaussianMixtureConditional(K)
         self.to(device)
         self.requires_grad_(False)
+
+    def aux_loss(self) -> torch.Tensor:
+        return (self.entropy_bottleneck1.loss()
+                + self.entropy_bottleneck2.loss())
+
+    def forward(self, x1, x2, h, training: bool = False, generator=None):
+        """x1, x2 (B, 3, H, W) float32 views, h (B, 3, 3) homographies ->
+        {"x1_hat", "x2_hat", "y1_hat", "y2_hat", "likelihoods": {"y1",
+        "y2", "z1", "z2"}}, NCHW float32.
+
+        Training draws the noise of the five quantizations from
+        `generator`, in the JAX package's order: z1, y1, the re-encoded
+        warped left reconstruction, z2, y2.  Eval rounds instead.  The
+        warped left reconstruction feeds both the right eye's prior and
+        its decoder, so gradients reach decoder1 through both, and
+        encoder1 (applied twice, shared weights) through both its uses."""
+        mode = "noise" if training else "dequantize"
+        y1 = self.encoder1(x1)
+        z1 = self.h_a1(y1)
+        z1_hat, z1_lik = self.entropy_bottleneck1(z1, training, generator)
+        sigma1, means1, weights1 = self.h_s1(z1_hat)
+        y1_hat, y1_lik = self.gaussian1(y1, sigma1, means1, weights1,
+                                        training, generator)
+        x1_hat = self.decoder1(y1_hat)
+
+        x1_warp = warp_perspective_train(x1, h, self.dtype)
+        y2 = self.encoder2(x1_warp, x2)
+        # the decoder-reproducible cross-eye prior: the decoded left view,
+        # warped and re-encoded
+        x1_hat_warp = warp_perspective_train(x1_hat, h, self.dtype)
+        y1_warpf2 = self.encoder1(x1_hat_warp)
+        y1_hat_warpf2 = quantize(y1_warpf2, mode, generator=generator)
+
+        z2 = self.h_a2(y2)
+        z2_hat, z2_lik = self.entropy_bottleneck2(z2, training, generator)
+        sigma2, means2, weights2 = self.h_s2(z2_hat, y1_hat_warpf2)
+        y2_hat, y2_lik = self.gaussian2(y2, sigma2, means2, weights2,
+                                        training, generator)
+        x2_hat = self.decoder2(y2_hat, x1_hat_warp)
+        return {"x1_hat": x1_hat, "x2_hat": x2_hat, "y1_hat": y1_hat,
+                "y2_hat": y2_hat,
+                "likelihoods": {"y1": y1_lik, "y2": y2_lik, "z1": z1_lik,
+                                "z2": z2_lik}}
 
     # ---- codec-facing sub-programs ----
 

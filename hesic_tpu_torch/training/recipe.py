@@ -1,0 +1,58 @@
+"""bench.py's training recipe: its smooth stereo pairs, a training batch
+of them on a device, and its optimizer and train step (RD loss at lambda
+1e-2 plus the aux loss, Adam 1e-4 / 1e-3) with a seeded noise generator.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .losses import make_loss_fn
+from .train_state import make_optimizer, make_train_step
+
+
+def smooth_pairs(rng, batch: int, hw: int):
+    """`batch` stereo pairs (B, hw, hw, 3) float32: a low-pass random field
+    and a shifted copy as the second eye (the JAX bench's _smooth_pair)."""
+    x1, x2 = [], []
+    for _ in range(batch):
+        base = (0.5 + 0.25 * rng.randn(hw // 16 + 2, hw // 16 + 2, 3)
+                ).astype(np.float32)
+        base = np.clip(base, 0, 1)
+        base = np.repeat(np.repeat(base, 2, 0), 2, 1)
+        idx = np.linspace(0, base.shape[0] - 1.001, hw)
+        xi = idx.astype(np.int32)
+        fi = (idx - xi).astype(np.float32)
+        rows = (base[xi] * (1 - fi)[:, None, None]
+                + base[xi + 1] * fi[:, None, None])
+        up = (rows[:, xi] * (1 - fi)[None, :, None]
+              + rows[:, xi + 1] * fi[None, :, None])
+        x1.append(up)
+        x2.append(np.roll(up, 3, axis=1) * 0.98 + 0.01)
+    return (np.stack(x1).astype(np.float32),
+            np.stack(x2).astype(np.float32))
+
+
+def train_batch(rng, batch: int, hw: int, device: str) -> dict:
+    """A training batch of `batch` smooth pairs on `device`: {"x1", "x2"
+    (batch, 3, hw, hw) float32, "h" identity homographies (batch, 3, 3)}."""
+    x1, x2 = smooth_pairs(rng, batch, hw)
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(
+            device)
+
+    return {"x1": nchw(x1), "x2": nchw(x2),
+            "h": torch.eye(3, device=device).expand(batch, 3, 3).contiguous()}
+
+
+def trainer(model):
+    """``bench.py``'s training setup for `model`: its Adam (lr 1e-4, aux
+    1e-3), its train step on the RD loss at lambda 1e-2 plus the aux
+    loss, and a noise generator on the model's device seeded 7.  Returns
+    (optimizer, step, generator)."""
+    opt = make_optimizer(model, 1e-4, 1e-3)
+    step = make_train_step(model, opt, make_loss_fn(1e-2))
+    device = next(model.parameters()).device
+    return opt, step, torch.Generator(device=device).manual_seed(7)

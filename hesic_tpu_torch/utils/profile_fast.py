@@ -1,9 +1,11 @@
-"""Where the time goes in one codec round trip on the card.
+"""Where the time goes in one codec round trip, or one training step, on
+the card.
 
 Usage (on a machine with a CUDA card):
 
     python -m hesic_tpu_torch.utils.profile_fast [--model hesic|hesic-plus
         --batch B --mm MM --homography identity|rotated]
+    python -m hesic_tpu_torch.utils.profile_fast --model train [--batch B]
 
 ``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and traces
 ``HESICFastCodec.compress_fast`` + ``decompress_fast`` (batch 8, grid cap
@@ -22,6 +24,18 @@ kernels by name, then one JSON line with the same numbers.  Kernel 5's
 launches group as its hoisted product, its context stage, its three MLP
 stages and its coder.  Device time is the sum of the kernels' own times
 on the card (one stream, so kernels do not overlap).
+
+``--model train`` builds HESIC N=128/M=192/K=5 with bf16 transforms (seed
+0) under the codecs' determinism policy, and its train step (RD loss at
+lambda 1e-2 plus the aux loss, Adam 1e-4 / 1e-3) on 512x512 smooth pairs
+(batch 8 by default, identity H).  It runs two warm-up steps, times one
+untraced step, then traces one.  The device time is split by the
+operations that launched it: convolutions forward (cuDNN, deconvolutions
+included) and backward, the warp's gather and its backward (a
+scatter-add), the likelihoods' work (the bottlenecks' and mixtures'
+forwards, marked by module hooks, and the backward of every operation
+they ran, matched by autograd sequence number), the Adam update, and the
+rest.
 """
 
 from __future__ import annotations
@@ -33,29 +47,9 @@ import sys
 
 import numpy as np
 
+from ..training.recipe import smooth_pairs, train_batch, trainer
+
 SIZE = 512     # image side, pixels
-
-
-def smooth_pairs(rng, batch: int, hw: int):
-    """`batch` stereo pairs (B, hw, hw, 3) float32: a low-pass random field
-    and a shifted copy as the second eye (the JAX bench's _smooth_pair)."""
-    x1, x2 = [], []
-    for _ in range(batch):
-        base = (0.5 + 0.25 * rng.randn(hw // 16 + 2, hw // 16 + 2, 3)
-                ).astype(np.float32)
-        base = np.clip(base, 0, 1)
-        base = np.repeat(np.repeat(base, 2, 0), 2, 1)
-        idx = np.linspace(0, base.shape[0] - 1.001, hw)
-        xi = idx.astype(np.int32)
-        fi = (idx - xi).astype(np.float32)
-        rows = (base[xi] * (1 - fi)[:, None, None]
-                + base[xi + 1] * fi[:, None, None])
-        up = (rows[:, xi] * (1 - fi)[None, :, None]
-              + rows[:, xi + 1] * fi[None, :, None])
-        x1.append(up)
-        x2.append(np.roll(up, 3, axis=1) * 0.98 + 0.01)
-    return (np.stack(x1).astype(np.float32),
-            np.stack(x2).astype(np.float32))
 
 
 def rotated_homography() -> np.ndarray:
@@ -116,19 +110,181 @@ def _codec(model: str, batch: int, mm: int):
     return trip
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _marked(modules, label: str):
+    """Hooks that run each module's forward inside a profiler range named
+    `label`."""
+    from torch.profiler import record_function
+    open_ranges = []
+
+    def enter(module, args):
+        r = record_function(label)
+        r.__enter__()
+        open_ranges.append(r)
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    for m in modules:
+        m.register_forward_pre_hook(enter)
+        m.register_forward_hook(leave)
+
+
+def _kernels_of(evs):
+    """The kernels (name, duration us) launched by profiler events and
+    their children."""
+    return [k for e in evs
+            for k in list(e.kernels) + _kernels_of(e.cpu_children)]
+
+
+def _top(kernels, n: int):
+    """The `n` kernel names with the most device time: [(name, ms,
+    launches)]."""
+    by = {}
+    for k in kernels:
+        ms, c = by.get(k.name, (0.0, 0))
+        by[k.name] = (ms + k.duration / 1e3, c + 1)
+    return sorted(((name, ms, c) for name, (ms, c) in by.items()),
+                  key=lambda t: -t[1])[:n]
+
+
+def _step_breakdown(events) -> dict:
+    """Kernels of one traced train step by the operations that launched
+    them: {group: kernels}; "other kernels" holds the rest."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+
+    likes = [e for e in events if e.name == "likelihoods"]
+
+    def inside(e):
+        return any(r.thread == e.thread
+                   and r.time_range.start <= e.time_range.start
+                   and e.time_range.end <= r.time_range.end for r in likes)
+
+    seqs = {e.sequence_nr for e in events
+            if e.sequence_nr >= 0 and e.name != "likelihoods" and inside(e)}
+    backward = [e for e in events
+                if e.name.startswith("autograd::engine::evaluate_function")]
+    groups = {
+        "convolutions, forward": [e for e in events
+                                  if e.name == "aten::convolution"],
+        "convolutions, backward": [e for e in events
+                                   if e.name == "aten::convolution_backward"],
+        "warp gather, forward": [e for e in events
+                                 if e.name == "aten::gather"],
+        "warp scatter-add (gather backward)": [
+            e for e in backward if e.name.endswith("GatherBackward0")],
+        "likelihoods, forward": likes,
+        "likelihoods, backward": [e for e in backward
+                                  if e.sequence_nr in seqs],
+        "Adam update": [e for e in events
+                        if e.name.startswith("Optimizer.step#")],
+    }
+    out = {k: _kernels_of(v) for k, v in groups.items()}
+    grouped = {id(k) for ks in out.values() for k in ks}
+    kernels = _kernels_of(e for e in events if e.device_type != cuda
+                          and e.cpu_parent is None)
+    out["other kernels"] = [k for k in kernels if id(k) not in grouped]
+    return out
+
+
+def train_main(batch: int) -> int:
+    """Profile one warm bf16 train step (see the module docstring)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..entropy_models import (EntropyBottleneck,
+                                  GaussianMixtureConditional)
+    from ..models.base import deterministic_backends
+    from ..models.hesic import HESIC
+
+    if not torch.cuda.is_available():
+        print("profile_fast: no CUDA device", file=sys.stderr)
+        return 1
+    card = _card()
+    deterministic_backends()
+    model = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
+                  seed=0)
+    _, step, gen = trainer(model)
+    data = train_batch(np.random.RandomState(0), batch, SIZE, "cuda")
+    _marked([m for m in model.modules() if isinstance(
+        m, (EntropyBottleneck, GaussianMixtureConditional))], "likelihoods")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(data, gen)
+        torch.cuda.synchronize()
+        return metrics, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):
+        timed_step()
+    _, plain_ms = timed_step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        metrics, wall_ms = timed_step()
+    events = prof.events()
+    # the device-side spans of profiler ranges (the likelihoods' hooks,
+    # Optimizer.step) are not kernels: they cover the gaps between them
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    n_kernels = len(device)
+    groups = _step_breakdown(events)
+
+    print(f"card: {card}")
+    print(f"train, HESIC N128/M192/K5 bf16, batch {batch} pairs "
+          f"{SIZE}x{SIZE}, identity H: loss {float(metrics['loss']):.4f}, "
+          f"step {plain_ms:.2f} ms wall untraced, {wall_ms:.2f} ms traced")
+    if not n_kernels:
+        print("device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return 1
+    sums = {label: (sum(k.duration for k in ks) / 1e3, len(ks))
+            for label, ks in groups.items()}
+    print(f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall: busy "
+          f"share {busy_ms / wall_ms:.3f}, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; {n_kernels} kernels, "
+          f"{sum(v[0] for v in sums.values()):.2f} ms of them attributed "
+          f"to the operations that launched them")
+    for label, (g_ms, n) in sums.items():
+        print(f"  {label:<36s} {g_ms:9.3f} ms  {n:6d} launches  "
+              f"{g_ms / busy_ms:6.1%} of device time")
+        for name, k_ms, c in _top(groups[label], 3):
+            print(f"      {k_ms:9.3f} ms  {c:5d}x  {name[:80]}")
+    print(json.dumps({
+        "card": card, "model": "train", "batch": batch, "size": SIZE,
+        "step_ms": plain_ms, "traced_step_ms": wall_ms,
+        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+        "groups_ms": {k: v[0] for k, v in sums.items()},
+        "launches": {k: v[1] for k, v in sums.items()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("hesic", "hesic-plus"),
+    p.add_argument("--model", choices=("hesic", "hesic-plus", "train"),
                    default="hesic")
     p.add_argument("--batch", type=int, default=None,
-                   help="pairs per batch (default 8 for hesic, 11 for "
-                        "hesic-plus)")
+                   help="pairs per batch (default 8 for hesic and train, "
+                        "11 for hesic-plus)")
     p.add_argument("--mm", type=int, default=None,
                    help="grid half-width cap (default 32 for hesic, 16 "
                         "for hesic-plus)")
     p.add_argument("--homography", choices=("identity", "rotated"),
                    default="identity")
     args = p.parse_args(argv)
+    if args.model == "train":
+        return train_main(args.batch or 8)
     plus = args.model == "hesic-plus"
     b = args.batch or (11 if plus else 8)
     mm = args.mm or (16 if plus else 32)
@@ -139,10 +295,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = _card()
     trip = _codec(args.model, b, mm)
     x1, x2 = smooth_pairs(np.random.RandomState(0), b, SIZE)
     hm = (np.eye(3, dtype=np.float32) if args.homography == "identity"
