@@ -15,11 +15,14 @@ and prints no result):
      seeded inputs at the HESIC fast path's shapes (B=8, M=192, K=5,
      32x32 latents, ppl=8, every grid bucket mm 4, 8, 16 and 32, pooled
      weights): the results must be bit-equal (tolerance 0); times kernel
-     and twin.  Kernels 2 and 3 also on kernel 1's rows at mm 64 (S=129),
-     at ragged lane layouts (ppl 1, 10x10 and 9x10 latents) and at
-     bench.py's batch 64, mm 16; prints each launch's plan (lane group,
-     ring depth, blocks, shared memory), and where kernel 3 could use
-     either CDF search also holds and times the one its plan did not
+     and twin.  Kernels 2 and 3 also on kernel 1's rows at mm 64
+     (S=129) and at ragged lane layouts (ppl 1, 10x10 and 9x10 latents).
+     Kernels 1-3 also at bench.py's batch 64 (kernel 1's rows feeding
+     kernels 2 and 3) on grid mm 4, which phase 9's calibrated latents
+     pick, and mm 16, the bench's cap: the plans of kernels 2 and 3
+     depend on the batch and the grid.  Prints each launch's plan (lane
+     group, ring depth, blocks, shared memory), and where kernel 3 could
+     use either CDF search also holds and times the one its plan did not
      pick;
   4. holds kernels 4 and 5 against their twins at the HESIC+ path's
      shapes (B=11, 32x32 latents, M=192, mm 16, 8 channel groups: 125
@@ -77,15 +80,35 @@ and prints no result):
      It also runs the training warp's backward under
      torch.use_deterministic_algorithms(True), which must not raise and
      must agree with the default backward;
-  8. calibrates as bench.py does (bf16, 256x256, batch 4, 60 steps,
-     seeded noise), printing loss and bpp every 10 steps; the mean loss
-     of the last 10 steps must be below the first 10's.  Then the
-     calibrated model goes through compress_fast -> decompress_fast on
-     phase 5's 8 pairs (identity H): the decoded latents must equal the
-     encoder's, kernels 1-3 must have launched, and bpp_real must be
-     below phase 5's random-weights bpp_real of the same pairs;
-  9. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6 and 8's round trips), then the device line {"ok": true,
+  8. calibrates as bench.py does (training.recipe.calibrate: bf16,
+     256x256, batch 4, 60 steps, seeded noise), printing loss and bpp
+     every 10 steps; the mean loss of the last 10 steps must be below the
+     first 10's.  Then the calibrated model goes through compress_fast ->
+     decompress_fast on phase 5's 8 pairs (identity H): the decoded
+     latents must equal the encoder's, kernels 1-3 must have launched,
+     and bpp_real must be below phase 5's random-weights bpp_real of the
+     same pairs;
+  9. runs the port's bench loop (hesic_tpu_torch/bench.py) at bench.py's
+     codec point on the calibrated model: batch containers of 64 smooth
+     512x512 pairs, mm 16, codec_batch 64, a pool of 4 distinct batches
+     on the device cycled over 6 timed batches, for the identity and
+     bench.py's real H, in modes 2 (decode(i-1), compress_fast_start
+     (i+1), compress_fast_finish(i)) and 0 (encode then decode).  After
+     the bench's warm-up the pipelined re-encode of a batch must equal
+     its synchronous batch container byte for byte; every container of
+     each timed loop must decode to the encoder's latents; kernels 2 and
+     3 must launch exactly twice a batch; compress_fast_start (its
+     non-seeding calls) and decompress_fast_batch run under
+     torch.cuda.set_sync_debug_mode("error"), so a host sync inside them
+     raises, and each must return while a ~1 s device sleep queued before
+     it still runs (a wait by any route, one the debug mode does not see
+     included).  Prints pairs/s, bpp_real, the grids, peak memory and the
+     card.  A grid the loops picked that phase 3 did not hold at batch 64
+     is held then;
+ 10. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6 and 8's round trips and phase 9's timed loops; kernels 1-3's
+     times and bounds at batch 64 on the widest grid phase 9 ran, kernels
+     4 and 5's at the HESIC+ point), then the device line {"ok": true,
      "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
@@ -95,7 +118,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 
@@ -159,14 +181,16 @@ HOIST_TOL = 1e-5
 # 256x256, batch 4, 60 steps)
 TRAIN_B, TRAIN_STEPS = 8, 12
 CAL_HW, CAL_B, CAL_STEPS = 256, 4, 60
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+# the port's bench loop at bench.py's codec point (batch 64, mm 16; six
+# timed batches cycling a pool of four)
+BENCH_B, BENCH_BATCHES, BENCH_POOL = 64, 6, 4
+# kernels 1-3 held at batch 64 on these grids up front: the one the
+# calibrated latents pick (mm 4) and the bench's cap (mm 16).  Phase 9
+# holds any other grid it picks as well.
+BENCH_GRIDS = (4, 16)
+# a device sleep of ~1 s at the H100's ~2 GHz, queued ahead of a call that
+# must not wait for the device
+SLEEP_CYCLES = 2_000_000_000
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -244,13 +268,13 @@ def row_symbols(freq, seed: int):
     return sym.permute(1, 0, 2).contiguous()
 
 
-def phase_pmf(mm: int, seed: int) -> dict:
+def phase_pmf(mm: int, seed: int, b: int = B) -> dict:
     from hesic_tpu_torch.codecs import pmf
-    sigma, mu, w, center = pmf_inputs(mm, seed)
+    sigma, mu, w, center = pmf_inputs(mm, seed, b)
     got = pmf.gmm_freq_cuda(sigma, mu, w, mm, K, center)
     want = pmf.gmm_freq_plain(sigma, mu, w, mm, K, center)
     sync()
-    err = check_equal(f"gmm_freq mm={mm}", got, want)
+    err = check_equal(f"gmm_freq mm={mm} B={b}", got, want)
     s = 2 * mm + 1
     if not (got.sum(dim=2) == 1 << 16).all() or got.min() < 1:
         raise AssertionError("gmm_freq rows must sum to 65536, bins >= 1")
@@ -258,13 +282,13 @@ def phase_pmf(mm: int, seed: int) -> dict:
     plain_ms = cuda_ms(
         lambda: pmf.gmm_freq_plain(sigma, mu, w, mm, K, center), 2)
     hw = LAT * LAT
-    ops = B * M * hw * (K * (s + 1) * OPS_PER_EDGE + K * s * OPS_PER_KBIN
+    ops = b * M * hw * (K * (s + 1) * OPS_PER_EDGE + K * s * OPS_PER_KBIN
                         + s * OPS_PER_BIN + K * OPS_PER_K)
-    nbytes = 4 * (2 * B * K * M * hw + B * K * M + B * M + B * M * s * hw)
+    nbytes = 4 * (2 * b * K * M * hw + b * K * M + b * M + b * M * s * hw)
     bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
              "operations": ops / PEAK_F32_OPS * 1e3}
     by = max(bound, key=bound.get)
-    print(f"kernel gmm_freq mm={mm}: bit-equal to plain (max_abs_err "
+    print(f"kernel gmm_freq mm={mm} B={b}: bit-equal to plain (max_abs_err "
           f"{err}); {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
           f"{bound[by]:.4f} ms by {by} ({ops:.3e} ops, {nbytes:.3e} B)")
     return {"freq": got, "err": err, "ms": ms, "plain_ms": plain_ms,
@@ -372,6 +396,18 @@ def phase_rans(freq, label: str, seed: int, ppl: int = PPL,
     }
 
 
+def hold_batch(mm: int) -> tuple:
+    """Kernels 1-3 at bench.py's batch (BENCH_B) on grid `mm`: kernel 1
+    against its twin, its rows then feeding kernels 2 and 3, all
+    bit-equal and timed.  The plans of kernels 2 and 3 depend on the batch
+    and the grid, so each grid the bench runs is held here."""
+    import torch
+    pmf_r = phase_pmf(mm, seed=11, b=BENCH_B)
+    rans_r = phase_rans(pmf_r.pop("freq"), f"mm={mm} B={BENCH_B}", seed=12)
+    torch.cuda.empty_cache()
+    return pmf_r, rans_r
+
+
 def scaled_analysis(model, gain: float):
     """A copy of `model` whose analysis transforms end in a conv scaled by
     `gain`, so its latents spread `gain` times wider.  A gain on the input
@@ -440,7 +476,7 @@ def phase_main_path():
     from hesic_tpu_torch.models.hesic import HESIC
     from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
     from hesic_tpu_torch.training.recipe import smooth_pairs
-    from hesic_tpu_torch.utils.profile_fast import rotated_homography
+    from hesic_tpu_torch.bench import rotated_homography
 
     model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
                   seed=0)
@@ -838,7 +874,7 @@ def phase_hesic_plus_path(model, codec, pairs) -> dict:
     import torch
     from hesic_tpu_torch.codecs import build
     from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
-    from hesic_tpu_torch.utils.profile_fast import rotated_homography
+    from hesic_tpu_torch.bench import rotated_homography
 
     hot = HESICPlusDeviceCodec(model, mm=1, groups=AR_GROUPS,
                                cap=AR_CAP).update()
@@ -910,7 +946,7 @@ def check_warp_backward(dtype) -> str:
     forward + backward both ways."""
     import torch
     from hesic_tpu_torch.geometry import warp_perspective_train
-    from hesic_tpu_torch.utils.profile_fast import rotated_homography
+    from hesic_tpu_torch.bench import rotated_homography
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     src = torch.rand(TRAIN_B, 3, HW_IMG, HW_IMG, generator=gen,
                      device=DEVICE, requires_grad=True)
@@ -975,31 +1011,25 @@ def phase_train(card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_calibrate(random_bpp: float) -> dict:
-    """bench.py's calibration: CAL_STEPS bf16 steps at CAL_HW, batch
-    CAL_B, then the fast codec's round trip at the calibrated weights on
-    phase 5's pairs (identity H).  Returns the round trip's launches."""
+def phase_calibrate(random_bpp: float):
+    """bench.py's calibration (training.recipe.calibrate): CAL_STEPS bf16
+    steps at CAL_HW, batch CAL_B, then the fast codec's round trip at the
+    calibrated weights on phase 5's pairs (identity H).  Returns the round
+    trip's launches and the calibrated model."""
     import numpy as np
     import torch
     from hesic_tpu_torch.codecs import build
     from hesic_tpu_torch.models.hesic import HESIC
     from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
-    from hesic_tpu_torch.training.recipe import (smooth_pairs, train_batch,
-                                                 trainer)
+    from hesic_tpu_torch.training.recipe import calibrate, smooth_pairs
 
     model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
                   seed=0)
-    _, step, gen = trainer(model)
-    batch = train_batch(np.random.RandomState(2), CAL_B, CAL_HW, DEVICE)
-    losses, bpps = [], []
-    for i in range(CAL_STEPS):
-        m = step(batch, gen)
-        losses.append(m["loss"])
-        bpps.append(m["bpp"])
-        if (i + 1) % 10 == 0:
-            print(f"calibrate step {i + 1}: loss {float(m['loss']):.4f}, "
-                  f"bpp {float(m['bpp']):.4f}")
-    losses = [float(v) for v in losses]
+    losses, bpps = calibrate(model, np.random.RandomState(2), CAL_STEPS,
+                             CAL_HW, CAL_B)
+    for i in range(9, CAL_STEPS, 10):
+        print(f"calibrate step {i + 1}: loss {losses[i]:.4f}, bpp "
+              f"{bpps[i]:.4f}")
     if not np.isfinite(losses).all():
         raise AssertionError("calibration: non-finite loss")
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
@@ -1024,13 +1054,124 @@ def phase_calibrate(random_bpp: float) -> dict:
         raise AssertionError(f"calibrated bpp_real {bpp} is not below the "
                              f"random weights' {random_bpp}")
     print(f"calibrate: mean loss of the first 10 steps {first:.4f}, of the "
-          f"last 10 {last:.4f}; bpp (training estimate) {float(bpps[0]):.4f}"
-          f" -> {float(bpps[-1]):.4f}; calibrated round trip [identity H, "
+          f"last 10 {last:.4f}; bpp (training estimate) {bpps[0]:.4f}"
+          f" -> {bpps[-1]:.4f}; calibrated round trip [identity H, "
           f"mm {out['blob'][1]}/{out['blob'][2]}]: bpp_real {bpp:.6f} "
           f"against the random weights' {random_bpp:.6f}, outliers "
           f"{out['outliers'][0]}/{out['outliers'][1]}; decoded latents "
           f"equal the encoder's; launches {launches}")
-    return launches
+    return launches, model
+
+
+def strict_sync(codec):
+    """Run the codec's compress_fast_start (its non-seeding calls) and
+    decompress_fast_batch under torch.cuda.set_sync_debug_mode("error"):
+    any host sync inside them raises."""
+    import torch
+
+    def strict(fn, seeding=lambda: False):
+        def call(*args, **kwargs):
+            if seeding():
+                return fn(*args, **kwargs)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    codec.compress_fast_start = strict(codec.compress_fast_start,
+                                       lambda: codec._next_mm is None)
+    codec.decompress_fast_batch = strict(codec.decompress_fast_batch)
+    return codec
+
+
+def check_no_wait(codec, x1, x2, h, blob) -> str:
+    """compress_fast_start and decompress_fast_batch must return while a
+    device sleep queued before them still runs: neither may wait for the
+    device, by any route (the sync debug mode does not see every one).
+    Returns a line with the host and device times."""
+    import torch
+    parts = []
+    for name, call in (
+            ("compress_fast_start",
+             lambda: codec.compress_fast_start(x1, x2, h)),
+            ("decompress_fast_batch",
+             lambda: codec.decompress_fast_batch(blob))):
+        sync()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        out = call()
+        host = time.perf_counter() - t0
+        busy = not torch.cuda.current_stream().query()
+        sync()
+        total = time.perf_counter() - t0
+        if not (busy and host < 0.5 * total):
+            raise AssertionError(f"{name} waited for the device: it "
+                                 f"returned after {host * 1e3:.1f} ms of a "
+                                 f"{total * 1e3:.1f} ms queue")
+        if out.get("mode") == "async":
+            codec.compress_fast_finish(out)
+        parts.append(f"{name} returned after {host * 1e3:.1f} ms of a "
+                     f"{total * 1e3:.1f} ms queue")
+    return "; ".join(parts)
+
+
+def phase_bench(model, card: str) -> dict:
+    """The port's bench loop (hesic_tpu_torch/bench.py) at bench.py's
+    point on the calibrated model: batch BENCH_B, mm 16, a pool of
+    BENCH_POOL batches cycled over BENCH_BATCHES, identity and real H,
+    modes 2 and 0.  Returns the timed loops' launches and the grid widths
+    (mm1 and mm2) their containers picked."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
+
+    torch.cuda.reset_peak_memory_stats()
+    codec = strict_sync(HESICFastCodec(model, mm=16, codec_batch=BENCH_B)
+                        .update())
+    pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, BENCH_B,
+                           HW_IMG, DEVICE)
+    batches = [pool[i % BENCH_POOL] for i in range(BENCH_BATCHES)]
+    launches, grids = {}, set()
+    for kind in ("identity", "real"):
+        h = bench.homographies(kind, BENCH_B)
+        bench.warm_up(codec, pool, h)
+        bench.check_pipelined_bytes(codec, *pool[0], h)
+        blob = codec.compress_fast(*pool[1], h, batch_container=True)["blob"]
+        print(f"bench [{kind} H]: {check_no_wait(codec, *pool[0], h, blob)}"
+              f" behind a device sleep")
+        for mode in (2, 0):
+            build.launch_counts.clear()
+            loop = bench.timed_loop(codec, batches, h, mode)
+            counts = dict(build.launch_counts)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            for name in ("grid_rans_encode", "grid_rans_decode"):
+                if counts.get(name) != 2 * BENCH_BATCHES:
+                    raise AssertionError(
+                        f"bench [{kind} H, mode {mode}]: {name} launched "
+                        f"{counts.get(name)} times for {BENCH_BATCHES} "
+                        f"batches, not twice a batch")
+            bench.check_exact(codec, batches, h, loop)
+            outs = loop["containers"]
+            grids.update(v for o in outs for v in o["blob"][1:3])
+            print(f"bench [{card}] [{kind} H, pipeline {mode}]: "
+                  f"{BENCH_BATCHES * BENCH_B / loop['seconds']:.2f} pairs/s "
+                  f"({BENCH_BATCHES} batches of {BENCH_B} {HW_IMG}x{HW_IMG}"
+                  f" pairs in {loop['seconds'] * 1e3:.1f} ms), bpp_real "
+                  f"{np.mean([o['bpp_real'] for o in outs]):.6f}, grids "
+                  f"{sorted({tuple(o['blob'][1:3]) for o in outs})}, "
+                  f"outliers {[tuple(o['outliers']) for o in outs]}; "
+                  f"pipelined re-encode byte-identical; every container "
+                  f"decoded to the encoder's latents; no host sync in "
+                  f"compress_fast_start or decompress_fast_batch; peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                  f" GiB; launches {counts}")
+            del loop
+    return launches, grids
 
 
 def main() -> int:
@@ -1039,6 +1180,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    from hesic_tpu_torch.bench import card_line
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1052,15 +1194,11 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(times.items()))
           + ")")
 
-    # every grid width of the codec's buckets; the JSON line reports the
-    # widest (mm 32: S = 65, the costliest rows)
+    # every grid width of the codec's buckets at batch 8
     from hesic_tpu_torch.models.hesic_fast import MM_BUCKETS
-    results = {}
     for i, mm in enumerate(MM_BUCKETS):
         pmf_r = phase_pmf(mm, seed=2 * i + 1)
-        results[mm] = (pmf_r, phase_rans(pmf_r.pop("freq"), f"mm={mm}",
-                                         seed=2 * i + 2))
-    pmf32, rans32 = results[32]
+        phase_rans(pmf_r.pop("freq"), f"mm={mm}", seed=2 * i + 2)
     # kernels 2 and 3 beyond the buckets, on kernel 1's rows: a codec
     # built with mm 64 (S = 129), ragged lane groups at ppl 1 (10x10
     # latents: 100 lanes, 16-byte copies; 9x10: 90 lanes, 4-byte copies),
@@ -1068,10 +1206,12 @@ def main() -> int:
     for label, mm, b, hy, wy, ppl in (
             ("mm=64", 64, B, LAT, LAT, PPL),
             ("mm=16 10x10 ppl 1", 16, B, 10, 10, 1),
-            ("mm=16 9x10 ppl 1", 16, B, 9, 10, 1),
-            ("mm=16 B=64", 16, 64, LAT, LAT, PPL)):
+            ("mm=16 9x10 ppl 1", 16, B, 9, 10, 1)):
         phase_rans(kernel1_rows(mm, 11, b, hy, wy), label, seed=12, ppl=ppl)
         torch.cuda.empty_cache()
+    # kernels 1-3 at bench.py's point too (batch 64), kernel 1's rows
+    # feeding kernels 2 and 3, on the grids phase 9 runs
+    bench_k = {mm: hold_batch(mm) for mm in BENCH_GRIDS}
 
     model, codec, pairs, eyes = ar_setup()
     ar = {label: phase_wavefront(label, *args)
@@ -1087,16 +1227,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_train(card)
-    for name, n in phase_calibrate(random_bpp).items():
-        launches[name] = launches.get(name, 0) + n
+    cal_launches, cal_model = phase_calibrate(random_bpp)
+    torch.cuda.empty_cache()
+    bench_launches, grids = phase_bench(cal_model, card)
+    for counts in (cal_launches, bench_launches):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    for mm in sorted(set(grids) - set(bench_k)):
+        bench_k[mm] = hold_batch(mm)
+    # the JSON line reports kernels 1-3 at the main path's shape: batch 64
+    # on the widest grid phase 9 ran
+    pmf_j, rans_j = bench_k[max(grids)]
     names = {"gmm_freq": ("hesic_tpu_torch/codecs/csrc/pmf.cu",
-                          "hesic_tpu/codecs/pallas_pmf.py:110", pmf32),
+                          "hesic_tpu/codecs/pallas_pmf.py:110", pmf_j),
              "grid_rans_encode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
                                   "hesic_tpu/codecs/pallas_rans.py:153",
-                                  rans32["encode"]),
+                                  rans_j["encode"]),
              "grid_rans_decode": ("hesic_tpu_torch/codecs/csrc/grid_rans.cu",
                                   "hesic_tpu/codecs/pallas_rans.py:258",
-                                  rans32["decode"]),
+                                  rans_j["decode"]),
              "pairs_rans_encode": (
                  "hesic_tpu_torch/codecs/csrc/pairs_rans.cu",
                  "hesic_tpu/codecs/pallas_rans.py:349", ar_post["pairs"]),

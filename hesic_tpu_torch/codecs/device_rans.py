@@ -153,18 +153,24 @@ def pack_stream_dense(flat, counts, states) -> bytes:
             + states.tobytes() + payload)
 
 
-def unpack_stream(blob: bytes, offset: int = 0):
-    """Inverse of pack_stream_dense.  Returns (words (L, C) int32,
-    counts, states, next_offset); words padded to the longest lane."""
+def unpack_stream_dense(blob: bytes, offset: int = 0):
+    """Inverse of pack_stream_dense, without padding.  Returns (flat u16
+    words in lane order, counts, states, next_offset)."""
     lanes = int(np.frombuffer(blob, np.uint16, 1, offset)[0])
     offset += 2
     counts, offset = unpack_counts(blob, offset, lanes)
     states = np.frombuffer(blob, np.uint32, lanes, offset).copy()
     offset += 4 * lanes
-    cap = max(int(counts.max()), 1)
     total = int(counts.sum())
     flat = np.frombuffer(blob, np.uint16, total, offset)
-    offset += 2 * total
-    words = np.zeros((lanes, cap), np.int32)
+    return flat, counts, states, offset + 2 * total
+
+
+def unpack_stream(blob: bytes, offset: int = 0):
+    """Inverse of pack_stream_dense.  Returns (words (L, C) int32,
+    counts, states, next_offset); words padded to the longest lane."""
+    flat, counts, states, offset = unpack_stream_dense(blob, offset)
+    cap = max(int(counts.max()), 1)
+    words = np.zeros((counts.shape[0], cap), np.int32)
     words[np.arange(cap) < counts[:, None]] = flat
     return words, counts, states, offset

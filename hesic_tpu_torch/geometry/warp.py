@@ -127,8 +127,9 @@ def pick_warp_xwin(m_np, h_out: int, w_out: int, xblock: int = 128,
 
 def _coords(m: torch.Tensor, h_out: int, w_out: int):
     """Source coordinates (sx, sy) of every output pixel, (B, Ho, Wo)
-    f32, elementwise (no matmul: exact f32 sampling weights)."""
-    mi = torch.linalg.inv(m)[:, :, :, None, None]      # (B, 3, 3, 1, 1)
+    f32, elementwise (no matmul: exact f32 sampling weights).  inv_ex
+    skips inv's singularity check, which would wait for the device."""
+    mi = torch.linalg.inv_ex(m).inverse[:, :, :, None, None]  # (B,3,3,1,1)
     ys, xs = torch.meshgrid(
         torch.arange(h_out, dtype=torch.float32, device=m.device),
         torch.arange(w_out, dtype=torch.float32, device=m.device),

@@ -6,7 +6,8 @@ holds them, ``eb_medians`` gives the z symbol offsets, and the z-symbol
 helpers code (B, zh, zw, C) symbol tensors in NHWC order (channel as the
 table index), as hesic_tpu/models/hesic_fast.py's z path does.  The
 input helpers move the caller's NHWC images and homographies to the
-model's device.  ``deterministic_backends`` is the codecs' shared
+model's device (on the card through pinned memory, without blocking the
+host).  ``deterministic_backends`` is the codecs' shared
 determinism policy.
 """
 
@@ -45,20 +46,44 @@ class CompressionModel:
         model's device."""
         return getattr(self.model, name).medians()[None, :, None, None]
 
+    def _upload(self, a) -> torch.Tensor:
+        """A host array as a tensor on the codec device.  On the card it
+        goes up from pinned memory without blocking the host.  A dense
+        array keeps its memory order (a channel-permuted image is not
+        transposed on the host: one linear copy, then the device reorders
+        it).  The pinned buffer may be dropped at once: PyTorch's caching
+        host allocator records an event for the non-blocking copy out of
+        it and does not hand the block out again before that event has
+        passed."""
+        a = np.asarray(a)
+        if not a.flags.writeable:
+            a = a.copy(order="K")
+        host = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return host
+        pinned = torch.empty_like(host, pin_memory=True)
+        pinned.copy_(host)
+        return pinned.to(self.device, non_blocking=True)
+
     def _to_device(self, x) -> torch.Tensor:
-        """(B, H, W, 3) array -> (B, 3, H, W) float32 on the codec device."""
-        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                            dtype=torch.float32)
-        return x.to(self.device).permute(0, 3, 1, 2).contiguous()
+        """(B, H, W, 3) images -> (B, 3, H, W) float32 on the codec device;
+        a tensor already there is not copied."""
+        if not (torch.is_tensor(x) and x.device == self.device):
+            x = self._upload(x.numpy() if torch.is_tensor(x)
+                             else np.asarray(x, np.float32))
+        return x.to(torch.float32).permute(0, 3, 1, 2).contiguous()
 
     def _homographies(self, h_matrix, b: int):
         """(B, 3, 3) or (1, 3, 3) homographies -> ((B, 3, 3) float32 on the
-        codec device, the same as a numpy array)."""
-        h = torch.as_tensor(np.asarray(h_matrix, np.float32)
-                            if not torch.is_tensor(h_matrix) else h_matrix,
-                            dtype=torch.float32)
-        h = h.expand(b, 3, 3).contiguous() if h.shape[0] != b else h
-        return h.to(self.device), h.cpu().numpy()
+        codec device, the same as a numpy array taken from the argument).
+        A homography passed as a CUDA tensor is read back to the host."""
+        h_np = (h_matrix.detach().cpu().numpy() if torch.is_tensor(h_matrix)
+                else np.asarray(h_matrix))
+        h_np = h_np.astype(np.float32).reshape(-1, 3, 3)
+        if h_np.shape[0] != b:
+            h_np = np.broadcast_to(h_np, (b, 3, 3))
+        h_np = np.ascontiguousarray(h_np)
+        return self._upload(h_np), h_np
 
     def update(self, force: bool = False):
         """(Re)build the integer CDF tables of every entropy bottleneck.

@@ -1,18 +1,44 @@
-"""HESIC fast codec: compress_fast -> decompress_fast on the card.
+"""HESIC fast codec on the card: per-pair and batch containers, and the
+pipelined encode.
 
-Counterpart of hesic_tpu/models/hesic_fast.py (``HESICFastCodec``), with
-the per-pair container of format v3 (byte for byte its layout after a
-writer byte of the port's own) and the same public layouts: images (B, H, W, 3) float32, homographies
-(B, 3, 3), latents out as (B, hy, wy, M).
+Counterpart of hesic_tpu/models/hesic_fast.py (``HESICFastCodec``): the
+per-pair container of format v3 (``compress_fast`` / ``decompress_fast``)
+and the batch container (``compress_fast(batch_container=True)`` /
+``decompress_fast_batch``), each byte for byte the JAX package's layout
+after a writer byte of the port's own, and the pipelined batch encode
+(``compress_fast_start`` / ``compress_fast_finish``).  Public layouts as
+the JAX package's: images (B, H, W, 3) float32, homographies (B, 3, 3),
+latents out as (B, hy, wy, M).
 
-Pipeline.  Encode: transforms (analysis, hyper-analysis, z symbols, warp
-of x1, data-derived grid centres and spreads) -> ``cond1`` (z1 -> GMM
-heads -> frequency rows, kernel 1) -> grid rANS encode of y1 (kernel 2)
--> ``cond2`` (synthesis1 -> warp -> re-encode of the decoded left view ->
-GMM heads -> frequency rows, kernel 1) -> grid rANS encode of y2 -> z
-strings on the host rANS coder -> containers.  Decode mirrors it with the
-grid rANS decode (kernel 3), the outlier correction before ``cond2``, and
-the right-eye synthesis.
+Pipeline.  Encode, device half: transforms (analysis, hyper-analysis, z
+symbols, warp of x1, data-derived grid centres and spreads) -> ``cond1``
+(z1 -> GMM heads -> frequency rows, kernel 1) -> grid rANS encode of y1
+(kernel 2) -> ``cond2`` (synthesis1 -> warp -> re-encode of the decoded
+left view -> GMM heads -> frequency rows, kernel 1) -> grid rANS encode
+of y2 -> the words compacted on the device into exact-dense u16 in
+(pair, lane) order; counts, states, z symbols, centres, spreads,
+out-of-grid counts and dead bitmaps go to pinned host buffers on a copy
+stream.  Host half: the words' copy sized from the counts (on a second
+side stream, so it never waits behind a later batch's copies), the outlier
+records, the z strings on the host rANS coder, the containers.  Decode
+mirrors it: the z strings, one pinned upload of counts, states and words,
+the cap-major word buffer rebuilt on the device, then cond1 -> kernel 3
+-> outlier correction -> cond2 -> kernel 3 -> synthesis.
+
+The synchronous ``compress_fast`` waits once for the spreads (they pick
+the grid widths) and then for the copies.  ``compress_fast_start``
+dispatches the whole device half without waiting for the device, at the
+grid widths the last finished batch picked (its first call runs the
+synchronous batch encode, as the JAX package's does); latents outside
+the grid travel as escapes, so every container stays exact.
+``compress_fast_finish`` waits for that batch's copies only.  All compute
+runs on the current stream, in issue order, so a pipelined container is
+the synchronous one of the same batch and grids, byte for byte.
+``decompress_fast_batch`` only dispatches; ``decompress_fast``
+synchronises before it returns.  The host stages run inside
+``torch.profiler.record_function`` ranges named as the JAX package's
+``_tick`` labels (``enc/z-rans+unpack``, ``enc/container``,
+``dec/z-rans``, ``dec/words-rebuild``, ...).
 
 Bit-exactness invariant: everything that parameterizes the coder (GMM
 heads -> frequency rows, including the decoded-left re-encoding chain)
@@ -27,7 +53,9 @@ Writer byte.  Byte 0 names the writer: the two conditioning chains (the
 JAX package's XLA programs, the port's card and its CPU twin) differ in
 their last bits, so a container decodes exactly only where it was
 written, and any other writer's container is refused.  Bytes 1 onward
-keep the v3 layout.
+keep the JAX package's layouts.  A decoder also refuses a container
+whose parse does not end at its last byte (a batch container handed to
+the per-pair decoder, or the other way round).
 
 Format notes (as the JAX package): y symbols are coded on a per-channel
 grid [c_m - mm, c_m + mm] around the data-derived centre c_m (i8 in the
@@ -37,18 +65,22 @@ constant channels are flagged in a bitmap and coded with degenerate rows;
 each rANS lane codes ``ppl`` positions; z streams use the host coder.
 
 Not carried over from the JAX codec: the TPU link transport (packed link
-vectors, z nibble packing, sticky shapes, decoder size watermarks), the
-batch container and the pipelined encode.
+vectors, z nibble packing, sticky word budgets and link buckets, decoder
+size watermarks) and the synchronous fallback they need; of the sticky
+state only the grid widths are kept.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ..codecs.device_rans import pack_stream_dense, unpack_stream
+from ..codecs.device_rans import (pack_counts, pack_stream_dense,
+                                  unpack_counts, unpack_stream_dense)
 from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
                                 rans_encode_grid_rows)
 from ..codecs.pmf import gmm_freq
@@ -143,6 +175,42 @@ def _decode_stream(freq, words, counts, states, mm: int, hy: int, wy: int,
     return y.reshape(b, m, hy, wy)
 
 
+def compact_words(words, counts) -> torch.Tensor:
+    """(B, CAP, ls) int32 u16 words and (B, ls) counts -> an int16 vector
+    whose first sum(counts) entries are each lane's first `count` words
+    (u16 bit patterns) in (pair, lane, slot) order: the container's
+    exact-dense stream.  Runs where the words are, with no host sync; the
+    rest of the vector is scratch (every element writes a slot of its
+    own, so the result does not depend on the write order)."""
+    b, cap, ls = words.shape
+    n = b * ls * cap
+    c = counts.reshape(-1).to(torch.int64)
+    start = torch.cumsum(c, 0) - c
+    j = torch.arange(cap, device=words.device)
+    dest = torch.where(j[None, :] < c[:, None], start[:, None] + j[None, :],
+                       n + torch.arange(n, device=words.device).view(-1, cap))
+    w = words.permute(0, 2, 1).reshape(b * ls, cap)
+    w16 = (w - ((w >> 15) << 16)).to(torch.int16)
+    flat = torch.empty(2 * n, dtype=torch.int16, device=words.device)
+    flat.scatter_(0, dest.reshape(-1), w16.reshape(-1))
+    return flat[:n]
+
+
+def expand_words(flat, counts, cap: int) -> torch.Tensor:
+    """Inverse of compact_words: exact-dense u16 words (int32 values) and
+    (B, ls) counts -> the cap-major (B, cap, ls) int32 buffer kernel 3
+    reads (zero past each lane's count).  A gather, where the words are."""
+    b, ls = counts.shape
+    c = counts.reshape(-1).to(torch.int64)
+    start = torch.cumsum(c, 0) - c
+    j = torch.arange(cap, device=flat.device)
+    keep = j[None, :] < c[:, None]
+    src = torch.where(keep, start[:, None] + j[None, :], 0)
+    padded = torch.cat([flat, flat.new_zeros(1)])
+    out = torch.where(keep, padded[src], 0)
+    return out.reshape(b, ls, cap).permute(0, 2, 1).contiguous()
+
+
 def writer_id(device) -> int:
     """The writer byte of containers encoded on `device`: 17 = the card,
     16 = the plain twins (CPU)."""
@@ -162,15 +230,37 @@ def _check_format(blob: bytes, device) -> int:
     return 1
 
 
+def _check_end(blob: bytes, off: int, what: str):
+    """Raise unless a parse of `blob` ended at its last byte."""
+    if off != len(blob):
+        raise ValueError(
+            f"{what}: the parse ends at byte {off} of {len(blob)}; not a "
+            f"{what} (a per-pair container goes to decompress_fast, a "
+            f"batch container to decompress_fast_batch)")
+
+
+def _check_shape(h_img: int, w_img: int, lanes: int, what: str):
+    hw = (h_img // 16) * (w_img // 16)
+    if h_img < 64 or w_img < 64 or lanes < 1 or hw % lanes:
+        raise ValueError(f"{what}: image {h_img}x{w_img} with {lanes} "
+                         f"lanes is not a valid layout")
+
+
 class HESICFastCodec(CompressionModel):
     """HESIC with the fused on-device coder: ``compress_fast`` /
-    ``decompress_fast`` over per-pair v3 containers."""
+    ``decompress_fast`` over per-pair v3 containers, the batch container
+    (``decompress_fast_batch``) and the pipelined batch encode
+    (``compress_fast_start`` / ``compress_fast_finish``)."""
 
     def __init__(self, model, mm: int = MM_DEFAULT, codec_batch: int = 8):
         super().__init__(model)
         deterministic_backends()
         self.mm = mm
         self.codec_batch = codec_batch
+        # the grid widths (mm1, mm2) the last finished encode picked: the
+        # pipelined encode's one piece of sticky state
+        self._next_mm = None
+        self._side_streams = None
 
     # ---- shared conditioning programs (identical on both sides) ----
 
@@ -219,6 +309,63 @@ class HESICFastCodec(CompressionModel):
                        else outs[0][i] for i in range(len(outs[0])))
         return merged if len(merged) > 1 else merged[0]
 
+    # ---- side streams (the card only) ----
+
+    def _streams(self):
+        """(start stream, finish stream) of the codec's card, made once.
+        compress_fast_start's copies go on the first; compress_fast_finish
+        issues its words copy and outlier collection on the second, so
+        they never queue behind a later start's copies, which wait for
+        that later encode."""
+        if self._side_streams is None:
+            self._side_streams = (torch.cuda.Stream(self.device),
+                                  torch.cuda.Stream(self.device))
+        return self._side_streams
+
+    def _fetch(self, dev: dict) -> dict:
+        """Start the device -> host copies of `dev` ({name: tensor}).  On
+        the card: an event on the compute stream, then the copies into
+        pinned buffers on the copy stream.  Returns {"ready": the compute
+        event, "copied": the copies' event, "host": {name: host tensor}};
+        on the CPU the tensors themselves, and no events."""
+        if self.device.type != "cuda":
+            return {"ready": None, "copied": None, "host": dict(dev)}
+        ready = torch.cuda.Event()
+        ready.record()
+        stream = self._streams()[0]
+        stream.wait_event(ready)
+        host = {}
+        with torch.cuda.stream(stream):
+            for name, t in dev.items():
+                t.record_stream(stream)
+                host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                host[name].copy_(t, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return {"ready": ready, "copied": copied, "host": host}
+
+    def _fetch_words(self, handle, totals) -> list:
+        """Each eye's exact-dense words (the first `total` entries of its
+        compacted vector) as numpy u16, copied on the finish stream after
+        the handle's compute event."""
+        words = handle["words"]
+        if self.device.type != "cuda":
+            return [w[:n].numpy().view(np.uint16)
+                    for w, n in zip(words, totals)]
+        stream = self._streams()[1]
+        host = [torch.empty(n, dtype=torch.int16, pin_memory=True)
+                for n in totals]
+        with torch.cuda.stream(stream):
+            stream.wait_event(handle["ready"])
+            for dst, w, n in zip(host, words, totals):
+                w.record_stream(stream)
+                dst.copy_(w[:n], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return [dst.numpy().view(np.uint16) for dst in host]
+
     # ---- encoder side ----
 
     @torch.no_grad()
@@ -240,6 +387,51 @@ class HESICFastCodec(CompressionModel):
         dc2, sp2 = _data_center(y2_hat)
         return (y1_hat, y2_hat, z1_sym.to(torch.int32),
                 z2_sym.to(torch.int32), dc1, dc2, sp1, sp2)
+
+    def _encode_device(self, x1, x2, h_matrix, mm=None) -> dict:
+        """The encoder's device half, dispatched: transforms, cond1 and
+        cond2, the two stream encodes (kernel 2 once per eye at the
+        guaranteed word bound, so no lane can overflow it), the words'
+        compaction, and the copies of what the host half reads.  With
+        `mm` None the spreads are read first (one host sync) to pick the
+        grid widths; with `mm` = (mm1, mm2) nothing waits for the device.
+        Returns the handle compress_fast_finish reads."""
+        t0 = time.perf_counter()
+        with record_function("enc/dispatch-transforms"):
+            x1, x2 = self._to_device(x1), self._to_device(x2)
+            b, _, h_img, w_img = x1.shape
+            h, h_np = self._homographies(h_matrix, b)
+            win = pick_warp_win(h_np, h_img, w_img)
+            xw = pick_warp_xwin(h_np, h_img, w_img)
+            (y1_hat, y2_hat, z1_sym, z2_sym, dc1, dc2, sp1,
+             sp2) = self.transforms_enc(x1, x2, h, win)
+        if mm is None:
+            with record_function("enc/spread-sync"):
+                sp = torch.stack([sp1, sp2]).tolist()
+            mm = (pick_mm(sp[0], self.mm), pick_mm(sp[1], self.mm))
+        mm1, mm2 = mm
+        with record_function("enc/dispatch-streams"):
+            freq1 = self._cond1(z1_sym, dc1, mm1)
+            freq2, _ = self._cond2(y1_hat, z2_sym, h, dc2, mm2, win)
+            hy, wy = y1_hat.shape[2], y1_hat.shape[3]
+            ppl = auto_ppl(hy * wy)
+            cap = default_cap(self.model.M, ppl)
+            s1 = _encode_stream(freq1, y1_hat, mm1, dc1, ppl, cap)
+            s2 = _encode_stream(freq2, y2_hat, mm2, dc2, ppl, cap)
+            meta = torch.cat([t.reshape(-1).to(torch.int64) for t in (
+                s1[1], s2[1], s1[2], s2[2], dc1, dc2, sp1, sp2, s1[3],
+                s2[3], s1[4], s2[4])])
+            z = torch.cat([t.permute(0, 2, 3, 1).reshape(-1)
+                           for t in (z1_sym, z2_sym)])
+            words = (compact_words(s1[0], s1[1]),
+                     compact_words(s2[0], s2[1]))
+            fetched = self._fetch({"meta": meta, "z": z})
+        return {"mode": "async", "t0": t0, "mm": (mm1, mm2), "win": win,
+                "xwin": xw, "h_np": h_np, "shape": (h_img, w_img),
+                "lanes": s1[1].shape[1], "cap": cap,
+                "z_shape": tuple(z1_sym.permute(0, 2, 3, 1).shape),
+                "y": (y1_hat, y2_hat), "dc": (dc1, dc2), "words": words,
+                **fetched}
 
     def _collect_outliers(self, y_hat, over: np.ndarray, center,
                           mm: int) -> list:
@@ -263,6 +455,23 @@ class HESICFastCodec(CompressionModel):
         return [(local[pair == i].astype(np.uint32),
                  vals[pair == i].astype(np.int32)) for i in range(b)]
 
+    def _outliers(self, handle, over1, over2):
+        """Both eyes' outlier records.  On the card they are collected on
+        the finish stream, which waits on the handle's compute event only,
+        so they do not queue behind work issued after the encode."""
+        (y1, y2), (c1, c2) = handle["y"], handle["dc"]
+        mm1, mm2 = handle["mm"]
+        ctx = contextlib.nullcontext()
+        if self.device.type == "cuda" and (over1.any() or over2.any()):
+            side = self._streams()[1]
+            side.wait_event(handle["ready"])
+            for t in (y1, y2, c1, c2):
+                t.record_stream(side)
+            ctx = torch.cuda.stream(side)
+        with ctx:
+            return (self._collect_outliers(y1, over1, c1, mm1),
+                    self._collect_outliers(y2, over2, c2, mm2))
+
     @staticmethod
     def _pack_outliers(o1, o2) -> bytes:
         out = bytearray()
@@ -271,6 +480,202 @@ class HESICFastCodec(CompressionModel):
             out += idx.astype(np.uint32).tobytes()
             out += val.astype(np.int32).tobytes()
         return bytes(out)
+
+    def _finish(self, handle, batch_container: bool) -> dict:
+        """The encoder's host half: wait for the handle's copies, fetch
+        the words sized from the counts, collect the outliers, code the z
+        strings and assemble the containers."""
+        b = len(handle["y"][0])
+        ls, m = handle["lanes"], self.model.M
+        with record_function("enc/fetch-block"):
+            if handle["copied"] is not None:
+                handle["copied"].synchronize()
+            meta = handle["host"]["meta"].numpy()
+            z = handle["host"]["z"].numpy()
+        n = b * ls
+        sizes = (n, n, n, n, b * m, b * m, 1, 1, b, b, b * m, b * m)
+        (c1, c2, st1, st2, dc1, dc2, sp1, sp2, over1, over2, dead1,
+         dead2) = np.split(meta, np.cumsum(sizes)[:-1])
+        c1, c2 = c1.reshape(b, ls), c2.reshape(b, ls)
+        cmax = int(max(c1.max(), c2.max()))
+        if cmax > handle["cap"]:
+            raise RuntimeError(f"grid encoder counted {cmax} words in a "
+                               f"lane, past its bound {handle['cap']}")
+        # the next pipelined batch's grids, from this batch's spreads
+        self._next_mm = (pick_mm(int(sp1[0]), self.mm),
+                         pick_mm(int(sp2[0]), self.mm))
+        with record_function("enc/words-d2h"):
+            flat1, flat2 = self._fetch_words(
+                handle, [int(c1.sum()), int(c2.sum())])
+        with record_function("enc/outliers"):
+            out1, out2 = self._outliers(handle, over1, over2)
+        zn = z.size // 2
+        pieces = {
+            "z": (z[:zn].reshape(handle["z_shape"]),
+                  z[zn:].reshape(handle["z_shape"])),
+            "outliers": (out1, out2),
+            "dead": (dead1.reshape(b, m) != 0, dead2.reshape(b, m) != 0),
+            "centres": (dc1.reshape(b, m), dc2.reshape(b, m)),
+            "streams": ((flat1, c1, st1.reshape(b, ls).astype(np.uint32)),
+                        (flat2, c2, st2.reshape(b, ls).astype(np.uint32))),
+        }
+        out = self._containers(handle, pieces, batch_container)
+        out["enctime"] = time.perf_counter() - handle["t0"]
+        out["outliers"] = (int(over1.sum()), int(over2.sum()))
+        return out
+
+    def _containers(self, handle, p: dict, batch_container: bool) -> dict:
+        """Containers from the host pieces: one per pair (format v3), or
+        one for the batch (the JAX package's batch layout)."""
+        with record_function("enc/z-rans+unpack"):
+            z_strs = list(zip(
+                self.eb_encode_symbols("entropy_bottleneck1", p["z"][0]),
+                self.eb_encode_symbols("entropy_bottleneck2", p["z"][1])))
+        with record_function("enc/container"):
+            b = len(z_strs)
+            h_img, w_img = handle["shape"]
+            mm1, mm2 = handle["mm"]
+            xw = handle["xwin"]
+            lead = bytes([writer_id(self.device), mm1, mm2, handle["win"],
+                          0 if xw is None else xw // 16])
+            (o1, o2), (d1, d2) = p["outliers"], p["dead"]
+            (dc1, dc2), h_np = p["centres"], handle["h_np"]
+            if batch_container:
+                head = bytearray(lead)
+                head += np.array([h_img, w_img, b, handle["lanes"]],
+                                 np.uint32).tobytes()
+                for pair in z_strs:
+                    for s in pair:
+                        head += np.array([len(s)], np.uint32).tobytes() + s
+                for i in range(b):
+                    head += self._pack_outliers(o1[i], o2[i])
+                for i in range(b):
+                    head += np.packbits(d1[i]).tobytes()
+                    head += np.packbits(d2[i]).tobytes()
+                head += dc1.astype(np.int8).tobytes()
+                head += dc2.astype(np.int8).tobytes()
+                head += h_np.reshape(-1).astype(np.float32).tobytes()
+                for flat, c, st in p["streams"]:
+                    head += pack_counts(c.reshape(-1))
+                    head += st.tobytes() + flat.tobytes()
+                blobs = [bytes(head)]
+            else:
+                (f1, c1, st1), (f2, c2, st2) = p["streams"]
+                pt1 = np.concatenate([[0], np.cumsum(c1.sum(axis=1))])
+                pt2 = np.concatenate([[0], np.cumsum(c2.sum(axis=1))])
+                blobs = []
+                for i in range(b):
+                    head = bytearray(lead)
+                    head += np.array([h_img, w_img], np.uint16).tobytes()
+                    for s in z_strs[i]:
+                        head += np.array([len(s)], np.uint32).tobytes() + s
+                    head += self._pack_outliers(o1[i], o2[i])
+                    head += np.packbits(d1[i]).tobytes()
+                    head += np.packbits(d2[i]).tobytes()
+                    head += dc1[i].astype(np.int8).tobytes()
+                    head += dc2[i].astype(np.int8).tobytes()
+                    head += h_np[i].reshape(-1).astype(np.float32).tobytes()
+                    body = (pack_stream_dense(f1[pt1[i]:pt1[i + 1]], c1[i],
+                                              st1[i])
+                            + pack_stream_dense(f2[pt2[i]:pt2[i + 1]],
+                                                c2[i], st2[i]))
+                    blobs.append(bytes(head) + body)
+        total = sum(len(bl) for bl in blobs)
+        return {"blobs": blobs, "blob": blobs[0],
+                "bpp_real": total * 8 / (2 * h_img * w_img * b)}
+
+    @torch.no_grad()
+    def compress_fast(self, x1, x2, h_matrix,
+                      batch_container: bool = False) -> dict:
+        """Compress a batch of pairs.  x1/x2: (B, H, W, 3); h: (B, 3, 3) or
+        (1, 3, 3).  Returns {'blobs': per-pair bytes, or the one batch
+        container with batch_container=True, 'blob', 'bpp_real',
+        'enctime', 'outliers': (eye1, eye2) latent counts beyond the
+        grids}."""
+        return self._finish(self._encode_device(x1, x2, h_matrix),
+                            batch_container)
+
+    @torch.no_grad()
+    def compress_fast_start(self, x1, x2, h_matrix) -> dict:
+        """Dispatch-only half of a pipelined batch encode, at the grid
+        widths the last finished encode picked; nothing waits for the
+        device.  The first call (no grids picked yet) runs the synchronous
+        batch encode and returns {"mode": "sync", "out": ...}."""
+        if self._next_mm is None:
+            return {"mode": "sync",
+                    "out": self.compress_fast(x1, x2, h_matrix,
+                                              batch_container=True)}
+        return self._encode_device(x1, x2, h_matrix, self._next_mm)
+
+    @torch.no_grad()
+    def compress_fast_finish(self, handle) -> dict:
+        """The batch container of a compress_fast_start handle: waits for
+        that batch's copies only, and records the grids its spreads pick
+        for the next start.  ``fallback`` is always False: the port's
+        pipelined encode has nothing to fall back from."""
+        if handle["mode"] == "sync":
+            return handle["out"]
+        out = self._finish(handle, True)
+        out["fallback"] = False
+        return out
+
+    # ---- decoder side ----
+
+    def _corr_map(self, outliers, y_shape):
+        """Dense (mask, true value) (B, hy, wy, M) maps on the device, or
+        None when no pair has outliers: the records go up as one sparse
+        vector and are scattered there.  Set semantics: the decoder
+        overwrites the clamped decode with the stored true value."""
+        if all(idx.size == 0 for idx, _ in outliers):
+            return None
+        b = len(outliers)
+        hy, wy = y_shape
+        per = hy * wy * self.model.M
+        idx = np.concatenate([i * per + idx.astype(np.int64)
+                              for i, (idx, _) in enumerate(outliers)])
+        vals = np.concatenate([val.astype(np.int64) for _, val in outliers])
+        up = self._upload(np.concatenate([idx, vals]))
+        n = idx.size
+        mask = torch.zeros(b * per, dtype=torch.bool, device=self.device)
+        mask[up[:n]] = True
+        dense = torch.zeros(b * per, dtype=torch.int32, device=self.device)
+        dense[up[:n]] = up[n:].to(torch.int32)
+        shape = (b, hy, wy, self.model.M)
+        return mask.reshape(shape), dense.reshape(shape)
+
+    @staticmethod
+    def _apply_corr(y, corr):
+        """(B, M, hy, wy) decoded latents with the corrections applied."""
+        if corr is None:
+            return y
+        mask, vals = (t.permute(0, 3, 1, 2) for t in corr)
+        return torch.where(mask, vals, y)
+
+    def _decode_device(self, z1_sym, z2_sym, h, cen, dead, streams, corr,
+                       key) -> dict:
+        """cond1 -> kernel 3 -> correction -> cond2 -> kernel 3 ->
+        synthesis, dispatched.  streams: per eye (words (B, CAP, ls),
+        counts, states) on the device."""
+        mm1, mm2, win = key[:3]
+        hy, wy = key[4] // 16, key[5] // 16
+        (w1, c1, st1), (w2, c2, st2) = streams
+        ppl = (hy * wy) // c1.shape[1]
+        freq1 = self._cond1(z1_sym, cen[0], mm1)
+        y1 = _decode_stream(freq1, w1, c1, st1, mm1, hy, wy, cen[0], ppl,
+                            dead[0])
+        y1 = self._apply_corr(y1, corr[0])
+        freq2, x1_hat = self._cond2(y1, z2_sym, h, cen[1], mm2, win)
+        y2 = _decode_stream(freq2, w2, c2, st2, mm2, hy, wy, cen[1], ppl,
+                            dead[1])
+        y2 = self._apply_corr(y2, corr[1])
+        x1_hat_warp, _ = warp_perspective(x1_hat, h, win)
+        x2_hat = self.model.synthesis2(y2.float(), x1_hat_warp)
+
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1).contiguous()
+
+        return {"x1_hat": nhwc(x1_hat), "x2_hat": nhwc(x2_hat),
+                "y1_hat": nhwc(y1).float(), "y2_hat": nhwc(y2).float()}
 
     @staticmethod
     def _parse_outliers(blob: bytes, off: int):
@@ -285,214 +690,204 @@ class HESICFastCodec(CompressionModel):
             eyes.append((idx, val))
         return eyes[0], eyes[1], off
 
-    @staticmethod
-    def _stream_host(words, counts, states):
-        """Device stream -> per-pair (exact-dense u16 payload, counts,
-        u32 states) on the host, each lane's words in lane order."""
-        c = counts.cpu().numpy()
-        cmax = max(int(c.max()), 1)
-        w = words[:, :cmax].permute(0, 2, 1).cpu().numpy()  # (B, ls, C)
-        keep = np.arange(cmax)[None, None, :] < c[:, :, None]
-        st = states.cpu().numpy().astype(np.uint32)
-        return [(w[i][keep[i]], c[i], st[i]) for i in range(c.shape[0])]
+    def _parse_outliers_batch(self, blob: bytes, off: int, b: int):
+        """All b pairs' outlier records.  When no pair has outliers the
+        records are 2b zero u32 counts, read with one frombuffer (an
+        all-zero probe means every count is zero, by induction over the
+        records); otherwise the records are walked one by one."""
+        probe = np.frombuffer(blob, np.uint32, 2 * b, off)
+        if not probe.any():
+            empty = (np.zeros(0, np.uint32), np.zeros(0, np.int32))
+            return [empty] * b, [empty] * b, off + 8 * b
+        out1, out2 = [], []
+        for _ in range(b):
+            o1, o2, off = self._parse_outliers(blob, off)
+            out1.append(o1)
+            out2.append(o2)
+        return out1, out2, off
 
-    @torch.no_grad()
-    def compress_fast(self, x1, x2, h_matrix) -> dict:
-        """Compress a batch of pairs.  x1/x2: (B, H, W, 3); h: (B, 3, 3) or
-        (1, 3, 3).  Returns {'blobs': per-pair bytes, 'blob', 'bpp_real',
-        'enctime', 'outliers': (eye1, eye2) latent counts beyond the
-        grids}."""
-        start = time.perf_counter()
-        x1, x2 = self._to_device(x1), self._to_device(x2)
-        b, _, h_img, w_img = x1.shape
-        h, h_np = self._homographies(h_matrix, b)
-        win = pick_warp_win(h_np, h_img, w_img)
-        xw = pick_warp_xwin(h_np, h_img, w_img)
-
-        (y1_hat, y2_hat, z1_sym, z2_sym, dc1, dc2, sp1,
-         sp2) = self.transforms_enc(x1, x2, h, win)
-        mm1 = pick_mm(int(sp1), self.mm)
-        mm2 = pick_mm(int(sp2), self.mm)
-        freq1 = self._cond1(z1_sym, dc1, mm1)
-        freq2, _ = self._cond2(y1_hat, z2_sym, h, dc2, mm2, win)
-
-        hy, wy = y1_hat.shape[2], y1_hat.shape[3]
-        ppl = auto_ppl(hy * wy)
-        # one launch per eye at the guaranteed bound (one word per
-        # micro-step + 2), so no lane can overflow it
-        cap = default_cap(self.model.M, ppl)
-        s1 = _encode_stream(freq1, y1_hat, mm1, dc1, ppl, cap)
-        s2 = _encode_stream(freq2, y2_hat, mm2, dc2, ppl, cap)
-        cmax = int(torch.maximum(s1[1].amax(), s2[1].amax()))
-        if cmax > cap:
-            raise RuntimeError(f"grid encoder counted {cmax} words in a "
-                               f"lane, past its bound {cap}")
-        over = torch.stack([s1[3], s2[3]]).cpu().numpy()
-        dead = torch.stack([s1[4], s2[4]]).cpu().numpy()
-        outliers1 = self._collect_outliers(y1_hat, over[0], dc1, mm1)
-        outliers2 = self._collect_outliers(y2_hat, over[1], dc2, mm2)
-        streams1 = self._stream_host(*s1[:3])
-        streams2 = self._stream_host(*s2[:3])
-        z1_np = z1_sym.permute(0, 2, 3, 1).cpu().numpy()
-        z2_np = z2_sym.permute(0, 2, 3, 1).cpu().numpy()
-        z1_strs = self.eb_encode_symbols("entropy_bottleneck1", z1_np)
-        z2_strs = self.eb_encode_symbols("entropy_bottleneck2", z2_np)
-        dc1_np, dc2_np = dc1.cpu().numpy(), dc2.cpu().numpy()
-
-        blobs = []
-        for i in range(b):
-            header = bytearray()
-            header += bytes([writer_id(self.device), mm1, mm2, win,
-                             0 if xw is None else xw // 16])
-            header += np.array([h_img, w_img], np.uint16).tobytes()
-            for s in (z1_strs[i], z2_strs[i]):
-                header += np.array([len(s)], np.uint32).tobytes() + s
-            header += self._pack_outliers(outliers1[i], outliers2[i])
-            header += np.packbits(dead[0, i]).tobytes()
-            header += np.packbits(dead[1, i]).tobytes()
-            header += dc1_np[i].astype(np.int8).tobytes()
-            header += dc2_np[i].astype(np.int8).tobytes()
-            header += h_np[i].reshape(-1).astype(np.float32).tobytes()
-            body = (pack_stream_dense(*streams1[i])
-                    + pack_stream_dense(*streams2[i]))
-            blobs.append(bytes(header) + body)
-        total = sum(len(bl) for bl in blobs)
-        return {
-            "blobs": blobs,
-            "blob": blobs[0],
-            "bpp_real": total * 8 / (2 * h_img * w_img * b),
-            "enctime": time.perf_counter() - start,
-            "outliers": (int(over[0].sum()), int(over[1].sum())),
-        }
-
-    # ---- decoder side ----
-
-    def _corr_map(self, outliers, y_shape):
-        """Dense (mask, true value) (B, hy, wy, M) maps on the device, or
-        None when no pair has outliers.  Set semantics: the decoder
-        overwrites the clamped decode with the stored true value."""
-        if all(idx.size == 0 for idx, _ in outliers):
-            return None
-        b = len(outliers)
-        hy, wy = y_shape
+    def _parse_dead_bitmaps(self, blob: bytes, off: int, b: int):
+        """b pairs of constant-channel bitmaps, one unpackbits -> two
+        (b, M) bool arrays + the next offset."""
         m = self.model.M
-        mask = np.zeros((b, hy * wy * m), bool)
-        vals = np.zeros((b, hy * wy * m), np.int32)
-        for i, (idx, val) in enumerate(outliers):
-            mask[i, idx] = True
-            vals[i, idx] = val
-        return (torch.from_numpy(mask.reshape(b, hy, wy, m)).to(self.device),
-                torch.from_numpy(vals.reshape(b, hy, wy, m)).to(self.device))
+        nbytes = -(-m // 8)
+        raw = np.frombuffer(blob, np.uint8, 2 * b * nbytes, off)
+        bits = np.unpackbits(raw.reshape(b, 2, nbytes), axis=-1)[..., :m]
+        return bits[:, 0] != 0, bits[:, 1] != 0, off + 2 * b * nbytes
 
-    @staticmethod
-    def _apply_corr(y, corr):
-        """(B, M, hy, wy) decoded latents with the corrections applied."""
-        if corr is None:
-            return y
-        mask, vals = (t.permute(0, 3, 1, 2) for t in corr)
-        return torch.where(mask, vals, y)
+    def _parse_pair(self, blob: bytes) -> dict:
+        """The layout of one per-pair container, parsed to its last byte
+        (nothing decoded yet)."""
+        m = self.model.M
+        off = _check_format(blob, self.device)
+        h_img, w_img = (int(v) for v in
+                        np.frombuffer(blob, np.uint16, 2, off + 4))
+        key = (blob[off], blob[off + 1], blob[off + 2],
+               blob[off + 3] * 16 or None, h_img, w_img)
+        off += 8
+        ext = []
+        for _ in range(2):
+            (length,) = np.frombuffer(blob, np.uint32, 1, off)
+            off += 4
+            ext.append((off, off + int(length)))
+            off += int(length)
+        o1, o2, off = self._parse_outliers(blob, off)
+        d1, d2, off = self._parse_dead_bitmaps(blob, off, 1)
+        cen = np.frombuffer(blob, np.int8, 2 * m, off).reshape(2, m)
+        off += 2 * m
+        h = np.frombuffer(blob, np.float32, 9, off).reshape(3, 3)
+        off += 36
+        s1 = unpack_stream_dense(blob, off)
+        s2 = unpack_stream_dense(blob, s1[3])
+        _check_end(blob, s2[3], "per-pair container")
+        _check_shape(h_img, w_img, s1[1].shape[0], "per-pair container")
+        return {"key": key, "ext": ext, "outliers": (o1, o2),
+                "dead": (d1[0], d2[0]), "centres": cen, "h": h,
+                "streams": (s1[:3], s2[:3])}
+
+    def _upload_decode(self, streams, z, cen, dead, h_np):
+        """The decoder's inputs on the device, in one pinned upload: per
+        eye (exact-dense u16 words in (pair, lane) order, (B, ls) counts,
+        (B, ls) u32 states), the z symbols (B, zh, zw, C) of both eyes,
+        (2, B, M) centres and constant-channel bitmaps, (B, 3, 3) f32
+        homographies.  The cap-major word buffers kernel 3 reads are
+        rebuilt on the device (expand_words).  Returns (z1_sym, z2_sym,
+        h, centres, bitmaps, per eye (words, counts, states))."""
+        b, lanes = streams[0][1].shape
+        parts = [streams[0][1], streams[1][1], streams[0][2].view(np.int32),
+                 streams[1][2].view(np.int32), z[0], z[1], cen, dead,
+                 h_np.view(np.int32)]
+        for flat, _, _ in streams:
+            even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
+            even[: flat.size] = flat
+            parts.append(even.view(np.int32))
+        sizes = [p.size for p in parts]
+        buf = self._upload(np.concatenate(
+            [p.astype(np.int32, copy=False).reshape(-1) for p in parts]))
+        (c1, c2, st1, st2, z1d, z2d, cen_d, dead_d, h_d, w1,
+         w2) = torch.split(buf, sizes)
+        counts = [c.reshape(b, lanes) for c in (c1, c2)]
+        states = [(s.to(torch.int64) & 0xFFFFFFFF).reshape(b, lanes)
+                  for s in (st1, st2)]
+        words = []
+        for w, (flat, c, _), cd in zip((w1, w2), streams, counts):
+            dense = w.view(torch.int16)[: flat.size].to(torch.int32)
+            words.append(expand_words(dense & 0xFFFF, cd,
+                                      max(int(c.max()), 1)))
+        z1_sym, z2_sym = (t.reshape(zz.shape).permute(0, 3, 1, 2)
+                          .contiguous() for t, zz in zip((z1d, z2d), z))
+        m = cen.shape[-1]
+        return (z1_sym, z2_sym, h_d.view(torch.float32).reshape(b, 3, 3),
+                cen_d.reshape(2, b, m), (dead_d != 0).reshape(2, b, m),
+                list(zip(words, counts, states)))
 
     @torch.no_grad()
     def decompress_fast(self, blobs) -> dict:
-        """Decompress one blob (bytes) or a batch (list of bytes) that
-        share grid widths, warp windows and image size."""
+        """Decompress one per-pair container (bytes) or a batch of them
+        (list of bytes) that share grid widths, warp windows and image
+        size; synchronises before it returns."""
         start = time.perf_counter()
         if isinstance(blobs, (bytes, bytearray)):
             blobs = [bytes(blobs)]
-        m = self.model.M
-        nbytes = -(-m // 8)
-        key = None
-        z1_l, z2_l, h_l, o1_l, o2_l = [], [], [], [], []
-        d1_l, d2_l, c1_l, c2_l, s1_l, s2_l = [], [], [], [], [], []
-        for blob in blobs:
-            off = _check_format(blob, self.device)
-            h_img, w_img = (int(v) for v in
-                            np.frombuffer(blob, np.uint16, 2, off + 4))
-            blob_key = (blob[off], blob[off + 1], blob[off + 2],
-                        blob[off + 3] * 16 or None, h_img, w_img)
-            if key is not None and blob_key != key:
+        with record_function("dec/parse"):
+            parsed = [self._parse_pair(blob) for blob in blobs]
+        key = parsed[0]["key"]
+        for p in parsed[1:]:
+            if p["key"] != key:
                 raise ValueError(
                     "per-pair blobs in one decompress_fast call must share "
-                    f"(mm1, mm2, win, xwin, H, W): got {key} and {blob_key}")
-            key = blob_key
-            off += 8
-            y_shape = (h_img // 16, w_img // 16)
-            z_shape = (y_shape[0] // 4, y_shape[1] // 4)
-            for name, acc in (("entropy_bottleneck1", z1_l),
-                              ("entropy_bottleneck2", z2_l)):
-                (length,) = np.frombuffer(blob, np.uint32, 1, off)
-                off += 4
-                acc.append(self.eb_decode_streams(
-                    name, blob, [(off, off + int(length))], z_shape)[0])
-                off += int(length)
-            o1, o2, off = self._parse_outliers(blob, off)
-            o1_l.append(o1)
-            o2_l.append(o2)
-            bits = np.unpackbits(np.frombuffer(blob, np.uint8, 2 * nbytes,
-                                               off).reshape(2, nbytes),
-                                 axis=-1)[:, :m]
-            d1_l.append(bits[0])
-            d2_l.append(bits[1])
-            off += 2 * nbytes
-            c1_l.append(np.frombuffer(blob, np.int8, m, off))
-            c2_l.append(np.frombuffer(blob, np.int8, m, off + m))
-            off += 2 * m
-            h_l.append(np.frombuffer(blob, np.float32, 9, off).reshape(3, 3))
-            off += 36
-            w1, cn1, st1, off = unpack_stream(blob, off)
-            w2, cn2, st2, off = unpack_stream(blob, off)
-            s1_l.append((w1, cn1, st1))
-            s2_l.append((w2, cn2, st2))
-        mm1, mm2, win = key[:3]
-        dev = self.device
-
-        def tensor(arrays, dtype):
-            return torch.from_numpy(np.stack(arrays).astype(dtype)).to(dev)
-
-        def stack_streams(parts):
-            # cap-major (B, CAP, lanes), the layout kernel 3 reads
-            cap = max(p[0].shape[1] for p in parts)
-            words = np.zeros((len(parts), cap, parts[0][0].shape[0]),
-                             np.int32)
-            for i, (w, _, _) in enumerate(parts):
-                words[i, : w.shape[1], :] = w.T
-            return (torch.from_numpy(words).to(dev),
-                    tensor([p[1] for p in parts], np.int32),
-                    tensor([p[2] for p in parts], np.int64))
-
-        w1d, c1d, st1d = stack_streams(s1_l)
-        w2d, c2d, st2d = stack_streams(s2_l)
-        z1_sym = tensor(z1_l, np.int32).permute(0, 3, 1, 2).contiguous()
-        z2_sym = tensor(z2_l, np.int32).permute(0, 3, 1, 2).contiguous()
-        h = tensor(h_l, np.float32)
-        dead1, dead2 = tensor(d1_l, bool), tensor(d2_l, bool)
-        cen1, cen2 = tensor(c1_l, np.int32), tensor(c2_l, np.int32)
-        corr1 = self._corr_map(o1_l, y_shape)
-        corr2 = self._corr_map(o2_l, y_shape)
-        hy, wy = y_shape
-        ppl = (hy * wy) // c1d.shape[1]
-
-        freq1 = self._cond1(z1_sym, cen1, mm1)
-        y1 = _decode_stream(freq1, w1d, c1d, st1d, mm1, hy, wy, cen1, ppl,
-                            dead1)
-        y1 = self._apply_corr(y1, corr1)
-        freq2, x1_hat = self._cond2(y1, z2_sym, h, cen2, mm2, win)
-        y2 = _decode_stream(freq2, w2d, c2d, st2d, mm2, hy, wy, cen2, ppl,
-                            dead2)
-        y2 = self._apply_corr(y2, corr2)
-        x1_hat_warp, _ = warp_perspective(x1_hat, h, win)
-        x2_hat = self.model.synthesis2(y2.float(), x1_hat_warp)
-
-        def nhwc(t):
-            return t.permute(0, 2, 3, 1).contiguous()
-
-        out = {
-            "x1_hat": nhwc(x1_hat),
-            "x2_hat": nhwc(x2_hat),
-            "y1_hat": nhwc(y1).float(),
-            "y2_hat": nhwc(y2).float(),
-        }
+                    f"(mm1, mm2, win, xwin, H, W): got {key} and "
+                    f"{p['key']}")
+        y_shape = (key[4] // 16, key[5] // 16)
+        z_shape = (y_shape[0] // 4, y_shape[1] // 4)
+        with record_function("dec/z-rans"):
+            z = [np.concatenate([self.eb_decode_streams(
+                name, blob, [p["ext"][e]], z_shape)
+                for blob, p in zip(blobs, parsed)])
+                for e, name in enumerate(("entropy_bottleneck1",
+                                          "entropy_bottleneck2"))]
+        with record_function("dec/words-rebuild"):
+            streams = [(np.concatenate([p["streams"][e][0] for p in parsed]),
+                        np.stack([p["streams"][e][1] for p in parsed]),
+                        np.stack([p["streams"][e][2] for p in parsed]))
+                       for e in range(2)]
+            z1_sym, z2_sym, h, cen, dead, streams = self._upload_decode(
+                streams, z, np.stack([p["centres"] for p in parsed], 1),
+                np.stack([p["dead"] for p in parsed], 1),
+                np.stack([p["h"] for p in parsed]))
+            corr = tuple(self._corr_map([p["outliers"][e] for p in parsed],
+                                        y_shape) for e in range(2))
+        with record_function("dec/dispatch"):
+            out = self._decode_device(z1_sym, z2_sym, h, cen, dead, streams,
+                                      corr, key)
         if out["x2_hat"].is_cuda:
             torch.cuda.synchronize(out["x2_hat"].device)
+        out["dectime"] = time.perf_counter() - start
+        return out
+
+    @torch.no_grad()
+    def decompress_fast_batch(self, blob: bytes) -> dict:
+        """Decode a batch container (compress_fast(batch_container=True)).
+        The z strings decode in two native calls; counts, states, words,
+        z symbols, centres, bitmaps and homographies go up in one pinned
+        upload; the cap-major word buffers are rebuilt on the device.
+        Only dispatches: ``dectime`` is the dispatch time, and the caller
+        synchronises when it needs the results."""
+        start = time.perf_counter()
+        m = self.model.M
+        with record_function("dec/parse"):
+            off = _check_format(blob, self.device)
+            mm1, mm2, win = blob[off], blob[off + 1], blob[off + 2]
+            xwin = blob[off + 3] * 16 or None
+            h_img, w_img, b, lanes = (int(v) for v in np.frombuffer(
+                blob, np.uint32, 4, off + 4))
+            off += 20
+            if not 0 < b <= (len(blob) - off) // 8:
+                raise ValueError(f"batch container: {b} pairs cannot fit "
+                                 f"{len(blob)} bytes")
+            ext1, ext2 = [], []
+            for _ in range(b):
+                for ext in (ext1, ext2):
+                    (length,) = np.frombuffer(blob, np.uint32, 1, off)
+                    off += 4
+                    ext.append((off, off + int(length)))
+                    off += int(length)
+        with record_function("dec/outliers-parse"):
+            out1, out2, off = self._parse_outliers_batch(blob, off, b)
+        with record_function("dec/parse"):
+            dead1, dead2, off = self._parse_dead_bitmaps(blob, off, b)
+            cen = np.frombuffer(blob, np.int8, 2 * b * m, off)
+            off += 2 * b * m
+            h_np = np.frombuffer(blob, np.float32, 9 * b, off)
+            off += 36 * b
+            streams = []
+            for _ in range(2):
+                c, off = unpack_counts(blob, off, b * lanes)
+                st = np.frombuffer(blob, np.uint32, b * lanes, off)
+                off += 4 * b * lanes
+                total = int(c.sum())
+                flat = np.frombuffer(blob, np.uint16, total, off)
+                off += 2 * total
+                streams.append((flat, c.reshape(b, lanes),
+                                st.reshape(b, lanes)))
+            _check_end(blob, off, "batch container")
+            _check_shape(h_img, w_img, lanes, "batch container")
+        y_shape = (h_img // 16, w_img // 16)
+        z_shape = (y_shape[0] // 4, y_shape[1] // 4)
+        with record_function("dec/z-rans"):
+            z1 = self.eb_decode_streams("entropy_bottleneck1", blob, ext1,
+                                        z_shape)
+            z2 = self.eb_decode_streams("entropy_bottleneck2", blob, ext2,
+                                        z_shape)
+        with record_function("dec/words-rebuild"):
+            z1_sym, z2_sym, h, cen_t, dead_t, streams = self._upload_decode(
+                streams, (z1, z2), cen.reshape(2, b, m),
+                np.stack([dead1, dead2]), h_np.reshape(b, 3, 3))
+            corr = (self._corr_map(out1, y_shape),
+                    self._corr_map(out2, y_shape))
+        with record_function("dec/dispatch"):
+            out = self._decode_device(
+                z1_sym, z2_sym, h, cen_t, dead_t, streams, corr,
+                (mm1, mm2, win, xwin, h_img, w_img))
         out["dectime"] = time.perf_counter() - start
         return out

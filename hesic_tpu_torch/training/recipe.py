@@ -1,6 +1,7 @@
 """bench.py's training recipe: its smooth stereo pairs, a training batch
-of them on a device, and its optimizer and train step (RD loss at lambda
-1e-2 plus the aux loss, Adam 1e-4 / 1e-3) with a seeded noise generator.
+of them on a device, its optimizer and train step (RD loss at lambda
+1e-2 plus the aux loss, Adam 1e-4 / 1e-3) with a seeded noise generator,
+and its calibration run (``calibrate``).
 """
 
 from __future__ import annotations
@@ -56,3 +57,16 @@ def trainer(model):
     step = make_train_step(model, opt, make_loss_fn(1e-2))
     device = next(model.parameters()).device
     return opt, step, torch.Generator(device=device).manual_seed(7)
+
+
+def calibrate(model, rng, steps: int = 60, hw: int = 256, batch: int = 4):
+    """``bench.py``'s ``_calibrate``: `steps` train steps of `model` on one
+    batch of `batch` smooth hw x hw pairs drawn from `rng` (identity H),
+    so the codec's entropy code is sane before it is timed.  Returns the
+    steps' (losses, training bpps) as floats."""
+    device = next(model.parameters()).device
+    _, step, gen = trainer(model)
+    data = train_batch(rng, batch, hw, device)
+    metrics = [step(data, gen) for _ in range(steps)]
+    return ([float(m["loss"]) for m in metrics],
+            [float(m["bpp"]) for m in metrics])

@@ -6,6 +6,8 @@ Usage (on a machine with a CUDA card):
     python -m hesic_tpu_torch.utils.profile_fast [--model hesic|hesic-plus
         --batch B --mm MM --homography identity|rotated]
     python -m hesic_tpu_torch.utils.profile_fast --model train [--batch B]
+    python -m hesic_tpu_torch.utils.profile_fast --model hesic-batch
+        [--batch B --mm MM --homography identity|rotated]
 
 ``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and traces
 ``HESICFastCodec.compress_fast`` + ``decompress_fast`` (batch 8, grid cap
@@ -19,8 +21,9 @@ activities).  Prints the card, the encode and decode wall times, traced
 and untraced (tracing adds host time to every launch), the device time
 by kernel group (the port's kernels 1-5, cuDNN convolutions, other
 PyTorch kernels), the device's busy and idle shares of the traced wall
-time, and the ten longest
-kernels by name, then one JSON line with the same numbers.  Kernel 5's
+time, the codec's host ranges (HESIC's ``enc/...`` and ``dec/...``
+ranges), and the ten longest kernels by name, then one JSON line with
+the same numbers.  Kernel 5's
 launches group as its hoisted product, its context stage, its three MLP
 stages and its coder.  Device time is the sum of the kernels' own times
 on the card (one stream, so kernels do not overlap).
@@ -36,28 +39,36 @@ scatter-add), the likelihoods' work (the bottlenecks' and mixtures'
 forwards, marked by module hooks, and the backward of every operation
 they ran, matched by autograd sequence number), the Adam update, and the
 rest.
+
+``--model hesic-batch`` profiles the port's bench loop
+(``hesic_tpu_torch.bench``): HESIC N=128/M=192/K=5, bf16, calibrated as
+bench.py does (60 steps), batch 64 and grid cap mm 16 by default, the
+batch container.  After the bench's warm-up it fills the pipeline
+(batch 0 encoded, batch 1 started), waits for the device, and times one
+mode-2 iteration (decode of batch 0, start of batch 2, finish of batch
+1, then a synchronize) untraced and then traced.  Prints the wall time,
+the device's busy time (the union of its kernels and copies over every
+stream) and idle share of the traced wall time, the kernel time of
+kernels 1-3, cuDNN and the rest, the copies by direction and host
+memory (pinned or pageable), the codec's host ranges (``enc/...``,
+``dec/...``: the ``record_function`` ranges of models/hesic_fast.py),
+the host time in CUDA runtime calls (a launch that blocks on a full
+queue, or a synchronize, shows there), and the longest kernels, then one
+JSON line with the same numbers.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
 
+from ..bench import card_line, rotated_homography
 from ..training.recipe import smooth_pairs, train_batch, trainer
 
 SIZE = 512     # image side, pixels
-
-
-def rotated_homography() -> np.ndarray:
-    """A rig-like H: 1.5 degree rotation plus a (6, -4) pixel shift."""
-    th = np.deg2rad(1.5)
-    return np.array([[np.cos(th), -np.sin(th), 6.0],
-                     [np.sin(th), np.cos(th), -4.0],
-                     [0.0, 0.0, 1.0]], np.float32)
 
 
 _GROUPS = (("kernel 1 gmm_freq", ("gmm_freq_kernel",)),
@@ -108,13 +119,6 @@ def _codec(model: str, batch: int, mm: int):
             out = codec.compress(x1, x2, h)
             return out, codec.decompress(out["strings"]), out["escapes"]
     return trip
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def _marked(modules, label: str):
@@ -209,7 +213,7 @@ def train_main(batch: int) -> int:
     if not torch.cuda.is_available():
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
-    card = _card()
+    card = card_line()
     deterministic_backends()
     model = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
                   seed=0)
@@ -270,21 +274,159 @@ def train_main(batch: int) -> int:
     return 0
 
 
+def _union_us(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _tally(labelled) -> dict:
+    """{label: [ms, count]} over (label, profiler event) pairs."""
+    out = {}
+    for label, e in labelled:
+        g = out.setdefault(label, [0.0, 0])
+        g[0] += (e.time_range.end - e.time_range.start) / 1e3
+        g[1] += 1
+    return out
+
+
+def _copy_kind(name: str) -> str:
+    """'HtoD pinned', 'DtoH pageable', ... for a profiler copy event."""
+    direction = next((d for d in ("HtoD", "DtoH", "DtoD") if d in name),
+                     "other")
+    memory = ("pageable" if "Pageable" in name
+              else "pinned" if "Pinned" in name else "device")
+    return f"{direction} {memory}"
+
+
+def batch_main(batch: int, mm: int, homography: str) -> int:
+    """Profile one pipelined bench iteration (see the module docstring)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .. import bench
+    from ..models.hesic import HESIC
+    from ..models.hesic_fast import HESICFastCodec
+    from ..training.recipe import calibrate
+
+    if not torch.cuda.is_available():
+        print("profile_fast: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    model = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
+                  seed=0)
+    rng = np.random.RandomState(0)
+    calibrate(model, rng)
+    codec = HESICFastCodec(model, mm=mm, codec_batch=batch).update()
+    pool = bench.make_pool(rng, 3, batch, SIZE, "cuda")
+    h = bench.homographies("real" if homography == "rotated"
+                           else "identity", batch)
+    bench.warm_up(codec, pool, h)
+    state = {"prev": codec.compress_fast_finish(
+        codec.compress_fast_start(*pool[0], h))["blob"],
+        "handle": codec.compress_fast_start(*pool[1], h), "next": 2}
+
+    def iteration():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codec.decompress_fast_batch(state["prev"])
+        nxt = codec.compress_fast_start(*pool[state["next"] % 3], h)
+        out = codec.compress_fast_finish(state["handle"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        state.update(prev=out["blob"], handle=nxt, next=state["next"] + 1)
+        return out, ms
+
+    _, plain_ms = iteration()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, wall_ms = iteration()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in events
+              if e.device_type == cuda and not e.is_user_annotation]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in device]) / 1e3
+    groups = _tally((_group(e.name), e) for e in device
+                    if not e.name.startswith("Memcpy"))
+    copies = _tally((_copy_kind(e.name), e) for e in device
+                    if e.name.startswith("Memcpy"))
+    host_side = [e for e in events if e.device_type != cuda]
+    host = _tally((e.name, e) for e in host_side
+                  if e.name.startswith(("enc/", "dec/")))
+    runtime = _tally((e.name, e) for e in host_side
+                     if e.name.startswith("cu")
+                     and not e.name.startswith(("cudnn", "cublas")))
+    by_name = _tally((e.name, e) for e in device)
+
+    print(f"card: {card}")
+    print(f"hesic-batch, batch {batch} pairs {SIZE}x{SIZE}, H {homography},"
+          f" mm cap {mm}, calibrated: one pipelined iteration (decode, "
+          f"start, finish) {plain_ms:.2f} ms wall untraced, {wall_ms:.2f} "
+          f"ms traced; bpp_real {out['bpp_real']:.6f}, grids "
+          f"{out['blob'][1]}/{out['blob'][2]}, outliers "
+          f"{out['outliers'][0]}/{out['outliers'][1]}")
+    if not device:
+        print("device time: not measured (the profiler saw no CUDA "
+              "activity)")
+        return 1
+    print(f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall (union "
+          f"over streams): idle share {1 - busy_ms / wall_ms:.3f}")
+    for title, table in (("kernels", groups), ("copies", copies),
+                         ("host ranges", host)):
+        print(f"{title}:")
+        for label, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {label:<28s} {ms:9.3f} ms  {n:6d}x")
+    print("CUDA runtime calls (host time):")
+    for name, (ms, n) in sorted(runtime.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {name:<28s} {ms:9.3f} ms  {n:6d}x")
+    print("longest kernels:")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    print(json.dumps({
+        "card": card, "model": "hesic-batch", "batch": batch, "size": SIZE,
+        "homography": homography, "mm_cap": mm,
+        "bpp_real": out["bpp_real"], "iteration_ms": plain_ms,
+        "traced_iteration_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms,
+        "kernels_ms": {k: v[0] for k, v in groups.items()},
+        "launches": {k: v[1] for k, v in groups.items()},
+        "copies_ms": {k: v[0] for k, v in copies.items()},
+        "copies": {k: v[1] for k, v in copies.items()},
+        "host_ms": {k: v[0] for k, v in host.items()},
+        "runtime_ms": {k: v[0] for k, v in runtime.items()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("hesic", "hesic-plus", "train"),
+    p.add_argument("--model", choices=("hesic", "hesic-plus", "train",
+                                       "hesic-batch"),
                    default="hesic")
     p.add_argument("--batch", type=int, default=None,
                    help="pairs per batch (default 8 for hesic and train, "
-                        "11 for hesic-plus)")
+                        "11 for hesic-plus, 64 for hesic-batch)")
     p.add_argument("--mm", type=int, default=None,
                    help="grid half-width cap (default 32 for hesic, 16 "
-                        "for hesic-plus)")
+                        "for hesic-plus and hesic-batch)")
     p.add_argument("--homography", choices=("identity", "rotated"),
                    default="identity")
     args = p.parse_args(argv)
     if args.model == "train":
         return train_main(args.batch or 8)
+    if args.model == "hesic-batch":
+        return batch_main(args.batch or 64, args.mm or 16, args.homography)
     plus = args.model == "hesic-plus"
     b = args.batch or (11 if plus else 8)
     mm = args.mm or (16 if plus else 32)
@@ -295,7 +437,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
-    card = _card()
+    card = card_line()
     trip = _codec(args.model, b, mm)
     x1, x2 = smooth_pairs(np.random.RandomState(0), b, SIZE)
     hm = (np.eye(3, dtype=np.float32) if args.homography == "identity"
@@ -312,20 +454,16 @@ def main(argv=None) -> int:
         out, rec, outliers = trip(x1, x2, h)
     wall_ms = (out["enctime"] + rec["dectime"]) * 1e3
 
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        ms, n = kernels.get(e.key, (0.0, 0))
-        kernels[e.key] = (ms + t / 1e3, n + e.count)
-    groups = {}
-    for name, (ms, n) in kernels.items():
-        g = groups.setdefault(_group(name), [0.0, 0])
-        g[0] += ms
-        g[1] += n
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the codec's record_function ranges also appear on the device as
+    # user annotations spanning their kernels: they are not device work
+    device = [e for e in events
+              if e.device_type == cuda and not e.is_user_annotation]
+    kernels = _tally((e.name, e) for e in device)
+    groups = _tally((_group(e.name), e) for e in device)
+    host = _tally((e.name, e) for e in events if e.device_type != cuda
+                  and e.name.startswith(("enc/", "dec/")))
     busy_ms = sum(ms for ms, _ in kernels.values())
 
     print(f"card: {card}")
@@ -347,6 +485,9 @@ def main(argv=None) -> int:
     for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {label:<28s} {ms:9.3f} ms  {n:6d} launches  "
               f"{ms / busy_ms:6.1%} of device time")
+    print("host ranges:")
+    for label, (ms, n) in sorted(host.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {label:<28s} {ms:9.3f} ms  {n:6d}x")
     print("longest kernels:")
     for name, (ms, n) in sorted(kernels.items(),
                                 key=lambda kv: -kv[1][0])[:10]:
@@ -361,7 +502,8 @@ def main(argv=None) -> int:
         "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
         "groups_ms": {k: v[0] for k, v in groups.items()},
-        "launches": {k: v[1] for k, v in groups.items()}}))
+        "launches": {k: v[1] for k, v in groups.items()},
+        "host_ms": {k: v[0] for k, v in host.items()}}))
     return 0
 
 
