@@ -102,14 +102,31 @@ and prints no result):
      torch.cuda.set_sync_debug_mode("error"), so a host sync inside them
      raises, and each must return while a ~1 s device sleep queued before
      it still runs (a wait by any route, one the debug mode does not see
-     included).  Prints pairs/s, bpp_real, the grids, peak memory and the
+     included); a call that launches more kernels than the stream's
+     launch queue holds (measured in the run) blocks on the full queue
+     until the sleep ends, and passes only if a profiler audit of it
+     finds no waiting CUDA call and no copy to or from pageable host
+     memory.  Prints pairs/s, bpp_real, the grids, peak memory and the
      card.  A grid the loops picked that phase 3 did not hold at batch 64
      is held then;
- 10. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6 and 8's round trips and phase 9's timed loops; kernels 1-3's
-     times and bounds at batch 64 on the widest grid phase 9 ran, kernels
-     4 and 5's at the HESIC+ point), then the device line {"ok": true,
-     "device": {...}} last.
+ 10. drives DSIC at bench.py's DSIC point: DSIC N=128/M=192/F=21/C=32/
+     K=5 (bf16 transforms, the disparity-folded 3-D branch, seeded random
+     weights) through DSICFastCodec on phase 5's 8 pairs, per-pair and
+     batch container (grid cap 32) and an escape case (amplified inputs,
+     grid capped at mm 4, which must have outliers): decoded latents
+     equal to the encoder's, reconstructions finite and of the input's
+     shape, kernel 2 once per eye, kernels 1-3 launched.  Then calibrates
+     it as bench.py's _calibrate(arch="dsic") does (60 bf16 steps at
+     256x256, batch 4, no homography; the mean loss of the last 10 steps
+     must be below the first 10's), then runs phase 9's bench loop on it
+     at batch 32, 4 timed batches, identity H (DSIC ignores it), in
+     modes 2 and 0, with phase 9's checks; then holds kernels 1-3 at batch
+     32 on every grid those loops picked (bit-equal, timed, with bounds);
+ 11. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8 and 10's round trips and phases 9 and 10's timed loops; kernels
+     1-3's times and bounds at batch 64 on the widest grid phase 9 ran,
+     kernels 4 and 5's at the HESIC+ point), then the device line {"ok":
+     true, "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -117,6 +134,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import sys
 import time
@@ -188,9 +206,21 @@ BENCH_B, BENCH_BATCHES, BENCH_POOL = 64, 6, 4
 # calibrated latents pick (mm 4) and the bench's cap (mm 16).  Phase 9
 # holds any other grid it picks as well.
 BENCH_GRIDS = (4, 16)
+# DSIC at bench.py's DSIC point (bench_dsic: N128/M192/F21/C32/K5 bf16,
+# mm 16, batch containers of 32 over 4 timed batches); its round trips
+# at batch 8 (grid cap 32, and mm 4 for the escape case)
+DS_F, DS_C = 21, 32
+DS_BENCH_B, DS_BENCH_BATCHES = 32, 4
 # a device sleep of ~1 s at the H100's ~2 GHz, queued ahead of a call that
 # must not wait for the device
 SLEEP_CYCLES = 2_000_000_000
+# CUDA calls that launch work on a stream without waiting, and those that
+# wait for the device (a stream query is a poll, so one in a loop is a wait)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemsetAsync")
+WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaStreamQuery", "cudaMemcpy",
+              "cudaMemcpy2D")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -396,14 +426,15 @@ def phase_rans(freq, label: str, seed: int, ppl: int = PPL,
     }
 
 
-def hold_batch(mm: int) -> tuple:
-    """Kernels 1-3 at bench.py's batch (BENCH_B) on grid `mm`: kernel 1
-    against its twin, its rows then feeding kernels 2 and 3, all
-    bit-equal and timed.  The plans of kernels 2 and 3 depend on the batch
-    and the grid, so each grid the bench runs is held here."""
+def hold_batch(mm: int, b: int = BENCH_B) -> tuple:
+    """Kernels 1-3 at a bench batch `b` (bench.py's BENCH_B, or DSIC's
+    DS_BENCH_B) on grid `mm`: kernel 1 against its twin, its rows then
+    feeding kernels 2 and 3, all bit-equal and timed.  The plans of
+    kernels 2 and 3 depend on the batch and the grid, so each grid a bench
+    runs is held here."""
     import torch
-    pmf_r = phase_pmf(mm, seed=11, b=BENCH_B)
-    rans_r = phase_rans(pmf_r.pop("freq"), f"mm={mm} B={BENCH_B}", seed=12)
+    pmf_r = phase_pmf(mm, seed=11, b=b)
+    rans_r = phase_rans(pmf_r.pop("freq"), f"mm={mm} B={b}", seed=12)
     torch.cuda.empty_cache()
     return pmf_r, rans_r
 
@@ -1086,11 +1117,60 @@ def strict_sync(codec):
     return codec
 
 
+@functools.cache
+def launch_queue_depth(limit: int = 65536) -> int:
+    """Kernel launches a stream queues behind a running kernel before the
+    next launch blocks the host (CUDA's launch queue): a device sleep,
+    then empty kernels launched one by one until a launch waits over
+    0.1 s for the sleep.  A kernel with larger parameters takes more of
+    the queue, so a real call blocks after at most this many launches."""
+    import torch
+    torch.cuda._sleep(0)
+    sync()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for n in range(limit):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(0)
+        if time.perf_counter() - t0 > 0.1:
+            break
+    sync()
+    return n
+
+
+def runtime_audit(call):
+    """Run `call` (the device idle) under torch.profiler: (its kernel
+    launches and memsets, its CUDA calls of WAIT_CALLS by name, the
+    device copies it made to or from pageable host memory, its
+    result)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.autograd.DeviceType.CUDA
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("audited call"):
+            out = call()
+        sync()
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "audited call")
+    inside = [e.name for e in events if e.device_type != cuda
+              and span.start <= e.time_range.start <= span.end]
+    waits = {n: inside.count(n) for n in WAIT_CALLS if n in inside}
+    pageable = sorted({e.name for e in events if e.device_type == cuda
+                       and e.name.startswith("Memcpy")
+                       and "Pageable" in e.name})
+    return sum(inside.count(n) for n in LAUNCH_CALLS), waits, pageable, out
+
+
 def check_no_wait(codec, x1, x2, h, blob) -> str:
     """compress_fast_start and decompress_fast_batch must return while a
     device sleep queued before them still runs: neither may wait for the
     device, by any route (the sync debug mode does not see every one).
-    Returns a line with the host and device times."""
+    A call that launches more kernels than the launch queue holds
+    (launch_queue_depth) blocks on the full queue until the sleep drains
+    it; such a call passes only if a profiler audit of it (runtime_audit)
+    finds no waiting CUDA call and no copy to or from pageable host
+    memory.  Returns a line with the host and device times."""
     import torch
     parts = []
     for name, call in (
@@ -1106,61 +1186,77 @@ def check_no_wait(codec, x1, x2, h, blob) -> str:
         busy = not torch.cuda.current_stream().query()
         sync()
         total = time.perf_counter() - t0
-        if not (busy and host < 0.5 * total):
-            raise AssertionError(f"{name} waited for the device: it "
-                                 f"returned after {host * 1e3:.1f} ms of a "
-                                 f"{total * 1e3:.1f} ms queue")
         if out.get("mode") == "async":
             codec.compress_fast_finish(out)
-        parts.append(f"{name} returned after {host * 1e3:.1f} ms of a "
-                     f"{total * 1e3:.1f} ms queue")
+        line = (f"{name} returned after {host * 1e3:.1f} ms of a "
+                f"{total * 1e3:.1f} ms queue")
+        if not (busy and host < 0.5 * total):
+            depth = launch_queue_depth()
+            launches, waits, pageable, out = runtime_audit(call)
+            if out.get("mode") == "async":
+                codec.compress_fast_finish(out)
+            if waits or pageable or launches <= depth or not busy:
+                raise AssertionError(
+                    f"{name} waited for the device: it returned after "
+                    f"{host * 1e3:.1f} ms of a {total * 1e3:.1f} ms queue "
+                    f"(still busy: {busy}; {launches} launches against a "
+                    f"launch queue of {depth}; waiting calls {waits}; "
+                    f"pageable copies {pageable})")
+            line += (f" (blocked on the full launch queue: {launches} "
+                     f"launches against a queue of {depth}, no waiting "
+                     f"call, no pageable copy)")
+        parts.append(line)
     return "; ".join(parts)
 
 
-def phase_bench(model, card: str) -> dict:
-    """The port's bench loop (hesic_tpu_torch/bench.py) at bench.py's
-    point on the calibrated model: batch BENCH_B, mm 16, a pool of
-    BENCH_POOL batches cycled over BENCH_BATCHES, identity and real H,
-    modes 2 and 0.  Returns the timed loops' launches and the grid widths
-    (mm1 and mm2) their containers picked."""
+def phase_bench(model, card: str, b: int = BENCH_B,
+                n_batches: int = BENCH_BATCHES,
+                kinds=("identity", "real")) -> tuple:
+    """The port's bench loop (hesic_tpu_torch/bench.py) at a bench.py
+    point on the calibrated `model` (HESIC or DSIC): batch `b`, mm 16, a
+    pool of BENCH_POOL batches cycled over `n_batches`, for each
+    homography of `kinds`, modes 2 and 0.  Returns the timed loops'
+    launches and the grid widths (mm1 and mm2) their containers
+    picked."""
     import numpy as np
     import torch
     from hesic_tpu_torch import bench
     from hesic_tpu_torch.codecs import build
-    from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
 
+    name = type(model).__name__
     torch.cuda.reset_peak_memory_stats()
-    codec = strict_sync(HESICFastCodec(model, mm=16, codec_batch=BENCH_B)
-                        .update())
-    pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, BENCH_B,
-                           HW_IMG, DEVICE)
-    batches = [pool[i % BENCH_POOL] for i in range(BENCH_BATCHES)]
+    codec = strict_sync(bench.make_codec(model, 16, b))
+    pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, b, HW_IMG,
+                           DEVICE)
+    batches = [pool[i % BENCH_POOL] for i in range(n_batches)]
     launches, grids = {}, set()
-    for kind in ("identity", "real"):
-        h = bench.homographies(kind, BENCH_B)
+    for kind in kinds:
+        h = bench.homographies(kind, b)
+        what = f"{kind} H"
         bench.warm_up(codec, pool, h)
         bench.check_pipelined_bytes(codec, *pool[0], h)
         blob = codec.compress_fast(*pool[1], h, batch_container=True)["blob"]
-        print(f"bench [{kind} H]: {check_no_wait(codec, *pool[0], h, blob)}"
-              f" behind a device sleep")
+        print(f"bench {name} [{what}]: "
+              f"{check_no_wait(codec, *pool[0], h, blob)} behind a device "
+              f"sleep")
         for mode in (2, 0):
             build.launch_counts.clear()
             loop = bench.timed_loop(codec, batches, h, mode)
             counts = dict(build.launch_counts)
-            for name, n in counts.items():
-                launches[name] = launches.get(name, 0) + n
-            for name in ("grid_rans_encode", "grid_rans_decode"):
-                if counts.get(name) != 2 * BENCH_BATCHES:
+            for kernel, n in counts.items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            for kernel in ("grid_rans_encode", "grid_rans_decode"):
+                if counts.get(kernel) != 2 * n_batches:
                     raise AssertionError(
-                        f"bench [{kind} H, mode {mode}]: {name} launched "
-                        f"{counts.get(name)} times for {BENCH_BATCHES} "
-                        f"batches, not twice a batch")
+                        f"bench {name} [{what}, mode {mode}]: {kernel} "
+                        f"launched {counts.get(kernel)} times for "
+                        f"{n_batches} batches, not twice a batch")
             bench.check_exact(codec, batches, h, loop)
             outs = loop["containers"]
             grids.update(v for o in outs for v in o["blob"][1:3])
-            print(f"bench [{card}] [{kind} H, pipeline {mode}]: "
-                  f"{BENCH_BATCHES * BENCH_B / loop['seconds']:.2f} pairs/s "
-                  f"({BENCH_BATCHES} batches of {BENCH_B} {HW_IMG}x{HW_IMG}"
+            print(f"bench {name} [{card}] [{what}, pipeline {mode}]: "
+                  f"{n_batches * b / loop['seconds']:.2f} pairs/s "
+                  f"({n_batches} batches of {b} {HW_IMG}x{HW_IMG}"
                   f" pairs in {loop['seconds'] * 1e3:.1f} ms), bpp_real "
                   f"{np.mean([o['bpp_real'] for o in outs]):.6f}, grids "
                   f"{sorted({tuple(o['blob'][1:3]) for o in outs})}, "
@@ -1172,6 +1268,96 @@ def phase_bench(model, card: str) -> dict:
                   f" GiB; launches {counts}")
             del loop
     return launches, grids
+
+
+def phase_dsic_path() -> tuple:
+    """DSIC's fast codec at full width on 8 pairs (random weights): the
+    per-pair and the batch container (grid cap 32), and an escape case
+    (amplified inputs, grid capped at mm 4).  Returns the launches and
+    the model."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.dsic import DSIC
+    from hesic_tpu_torch.models.dsic_fast import DSICFastCodec
+    from hesic_tpu_torch.training.recipe import smooth_pairs
+
+    model = DSIC(N=N, M=M, F=DS_F, C=DS_C, K=K, dtype=torch.bfloat16,
+                 device=DEVICE, seed=0)
+    codec = DSICFastCodec(model, codec_batch=B).update()
+    hot = DSICFastCodec(model, mm=4, codec_batch=B).update()
+    x1, x2 = smooth_pairs(np.random.RandomState(0), B, HW_IMG)
+    eye = np.eye(3, dtype=np.float32)
+    cases = {"per-pair": (codec, x1, x2, False),
+             "batch container": (codec, x1, x2, True),
+             "escape, batch container": (hot, x1 * 20 - 10, x2 * 20 - 10,
+                                         True)}
+    build.launch_counts.clear()
+    runs = {}
+    for label, (cdc, a, b, batch) in cases.items():
+        out = cdc.compress_fast(a, b, batch_container=batch)
+        rec = (cdc.decompress_fast_batch(out["blob"]) if batch
+               else cdc.decompress_fast(out["blobs"]))
+        sync()
+        runs[label] = (out, rec)
+    launches = dict(build.launch_counts)
+    if launches.get("grid_rans_encode") != 2 * len(cases):
+        raise AssertionError(f"DSIC: kernel 2 launched "
+                             f"{launches.get('grid_rans_encode')} times in "
+                             f"{len(cases)} round trips, not once per eye")
+    for name in ("gmm_freq", "grid_rans_encode", "grid_rans_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"DSIC round trips never launched {name}")
+    for label, (cdc, a, b, _) in cases.items():
+        out, rec = runs[label]
+        check_fast_round_trip(f"DSIC {label}", cdc, a, b, eye, out, rec)
+        if cdc is hot and min(out["outliers"]) == 0:
+            raise AssertionError(f"DSIC {label}: no latent left the grid")
+        print(f"DSIC path [{label}, mm {out['blob'][1]}/{out['blob'][2]}]: "
+              f"bpp_real {out['bpp_real']:.6f}, outliers "
+              f"{out['outliers'][0]}/{out['outliers'][1]}, encode "
+              f"{out['enctime'] * 1e3:.1f} ms, decode "
+              f"{rec['dectime'] * 1e3:.1f} ms wall for {B} pairs; decoded "
+              f"latents equal the encoder's")
+    return launches, model
+
+
+def phase_dsic(card: str) -> tuple:
+    """DSIC at bench.py's DSIC point: the round trips of phase_dsic_path,
+    then the calibration (training.recipe.calibrate, DSIC's loss without
+    H), then the bench loop at batch DS_BENCH_B in modes 2 and 0, then
+    kernels 1-3 held at that batch on every grid the loops picked.
+    Returns (launches of the round trips and the timed loops, {grid:
+    hold_batch result})."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.training.recipe import calibrate
+
+    launches, model = phase_dsic_path()
+    t0 = time.perf_counter()
+    losses, bpps = calibrate(model, np.random.RandomState(2), CAL_STEPS,
+                             CAL_HW, CAL_B)
+    cal_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise AssertionError("DSIC calibration: non-finite loss")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not last < first:
+        raise AssertionError(f"DSIC calibration: mean loss of the last 10 "
+                             f"steps {last} is not below the first 10's "
+                             f"{first}")
+    print(f"DSIC calibrate: {CAL_STEPS} bf16 steps at {CAL_HW}x{CAL_HW}, "
+          f"batch {CAL_B}, in {cal_s:.1f} s; mean loss of the first 10 "
+          f"steps {first:.4f}, of the last 10 {last:.4f}; bpp (training "
+          f"estimate) {bpps[0]:.4f} -> {bpps[-1]:.4f}")
+    torch.cuda.empty_cache()
+    bench_launches, grids = phase_bench(model, card, DS_BENCH_B,
+                                        DS_BENCH_BATCHES, ("identity",))
+    for name, n in bench_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    del model
+    torch.cuda.empty_cache()
+    held = {mm: hold_batch(mm, DS_BENCH_B) for mm in sorted(grids)}
+    return launches, held
 
 
 def main() -> int:
@@ -1230,7 +1416,10 @@ def main() -> int:
     cal_launches, cal_model = phase_calibrate(random_bpp)
     torch.cuda.empty_cache()
     bench_launches, grids = phase_bench(cal_model, card)
-    for counts in (cal_launches, bench_launches):
+    del cal_model
+    torch.cuda.empty_cache()
+    dsic_launches, _ = phase_dsic(card)
+    for counts in (cal_launches, bench_launches, dsic_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     for mm in sorted(set(grids) - set(bench_k)):

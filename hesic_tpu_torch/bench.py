@@ -1,33 +1,41 @@
-"""HESIC's end-to-end encode + decode throughput on the card: the port's
-counterpart of bench.py's codec point (``main``).
+"""End-to-end encode + decode throughput of a fast codec on the card: the
+port's counterpart of bench.py's codec points, HESIC's (``main``) and
+DSIC's (``bench_dsic``, ``BENCH_MODE=dsic``).
 
 Usage (on a machine with a CUDA card):
 
-    python -m hesic_tpu_torch.bench [--size 512 --batch 64 --batches 6
-        --calib-steps 60 --mm 16 --bf16 1 --h identity|real --pipeline 2|0
-        --pool 4]
+    python -m hesic_tpu_torch.bench [--model hesic|dsic --size 512
+        --batch B --batches N --calib-steps 60 --mm 16 --bf16 1
+        --h identity|real --pipeline 2|0 --pool 4]
 
-It builds HESIC N=128/M=192/K=5 (bf16 transforms, seed 0), calibrates it
-as bench.py does (``training.recipe.calibrate``: 60 steps at 256x256,
-batch 4), and makes a fast codec at grid cap ``--mm`` with ``codec_batch``
-= ``--batch``.  A pool of ``--pool`` distinct batches of smooth pairs is
+``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and codes
+batches of 64 over 6 timed batches; ``--model dsic`` builds DSIC
+N=128/M=192/F=21/C=32/K=5 and codes batches of 32 over 4 (bench.py's
+DSIC point; DSIC takes no homography, so ``--h`` must stay identity,
+which gives the containers of bench.py's H-less calls).
+Either model has bf16 transforms and seed 0 and is calibrated as
+bench.py does (``training.recipe.calibrate``: 60 steps at 256x256, batch
+4), and its fast codec has grid cap ``--mm`` and ``codec_batch`` =
+``--batch``.  A pool of ``--pool`` distinct batches of smooth pairs is
 uploaded untimed and stays on the device.  Warm-up: every pool batch
 through the synchronous batch encode and ``decompress_fast_batch``, then
 one untimed pipelined epoch.  The pipelined re-encode of a batch must
 equal its synchronous batch container byte for byte.  Then the timed
 loop over ``--batches`` batches (the pool cycled): ``--pipeline 2``
 dispatches, each iteration, decode(i-1), then ``compress_fast_start``
-(i+1), then ``compress_fast_finish`` (i); ``--pipeline 0`` runs encode
-then decode, batch after batch (bench.py's diagnostic loop).  Outside
-the timed window every container of the loop must have decoded to the
-encoder's latents.  ``--h real`` is bench.py's ``BENCH_H=real``
-homography (1.5 degree rotation, shift (6, -4)).
+(i+1), then ``compress_fast_finish`` (i) (bench.py's thread-pool encode
+of the DSIC point maps here too); ``--pipeline 0`` runs encode then
+decode, batch after batch.  Outside the timed window every container of
+the loop must have decoded to the encoder's latents.  ``--h real`` is
+bench.py's ``BENCH_H=real`` homography (1.5 degree rotation, shift (6,
+-4)).
 
-Prints one JSON line: ``metric`` stereo_pairs_per_sec_<size>px_encdec,
-``value`` (pairs/s), ``unit``, ``bpp_real`` (mean over the loop),
-``batches``, ``batch``, ``h``, ``pipeline``, ``peak_memory_gib``
-(``torch.cuda.max_memory_allocated``), the grid widths and outlier
-counts of the loop's containers, and ``card`` (name and power limit).
+Prints one JSON line: ``metric`` (stereo_pairs_per_sec_<size>px_encdec,
+or dsic_pairs_per_sec_<size>px_encdec), ``value`` (pairs/s), ``unit``,
+``model``, ``bpp_real`` (mean over the loop), ``batches``, ``batch``, ``h``,
+``pipeline``, ``peak_memory_gib`` (``torch.cuda.max_memory_allocated``),
+the grid widths and outlier counts of the loop's containers, and
+``card`` (name and power limit).
 """
 
 from __future__ import annotations
@@ -41,16 +49,25 @@ import time
 import numpy as np
 import torch
 
+from .models.dsic import DSIC
+from .models.dsic_fast import DSICFastCodec
 from .models.hesic import HESIC
 from .models.hesic_fast import HESICFastCodec
 from .training.recipe import calibrate, smooth_pairs
 
+# per model: (metric prefix, batch, timed batches), bench.py's points
+POINTS = {"hesic": ("stereo", 64, 6), "dsic": ("dsic", 32, 4)}
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", choices=tuple(POINTS), default="hesic")
     p.add_argument("--size", type=int, default=512)
-    p.add_argument("--batch", type=int, default=64)
-    p.add_argument("--batches", type=int, default=6)
+    p.add_argument("--batch", type=int, default=None,
+                   help="pairs per batch (default 64 for hesic, 32 for "
+                        "dsic)")
+    p.add_argument("--batches", type=int, default=None,
+                   help="timed batches (default 6 for hesic, 4 for dsic)")
     p.add_argument("--calib-steps", type=int, default=60)
     p.add_argument("--mm", type=int, default=16)
     p.add_argument("--bf16", type=int, choices=(0, 1), default=1)
@@ -59,7 +76,29 @@ def parse_args(argv=None):
     p.add_argument("--pool", type=int, default=4)
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for a rehearsal")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    _, batch, batches = POINTS[args.model]
+    args.batch = args.batch or batch
+    args.batches = args.batches or batches
+    if args.model == "dsic" and args.h != "identity":
+        p.error("DSIC takes no homography: --h must be identity")
+    return args
+
+
+def build_model(args):
+    """The model of `args` at its published widths (bf16 transforms unless
+    --bf16 0, seed 0) on args.device."""
+    dtype = torch.bfloat16 if args.bf16 else None
+    if args.model == "dsic":
+        return DSIC(N=128, M=192, F=21, C=32, K=5, dtype=dtype,
+                    device=args.device, seed=0)
+    return HESIC(N=128, M=192, K=5, dtype=dtype, device=args.device, seed=0)
+
+
+def make_codec(model, mm: int, codec_batch: int):
+    """The fast codec of `model` (HESIC or DSIC), tables built."""
+    cls = DSICFastCodec if isinstance(model, DSIC) else HESICFastCodec
+    return cls(model, mm=mm, codec_batch=codec_batch).update()
 
 
 def rotated_homography() -> np.ndarray:
@@ -208,8 +247,7 @@ def bench(model, args, calib_hw: int = 256) -> dict:
     rng = np.random.RandomState(0)
     if args.calib_steps > 0:
         calibrate(model, rng, args.calib_steps, hw=calib_hw)
-    codec = HESICFastCodec(model, mm=args.mm,
-                           codec_batch=args.batch).update()
+    codec = make_codec(model, args.mm, args.batch)
     pool = make_pool(rng, min(args.batches, args.pool), args.batch,
                      args.size, codec.device)
     return run(codec, pool, homographies(args.h, args.batch), args.batches,
@@ -223,16 +261,16 @@ def main(argv=None) -> int:
         print("bench: no CUDA device; run with --device cpu for a "
               "rehearsal", file=sys.stderr)
         return 1
-    model = HESIC(N=128, M=192, K=5,
-                  dtype=torch.bfloat16 if args.bf16 else None,
-                  device=args.device, seed=0)
+    model = build_model(args)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     res = bench(model, args)
     print(json.dumps({
-        "metric": f"stereo_pairs_per_sec_{args.size}px_encdec",
+        "metric": f"{POINTS[args.model][0]}_pairs_per_sec_{args.size}px_"
+                  f"encdec",
         "value": res["pairs_per_sec"],
         "unit": "pairs/s/chip",
+        "model": args.model,
         "bpp_real": res["bpp_real"],
         "batches": args.batches,
         "batch": args.batch,

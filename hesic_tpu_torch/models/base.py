@@ -76,7 +76,11 @@ class CompressionModel:
     def _homographies(self, h_matrix, b: int):
         """(B, 3, 3) or (1, 3, 3) homographies -> ((B, 3, 3) float32 on the
         codec device, the same as a numpy array taken from the argument).
-        A homography passed as a CUDA tensor is read back to the host."""
+        A homography passed as a CUDA tensor is read back to the host.  A
+        subclass whose model takes no homography reads None as it needs."""
+        if h_matrix is None:
+            raise ValueError(f"{type(self).__name__} needs the pairs' "
+                             f"homographies")
         h_np = (h_matrix.detach().cpu().numpy() if torch.is_tensor(h_matrix)
                 else np.asarray(h_matrix))
         h_np = h_np.astype(np.float32).reshape(-1, 3, 3)

@@ -271,6 +271,8 @@ class HESICFastCodec(CompressionModel):
                               center)
 
     def _cond2_fn(self, y1_hat, z2_sym, h, center, mm: int, win: int):
+        """-> (frequency rows of eye 2, the aux input of _synthesize:
+        here the decoded left view)."""
         x1_hat = self.model.synthesis1(y1_hat.float())
         x1_warp_ac, _ = warp_perspective(x1_hat, h, win)
         y1_prior = torch.round(self.model.analysis1(x1_warp_ac))
@@ -291,13 +293,15 @@ class HESICFastCodec(CompressionModel):
 
     def _run_canonical(self, fn, args):
         """Run `fn` over chunks padded to exactly `codec_batch` items (the
-        last item repeated)."""
+        last item repeated), each argument with contiguous strides: a
+        convolution's result can depend on its input's strides, and the
+        decoder's corrected latents come out of a channels-last map."""
         b = args[0].shape[0]
         b0 = self.codec_batch
         outs = []
         for lo in range(0, b, b0):
             hi = min(lo + b0, b)
-            chunk = [a[lo:hi] for a in args]
+            chunk = [a[lo:hi].contiguous() for a in args]
             pad = b0 - (hi - lo)
             if pad:
                 chunk = [torch.cat([c, c[-1:].expand((pad,) + c.shape[1:])])
@@ -585,10 +589,10 @@ class HESICFastCodec(CompressionModel):
                 "bpp_real": total * 8 / (2 * h_img * w_img * b)}
 
     @torch.no_grad()
-    def compress_fast(self, x1, x2, h_matrix,
+    def compress_fast(self, x1, x2, h_matrix=None,
                       batch_container: bool = False) -> dict:
         """Compress a batch of pairs.  x1/x2: (B, H, W, 3); h: (B, 3, 3) or
-        (1, 3, 3).  Returns {'blobs': per-pair bytes, or the one batch
+        (1, 3, 3), or None for a model that takes none.  Returns {'blobs': per-pair bytes, or the one batch
         container with batch_container=True, 'blob', 'bpp_real',
         'enctime', 'outliers': (eye1, eye2) latent counts beyond the
         grids}."""
@@ -596,7 +600,7 @@ class HESICFastCodec(CompressionModel):
                             batch_container)
 
     @torch.no_grad()
-    def compress_fast_start(self, x1, x2, h_matrix) -> dict:
+    def compress_fast_start(self, x1, x2, h_matrix=None) -> dict:
         """Dispatch-only half of a pipelined batch encode, at the grid
         widths the last finished encode picked; nothing waits for the
         device.  The first call (no grids picked yet) runs the synchronous
@@ -651,11 +655,19 @@ class HESICFastCodec(CompressionModel):
         mask, vals = (t.permute(0, 3, 1, 2) for t in corr)
         return torch.where(mask, vals, y)
 
+    def _synthesize(self, aux, y2, h, win: int):
+        """The reconstructions after the second decode: (x1_hat, x2_hat)
+        NCHW float32 from _cond2's aux output (HESIC: the decoded left
+        view) and the decoded right latents y2 (B, M, hy, wy) int.  A
+        subclass swaps this for its own synthesis."""
+        x1_hat_warp, _ = warp_perspective(aux, h, win)
+        return aux, self.model.synthesis2(y2.float(), x1_hat_warp)
+
     def _decode_device(self, z1_sym, z2_sym, h, cen, dead, streams, corr,
                        key) -> dict:
         """cond1 -> kernel 3 -> correction -> cond2 -> kernel 3 ->
-        synthesis, dispatched.  streams: per eye (words (B, CAP, ls),
-        counts, states) on the device."""
+        synthesis (_synthesize), dispatched.  streams: per eye (words
+        (B, CAP, ls), counts, states) on the device."""
         mm1, mm2, win = key[:3]
         hy, wy = key[4] // 16, key[5] // 16
         (w1, c1, st1), (w2, c2, st2) = streams
@@ -664,12 +676,11 @@ class HESICFastCodec(CompressionModel):
         y1 = _decode_stream(freq1, w1, c1, st1, mm1, hy, wy, cen[0], ppl,
                             dead[0])
         y1 = self._apply_corr(y1, corr[0])
-        freq2, x1_hat = self._cond2(y1, z2_sym, h, cen[1], mm2, win)
+        freq2, aux = self._cond2(y1, z2_sym, h, cen[1], mm2, win)
         y2 = _decode_stream(freq2, w2, c2, st2, mm2, hy, wy, cen[1], ppl,
                             dead[1])
         y2 = self._apply_corr(y2, corr[1])
-        x1_hat_warp, _ = warp_perspective(x1_hat, h, win)
-        x2_hat = self.model.synthesis2(y2.float(), x1_hat_warp)
+        x1_hat, x2_hat = self._synthesize(aux, y2, h, win)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).contiguous()

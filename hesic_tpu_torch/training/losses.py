@@ -59,15 +59,18 @@ def msssim_db(ms):
 
 
 def make_loss_fn(lmbda: float = 1e-2):
-    """HESIC's training loss, as the JAX package's training CLI and
-    bench.py build it: the stereo RD loss of the training forward plus
-    the bottlenecks' aux loss.  Returns loss_fn(model, batch, generator)
-    -> (loss, {"bpp", "mse"}) for ``make_train_step``; `batch` holds
-    "x1", "x2" (B, 3, H, W) and "h" (B, 3, 3) on the model's device."""
+    """The training loss of the JAX package's training CLI and bench.py:
+    the stereo RD loss of the training forward plus the bottlenecks' aux
+    loss.  Returns loss_fn(model, batch, generator) -> (loss, {"bpp",
+    "mse"}) for ``make_train_step``; `batch` holds "x1", "x2" (B, 3, H,
+    W) and "h" (B, 3, 3) on the model's device.  The homographies reach
+    only a model that takes them (``uses_homography``: HESIC); DSIC's
+    forward takes none (bench.py's ``_calibrate(arch="dsic")``)."""
 
     def loss_fn(model, batch, generator):
-        out = model(batch["x1"], batch["x2"], batch["h"], training=True,
-                    generator=generator)
+        args = (batch["x1"], batch["x2"]) + (
+            (batch["h"],) if model.uses_homography else ())
+        out = model(*args, training=True, generator=generator)
         rd = stereo_rate_distortion_loss(out, batch["x1"], batch["x2"],
                                          lmbda)
         return rd["loss"] + model.aux_loss(), {"bpp": rd["bpp_loss"],

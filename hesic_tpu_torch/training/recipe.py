@@ -49,10 +49,10 @@ def train_batch(rng, batch: int, hw: int, device: str) -> dict:
 
 
 def trainer(model):
-    """``bench.py``'s training setup for `model`: its Adam (lr 1e-4, aux
-    1e-3), its train step on the RD loss at lambda 1e-2 plus the aux
-    loss, and a noise generator on the model's device seeded 7.  Returns
-    (optimizer, step, generator)."""
+    """``bench.py``'s training setup for `model` (HESIC or DSIC): its Adam
+    (lr 1e-4, aux 1e-3), its train step on the RD loss at lambda 1e-2 plus
+    the aux loss, and a noise generator on the model's device seeded 7.
+    Returns (optimizer, step, generator)."""
     opt = make_optimizer(model, 1e-4, 1e-3)
     step = make_train_step(model, opt, make_loss_fn(1e-2))
     device = next(model.parameters()).device
@@ -62,8 +62,8 @@ def trainer(model):
 def calibrate(model, rng, steps: int = 60, hw: int = 256, batch: int = 4):
     """``bench.py``'s ``_calibrate``: `steps` train steps of `model` on one
     batch of `batch` smooth hw x hw pairs drawn from `rng` (identity H),
-    so the codec's entropy code is sane before it is timed.  Returns the
-    steps' (losses, training bpps) as floats."""
+    so the codec's entropy code is sane before it is timed; HESIC and
+    DSIC alike.  Returns the steps' (losses, training bpps) as floats."""
     device = next(model.parameters()).device
     _, step, gen = trainer(model)
     data = train_batch(rng, batch, hw, device)

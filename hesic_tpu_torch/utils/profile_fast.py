@@ -8,6 +8,8 @@ Usage (on a machine with a CUDA card):
     python -m hesic_tpu_torch.utils.profile_fast --model train [--batch B]
     python -m hesic_tpu_torch.utils.profile_fast --model hesic-batch
         [--batch B --mm MM --homography identity|rotated]
+    python -m hesic_tpu_torch.utils.profile_fast --model dsic-batch
+        [--batch B --mm MM]
 
 ``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and traces
 ``HESICFastCodec.compress_fast`` + ``decompress_fast`` (batch 8, grid cap
@@ -49,12 +51,25 @@ mode-2 iteration (decode of batch 0, start of batch 2, finish of batch
 1, then a synchronize) untraced and then traced.  Prints the wall time,
 the device's busy time (the union of its kernels and copies over every
 stream) and idle share of the traced wall time, the kernel time of
-kernels 1-3, cuDNN and the rest, the copies by direction and host
-memory (pinned or pageable), the codec's host ranges (``enc/...``,
+kernels 1-3, softmax, cuDNN and the rest (memsets left out), the copies
+by direction and host memory (pinned or pageable), the codec's host
+ranges (``enc/...``,
 ``dec/...``: the ``record_function`` ranges of models/hesic_fast.py),
 the host time in CUDA runtime calls (a launch that blocks on a full
 queue, or a synchronize, shows there), and the longest kernels, then one
 JSON line with the same numbers.
+
+``--model dsic-batch`` does the same for bench.py's DSIC point: DSIC
+N=128/M=192/F=21/C=32/K=5, bf16, calibrated (60 steps, no homography),
+batch 32 and mm 16 by default.  Its kernels are grouped by the operation
+that launched them: the 3-D branch (``Conv3D``: the folded band
+convolution and its band weight), ``GroupNorm``, ``dense_warp`` and the
+align-corners upsampling (profiler ranges around each, from module hooks
+and wrapped functions), then by name: kernels 1-3, softmax, cuDNN 2-D
+convolutions and the rest.  Before the trace it times, on cost volume
+1's 3-D branch input at that batch (scale 8), the folded band
+convolution against ``F.conv3d`` on the unfolded layout (CUDA events,
+under the codec's determinism policy), and prints both.
 """
 
 from __future__ import annotations
@@ -297,6 +312,46 @@ def _tally(labelled) -> dict:
     return out
 
 
+def _range_groups(events, ranges) -> dict:
+    """{group: [ms, launches]} of the device kernels of a trace: those
+    launched inside a profiler range of `ranges` under its name, the rest
+    by kernel name (kernels 1-3, softmax, cuDNN convolutions, other).
+    The port's own kernels are launched through ctypes, outside any
+    PyTorch operation, so every kernel is first tallied by name from the
+    device's events, and the ranges' kernels are then moved to their
+    ranges.  Copies and memsets are left out."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def by_name(name):
+        return "softmax" if "softmax" in name.lower() else _group(name)
+
+    def kernel(name):
+        return not name.startswith(("Memcpy", "Memset"))
+
+    out = {}
+
+    def add(label, ms, n):
+        g = out.setdefault(label, [0.0, 0])
+        g[0] += ms
+        g[1] += n
+
+    for e in events:
+        if (e.device_type == cuda and not e.is_user_annotation
+                and kernel(e.name)):
+            add(by_name(e.name),
+                (e.time_range.end - e.time_range.start) / 1e3, 1)
+    seen = set()
+    for label in ranges:
+        for k in _kernels_of(e for e in events if e.name == label):
+            if id(k) in seen or not kernel(k.name):
+                continue
+            seen.add(id(k))
+            add(by_name(k.name), -k.duration / 1e3, -1)
+            add(label[len("dsic/"):], k.duration / 1e3, 1)
+    return out
+
+
 def _copy_kind(name: str) -> str:
     """'HtoD pinned', 'DtoH pageable', ... for a profiler copy event."""
     direction = next((d for d in ("HtoD", "DtoH", "DtoD") if d in name),
@@ -306,7 +361,75 @@ def _copy_kind(name: str) -> str:
     return f"{direction} {memory}"
 
 
-def batch_main(batch: int, mm: int, homography: str) -> int:
+_DSIC_RANGES = ("dsic/3-D branch", "dsic/GroupNorm", "dsic/dense_warp",
+                "dsic/upsampling")
+
+
+def _dsic_marks(model):
+    """Profiler ranges around DSIC's Conv3D and GroupNorm modules (forward
+    hooks) and its dense_warp and upsampling functions (wrapped in the
+    model's module); returns the range names."""
+    from torch.profiler import record_function
+
+    from ..models import dsic
+
+    _marked([m for m in model.modules() if isinstance(m, dsic.Conv3D)],
+            _DSIC_RANGES[0])
+    _marked([m for m in model.modules() if isinstance(m, dsic.GroupNorm)],
+            _DSIC_RANGES[1])
+
+    def ranged(fn, label):
+        def call(*args):
+            with record_function(label):
+                return fn(*args)
+        return call
+
+    dsic.dense_warp = ranged(dsic.dense_warp, _DSIC_RANGES[2])
+    dsic.upsample_bilinear_ac = ranged(dsic.upsample_bilinear_ac,
+                                       _DSIC_RANGES[3])
+    return _DSIC_RANGES
+
+
+def _fold_forms(model, batch: int) -> dict:
+    """Cost volume 1's first Conv3D at `batch` (scale 8 of 512x512 pairs:
+    (batch, C*F0, 256, 256) bf16 folded) as the folded band convolution
+    and as F.conv3d on (batch, F0, C, 256, 256): ms each (CUDA events, 3
+    calls after a warm-up), their max |d| and the FLOPs each does."""
+    import torch
+    import torch.nn.functional as F
+
+    conv = model.cost_volume1.Conv3D_0
+    o, i, k = conv.weight.shape[:3]
+    c, hw = model.C, SIZE // 2
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x5 = torch.randn(batch, i, c, hw, hw, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    xf = x5.transpose(1, 2).reshape(batch, c * i, hw, hw)
+    w5 = conv.weight.detach().to(torch.bfloat16)
+    wf = conv.band_weight(c).detach().to(torch.bfloat16)
+    forms = {"folded band conv2d": lambda: F.conv2d(xf, wf, padding=2),
+             "conv3d": lambda: F.conv3d(x5, w5, padding=2)}
+    out = {}
+    for name, fn in forms.items():
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(3):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out[name] = t0.elapsed_time(t1) / 3
+    d = (forms["folded band conv2d"]().reshape(batch, c, o, hw, hw)
+         .transpose(1, 2).float() - forms["conv3d"]().float()).abs().max()
+    pix = batch * hw * hw
+    return {"ms": out, "max_abs_diff": float(d),
+            "flop": {"folded band conv2d": 2 * pix * (c * o) * (c * i) * k * k,
+                     "conv3d": 2 * pix * c * o * i * k ** 3}}
+
+
+def batch_main(batch: int, mm: int, homography: str,
+               arch: str = "hesic") -> int:
     """Profile one pipelined bench iteration (see the module docstring)."""
     import time
 
@@ -314,22 +437,24 @@ def batch_main(batch: int, mm: int, homography: str) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from .. import bench
-    from ..models.hesic import HESIC
-    from ..models.hesic_fast import HESICFastCodec
     from ..training.recipe import calibrate
 
     if not torch.cuda.is_available():
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
-    model = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
-                  seed=0)
+    args = bench.parse_args(["--model", arch])
+    model = bench.build_model(args)
     rng = np.random.RandomState(0)
     calibrate(model, rng)
-    codec = HESICFastCodec(model, mm=mm, codec_batch=batch).update()
+    codec = bench.make_codec(model, mm, batch)
     pool = bench.make_pool(rng, 3, batch, SIZE, "cuda")
     h = bench.homographies("real" if homography == "rotated"
                            else "identity", batch)
+    forms, ranges = None, ()
+    if arch == "dsic":
+        forms = _fold_forms(model, batch)
+        ranges = _dsic_marks(model)
     bench.warm_up(codec, pool, h)
     state = {"prev": codec.compress_fast_finish(
         codec.compress_fast_start(*pool[0], h))["blob"],
@@ -356,8 +481,7 @@ def batch_main(batch: int, mm: int, homography: str) -> int:
               if e.device_type == cuda and not e.is_user_annotation]
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
                          for e in device]) / 1e3
-    groups = _tally((_group(e.name), e) for e in device
-                    if not e.name.startswith("Memcpy"))
+    groups = _range_groups(events, ranges)
     copies = _tally((_copy_kind(e.name), e) for e in device
                     if e.name.startswith("Memcpy"))
     host_side = [e for e in events if e.device_type != cuda]
@@ -369,7 +493,14 @@ def batch_main(batch: int, mm: int, homography: str) -> int:
     by_name = _tally((e.name, e) for e in device)
 
     print(f"card: {card}")
-    print(f"hesic-batch, batch {batch} pairs {SIZE}x{SIZE}, H {homography},"
+    if forms:
+        print(f"3-D branch forms, cost volume 1's first Conv3D at batch "
+              f"{batch} (scale 8, 256x256, bf16, deterministic cuDNN): "
+              + "; ".join(f"{k} {v:.3f} ms ({forms['flop'][k]:.3e} FLOP)"
+                          for k, v in forms["ms"].items())
+              + f"; max |d| {forms['max_abs_diff']:.3e}")
+        homography = "identity (DSIC takes none)"
+    print(f"{arch}-batch, batch {batch} pairs {SIZE}x{SIZE}, H {homography},"
           f" mm cap {mm}, calibrated: one pipelined iteration (decode, "
           f"start, finish) {plain_ms:.2f} ms wall untraced, {wall_ms:.2f} "
           f"ms traced; bpp_real {out['bpp_real']:.6f}, grids "
@@ -395,8 +526,9 @@ def batch_main(batch: int, mm: int, homography: str) -> int:
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
     print(json.dumps({
-        "card": card, "model": "hesic-batch", "batch": batch, "size": SIZE,
-        "homography": homography, "mm_cap": mm,
+        "card": card, "model": f"{arch}-batch", "batch": batch,
+        "size": SIZE, "homography": homography, "mm_cap": mm,
+        "fold_forms_ms": forms and forms["ms"],
         "bpp_real": out["bpp_real"], "iteration_ms": plain_ms,
         "traced_iteration_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
@@ -412,11 +544,12 @@ def batch_main(batch: int, mm: int, homography: str) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=("hesic", "hesic-plus", "train",
-                                       "hesic-batch"),
+                                       "hesic-batch", "dsic-batch"),
                    default="hesic")
     p.add_argument("--batch", type=int, default=None,
                    help="pairs per batch (default 8 for hesic and train, "
-                        "11 for hesic-plus, 64 for hesic-batch)")
+                        "11 for hesic-plus, 64 for hesic-batch, 32 for "
+                        "dsic-batch)")
     p.add_argument("--mm", type=int, default=None,
                    help="grid half-width cap (default 32 for hesic, 16 "
                         "for hesic-plus and hesic-batch)")
@@ -427,6 +560,9 @@ def main(argv=None) -> int:
         return train_main(args.batch or 8)
     if args.model == "hesic-batch":
         return batch_main(args.batch or 64, args.mm or 16, args.homography)
+    if args.model == "dsic-batch":
+        return batch_main(args.batch or 32, args.mm or 16, "identity",
+                          "dsic")
     plus = args.model == "hesic-plus"
     b = args.batch or (11 if plus else 8)
     mm = args.mm or (16 if plus else 32)
