@@ -63,7 +63,8 @@ and prints no result):
      reach grids 4, 16 and 32, and kernels 1-3 must have launched;
   6. drives the HESIC+ path: HESIC+ N=192/M=192 (bf16 transforms, seeded
      random weights) through HESICPlusDeviceCodec.compress -> decompress
-     on 11 smooth 512x512 pairs (mm 16, 8 groups, cap 64) with the
+     on 11 smooth 512x512 pairs (mm 16, 8 groups; cap 64, which reaches
+     no container) with the
      identity and a rotated homography, and with an mm=1 codec whose
      residuals escape the grid.  The decoded y1_hat/y2_hat must equal the
      encoder's, the reconstructions must be finite and of the input's
@@ -122,11 +123,38 @@ and prints no result):
      at batch 32, 4 timed batches, identity H (DSIC ignores it), in
      modes 2 and 0, with phase 9's checks; then holds kernels 1-3 at batch
      32 on every grid those loops picked (bit-equal, timed, with bounds);
- 11. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8 and 10's round trips and phases 9 and 10's timed loops; kernels
-     1-3's times and bounds at batch 64 on the widest grid phase 9 ran,
-     kernels 4 and 5's at the HESIC+ point), then the device line {"ok":
-     true, "device": {...}} last.
+ 11. drives mbt2018 at bench.py's ar-device point: N=192/M=192 float32
+     (seeded random weights) through JointAutoregressiveDeviceCodec on 11
+     smooth 512x512 images (phase 6's first eyes; mm 16, 8 groups) and
+     with an mm=1 codec whose residuals must escape; then calibrates it
+     as bench.py's _calibrate_single does (training.recipe.
+     calibrate_single: 60 steps at 256x256, batch 4; the mean loss of the
+     last 10 steps must be below the first 10's) and round-trips the
+     calibrated codec, whose bpp_real must be below the random weights';
+     then holds kernel 5 (the no-post level scan, the calibrated
+     weights) and kernel 4 against their twins under phase 4's gates
+     (lattice inputs, the raw-latent flip share, the bf16-weights control
+     rejected; kernel 4 bit-equal in every regime), timed beside their
+     bounds; then runs the port's bench loop (hesic_tpu_torch/bench.py's
+     device point) at batch 11 over 4 timed batches in modes 1 (encode
+     on a worker thread while the main thread decodes) and 0, after a
+     warm-up whose threaded encode must equal the synchronous container
+     byte for byte.  Every decoded y_hat must equal the encoder's;
+     kernel 4 must launch once per batch and kernel 5 twice per round
+     trip;
+ 12. calibrates HESIC+ N=192/M=192 bf16 as bench.py's hesic-plus-device
+     point does (training.recipe.calibrate: 60 steps at 256x256, batch
+     4, identity H; the loss must fall as in phase 11), round-trips phase
+     6's pairs (identity H), whose bpp_real must be below phase 6's
+     random-weights one, then runs phase 11's bench loop on it (batch
+     11, 4 timed batches, modes 1 and 0, the same checks; kernel 4 once
+     per eye);
+ 13. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8, 10, 11 and 12's round trips and phases 9-12's timed loops;
+     kernels 1-3's times and bounds at batch 64 on the widest grid phase
+     9 ran, kernels 4 and 5's at the HESIC+ point, their errors the
+     largest of every hold, mbt2018's included), then the device line
+     {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -167,8 +195,12 @@ PEAK_F32_OPS = 33.5e12
 PEAK_F32_FLOPS = 67e12          # an FMA counts as two
 
 # the HESIC+ path: bench.py's point (HESICPlus N=192/M=192 bf16, 512x512
-# pairs, batch 11, mm 16, 8 channel groups, the decoder's word cap 64)
+# pairs, batch 11, mm 16, 8 channel groups, the JAX codec's word cap 64,
+# which reaches no container); mbt2018's ar-device point has the same
+# widths, batch, grid and groups (float32).  Their bench loops time 4
+# batches.
 AR_B, AR_N, AR_M, AR_MM, AR_GROUPS, AR_CAP = 11, 192, 192, 16, 8, 64
+AR_BENCH_BATCHES = 4
 # kernel 5 against its twin on lattice inputs (the twin's own
 # reconstruction), where no residual may differ: y_hat within Y_TOL and
 # starts/freqs within FREQ_TOL counts of 65536.  The kernel's f32 sums over
@@ -898,9 +930,10 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     }
 
 
-def phase_hesic_plus_path(model, codec, pairs) -> dict:
+def phase_hesic_plus_path(model, codec, pairs) -> tuple:
     """Three round trips of a batch of 11 through the HESIC+ device
-    codec; returns the kernels' launch counts."""
+    codec; returns the kernels' launch counts and the identity case's
+    bpp_real."""
     import numpy as np
     import torch
     from hesic_tpu_torch.codecs import build
@@ -944,11 +977,10 @@ def phase_hesic_plus_path(model, codec, pairs) -> dict:
             raise AssertionError(f"HESIC+ {label}: no residual escaped")
         print(f"HESIC+ path [{label}, mm {cdc.mm}]: bpp_real "
               f"{out['bpp_real']:.6f}, escapes {out['escapes'][0]}/"
-              f"{out['escapes'][1]}, decoder caps {out['caps'][0]}/"
-              f"{out['caps'][1]}, encode {out['enctime'] * 1e3:.1f} ms, "
+              f"{out['escapes'][1]}, encode {out['enctime'] * 1e3:.1f} ms, "
               f"decode {rec['dectime'] * 1e3:.1f} ms wall for {AR_B} pairs; "
               f"decoded latents equal the encoder's")
-    return launches
+    return launches, runs["identity H"][0]["bpp_real"]
 
 
 def check_step(label: str, model, opt, before: dict, losses) -> None:
@@ -1360,6 +1392,217 @@ def phase_dsic(card: str) -> tuple:
     return launches, held
 
 
+def check_loss_falls(label: str, losses, bpps, seconds: float) -> None:
+    """Raise on a non-finite loss or unless the mean loss of the last 10
+    steps is below the first 10's; print the run."""
+    import numpy as np
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label} calibration: non-finite loss")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    if not last < first:
+        raise AssertionError(f"{label} calibration: mean loss of the last "
+                             f"10 steps {last} is not below the first "
+                             f"10's {first}")
+    print(f"{label} calibrate: {len(losses)} steps at {CAL_HW}x{CAL_HW}, "
+          f"batch {CAL_B}, in {seconds:.1f} s; mean loss of the first 10 "
+          f"steps {first:.4f}, of the last 10 {last:.4f}; bpp (training "
+          f"estimate) {bpps[0]:.4f} -> {bpps[-1]:.4f}")
+
+
+def device_round_trips(label: str, cases: dict, eyes: int) -> tuple:
+    """Round trips through wavefront device codecs: {case: (codec, compress
+    arguments)}.  Decoded latents must equal the encoder's, the
+    reconstructions be finite and of the input's shape, kernel 4 launch
+    once per level scan and kernel 5 twice (teacher and decode).  Returns
+    (launches, {case: (out, rec)})."""
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+    build.launch_counts.clear()
+    runs = {}
+    for case, (cdc, args) in cases.items():
+        out = cdc.compress(*args)
+        runs[case] = (out, cdc.decompress(out["strings"]))
+    launches = dict(build.launch_counts)
+    want = {"pairs_rans_encode": eyes * len(cases),
+            "ar_wavefront": 2 * eyes * len(cases)}
+    for name, n in want.items():
+        if launches.get(name) != n:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches.get(name)} times in "
+                                 f"{len(cases)} round trips, not {n}")
+    for case, (cdc, args) in cases.items():
+        out, rec = runs[case]
+        bench.check_decoded(cdc, out, rec, f"{label} [{case}]")
+        for key, x in rec.items():
+            if key.startswith("x") and tuple(x.shape) != args[0].shape:
+                raise AssertionError(f"{label} [{case}]: {key} shape "
+                                     f"{tuple(x.shape)}")
+        print(f"{label} [{case}, mm {cdc.mm}]: bpp_real "
+              f"{out['bpp_real']:.6f}, escapes {out['escapes']}, encode "
+              f"{out['enctime'] * 1e3:.1f} ms, decode "
+              f"{rec['dectime'] * 1e3:.1f} ms wall for {AR_B}; decoded "
+              f"latents equal the encoder's")
+    return launches, runs
+
+
+def phase_device_bench(model, card: str, label: str, eyes: int) -> dict:
+    """The port's bench loop at bench.py's ar-device or hesic-plus-device
+    point on the calibrated `model`: one pool batch of AR_B smooth images
+    or pairs (seed 1), identity H, the warm-up (exact round trip, the
+    threaded encode byte-identical to the synchronous one), then
+    AR_BENCH_BATCHES timed batches in modes 1 (encode on a worker thread
+    while the main thread decodes) and 0.  Every container must decode to
+    the encoder's latents, kernel 4 launch once per level scan and kernel
+    5 twice.  Returns the timed loops' launches."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+
+    torch.cuda.reset_peak_memory_stats()
+    codec = bench.make_device_codec(model, AR_MM, AR_GROUPS)
+    pool = bench.make_pool(np.random.RandomState(1), 1, AR_B, HW_IMG,
+                           DEVICE)
+    h = bench.homographies("identity", AR_B)
+    bench.warm_up_device(codec, pool, h)
+    batches = [bench.device_args(codec, *pool[0], h)] * AR_BENCH_BATCHES
+    item = "images" if eyes == 1 else "pairs"
+    launches = {}
+    for mode in (1, 0):
+        build.launch_counts.clear()
+        loop = bench.device_timed_loop(codec, batches, mode)
+        counts = dict(build.launch_counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        want = {"pairs_rans_encode": eyes * AR_BENCH_BATCHES,
+                "ar_wavefront": 2 * eyes * AR_BENCH_BATCHES}
+        for name, n in want.items():
+            if counts.get(name) != n:
+                raise AssertionError(f"bench {label} [pipeline {mode}]: "
+                                     f"{name} launched {counts.get(name)} "
+                                     f"times for {AR_BENCH_BATCHES} "
+                                     f"batches, not {n}")
+        bench.check_device_loop(codec, loop)
+        outs = loop["containers"]
+        print(f"bench {label} [{card}] [identity H, pipeline {mode}]: "
+              f"{AR_BENCH_BATCHES * AR_B / loop['seconds']:.2f} {item}/s "
+              f"({AR_BENCH_BATCHES} batches of {AR_B} {HW_IMG}x{HW_IMG} "
+              f"{item} in {loop['seconds'] * 1e3:.1f} ms), bpp_real "
+              f"{np.mean([o['bpp_real'] for o in outs]):.6f}, escapes "
+              f"{[o['escapes'] for o in outs]}; threaded re-encode "
+              f"byte-identical; every container decoded to the encoder's "
+              f"latents; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches {counts}")
+        del loop
+    return launches
+
+
+def phase_mbt(card: str) -> tuple:
+    """mbt2018 at bench.py's ar-device point: N192/M192 float32 on AR_B
+    smooth 512x512 images (the first eyes of phase 6's pairs) through its
+    device codec at random weights (mm 16, and mm 1, which must escape),
+    then calibrate_single (CAL_STEPS steps), a calibrated round trip
+    whose bpp_real must be below the random one's, kernels 5 (no post)
+    and 4 held against their twins at the calibrated weights, and the
+    bench loop.  Returns (launches of the round trips and the timed
+    loops, the kernels' hold)."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.models.ar_device import (
+        JointAutoregressiveDeviceCodec)
+    from hesic_tpu_torch.models.priors import (
+        JointAutoregressiveHierarchicalPriors)
+    from hesic_tpu_torch.training.recipe import (calibrate_single,
+                                                 smooth_pairs)
+
+    model = JointAutoregressiveHierarchicalPriors(N=AR_N, M=AR_M,
+                                                  device=DEVICE, seed=0)
+
+    def codec(mm):
+        return JointAutoregressiveDeviceCodec(model, mm=mm,
+                                              groups=AR_GROUPS).update()
+
+    x, _ = smooth_pairs(np.random.RandomState(1), AR_B, HW_IMG)
+    launches, runs = device_round_trips(
+        "mbt2018", {"random weights": (codec(AR_MM), (x,)),
+                    "escape (mm 1)": (codec(1), (x,))}, 1)
+    if runs["escape (mm 1)"][0]["escapes"] == 0:
+        raise AssertionError("mbt2018 escape (mm 1): no residual escaped")
+    random_bpp = runs["random weights"][0]["bpp_real"]
+    del runs
+
+    t0 = time.perf_counter()
+    losses, bpps = calibrate_single(model, np.random.RandomState(2),
+                                    CAL_STEPS, CAL_HW, CAL_B)
+    check_loss_falls("mbt2018", losses, bpps, time.perf_counter() - t0)
+    cal = codec(AR_MM)
+    cal_launches, runs = device_round_trips(
+        "mbt2018", {"calibrated": (cal, (x,))}, 1)
+    bpp = runs["calibrated"][0]["bpp_real"]
+    if not bpp < random_bpp:
+        raise AssertionError(f"mbt2018: calibrated bpp_real {bpp} is not "
+                             f"below the random weights' {random_bpp}")
+    print(f"mbt2018: calibrated bpp_real {bpp:.6f} against the random "
+          f"weights' {random_bpp:.6f}")
+    for name, n in cal_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    del runs
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    with torch.no_grad():
+        xd = cal._to_device(x)
+        y = model.analysis(xd)
+        z_sym = cal._z_symbols(model.hyper_analysis(y), "entropy_bottleneck")
+        pre = nhwc(model.hyper_synthesis(cal._z_hat(z_sym,
+                                                    "entropy_bottleneck")))
+    held = phase_wavefront("mbt2018 calibrated, no post", cal.w, pre, None,
+                           nhwc(y))
+    del xd, y, pre
+    torch.cuda.empty_cache()
+    for name, n in phase_device_bench(model, card, "mbt2018", 1).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches, held
+
+
+def phase_hesic_plus_calibrated(card: str, pairs, random_bpp: float):
+    """HESIC+ calibrated as bench.py's hesic-plus-device point does (bf16,
+    training.recipe.calibrate: CAL_STEPS steps at CAL_HW, batch CAL_B,
+    identity H), a round trip on phase 6's pairs whose bpp_real must be
+    below phase 6's random-weights one, then the bench loop.  Returns the
+    launches of the round trip and the timed loops."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
+    from hesic_tpu_torch.models.hesic_plus import HESICPlus
+    from hesic_tpu_torch.training.recipe import calibrate
+
+    model = HESICPlus(N=AR_N, M=AR_M, dtype=torch.bfloat16, device=DEVICE,
+                      seed=0)
+    t0 = time.perf_counter()
+    losses, bpps = calibrate(model, np.random.RandomState(2), CAL_STEPS,
+                             CAL_HW, CAL_B)
+    check_loss_falls("HESIC+", losses, bpps, time.perf_counter() - t0)
+    codec = HESICPlusDeviceCodec(model, mm=AR_MM, groups=AR_GROUPS,
+                                 cap=AR_CAP).update()
+    h = np.tile(np.eye(3, dtype=np.float32)[None], (AR_B, 1, 1))
+    launches, runs = device_round_trips(
+        "HESIC+", {"calibrated, identity H": (codec, (*pairs, h))}, 2)
+    bpp = runs["calibrated, identity H"][0]["bpp_real"]
+    if not bpp < random_bpp:
+        raise AssertionError(f"HESIC+: calibrated bpp_real {bpp} is not "
+                             f"below the random weights' {random_bpp}")
+    print(f"HESIC+: calibrated bpp_real {bpp:.6f} against the random "
+          f"weights' {random_bpp:.6f} (phase 6)")
+    del runs
+    torch.cuda.empty_cache()
+    for name, n in phase_device_bench(model, card, "HESIC+", 2).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1408,8 +1651,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches, random_bpp = phase_main_path()
-    launches.update(phase_hesic_plus_path(model, codec, pairs))
-    del model, codec, pairs, eyes, ar
+    plus_launches, plus_random_bpp = phase_hesic_plus_path(model, codec,
+                                                           pairs)
+    launches.update(plus_launches)
+    del model, codec, eyes, ar
     torch.cuda.empty_cache()
 
     phase_train(card)
@@ -1419,9 +1664,20 @@ def main() -> int:
     del cal_model
     torch.cuda.empty_cache()
     dsic_launches, _ = phase_dsic(card)
-    for counts in (cal_launches, bench_launches, dsic_launches):
+    torch.cuda.empty_cache()
+    mbt_launches, mbt_held = phase_mbt(card)
+    torch.cuda.empty_cache()
+    plus_cal_launches = phase_hesic_plus_calibrated(card, pairs,
+                                                    plus_random_bpp)
+    del pairs
+    for counts in (cal_launches, bench_launches, dsic_launches,
+                   mbt_launches, plus_cal_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    # kernels 4 and 5's errors over every hold: both HESIC+ eyes and
+    # mbt2018
+    for k in ("wavefront", "pairs"):
+        ar_post[k]["err"] = max(ar_post[k]["err"], mbt_held[k]["err"])
     for mm in sorted(set(grids) - set(bench_k)):
         bench_k[mm] = hold_batch(mm)
     # the JSON line reports kernels 1-3 at the main path's shape: batch 64

@@ -1,23 +1,26 @@
-"""End-to-end encode + decode throughput of a fast codec on the card: the
-port's counterpart of bench.py's codec points, HESIC's (``main``) and
-DSIC's (``bench_dsic``, ``BENCH_MODE=dsic``).
+"""End-to-end encode + decode throughput of a codec on the card: the
+port's counterpart of bench.py's codec points, HESIC's (``main``),
+DSIC's (``bench_dsic``, ``BENCH_MODE=dsic``), mbt2018's wavefront device
+codec (``bench_ar_device``, ``BENCH_MODE=ar-device``) and HESIC+'s
+(``bench_hesic_plus_device``, ``BENCH_MODE=hesic-plus-device``).
 
 Usage (on a machine with a CUDA card):
 
-    python -m hesic_tpu_torch.bench [--model hesic|dsic --size 512
-        --batch B --batches N --calib-steps 60 --mm 16 --bf16 1
-        --h identity|real --pipeline 2|0 --pool 4]
+    python -m hesic_tpu_torch.bench [--model hesic|dsic|mbt-device|
+        hesic-plus-device --size 512 --batch B --batches N
+        --calib-steps 60 --mm 16 --groups 8 --bf16 0|1
+        --h identity|real --pipeline 2|1|0 --pool P]
 
-``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and codes
-batches of 64 over 6 timed batches; ``--model dsic`` builds DSIC
-N=128/M=192/F=21/C=32/K=5 and codes batches of 32 over 4 (bench.py's
-DSIC point; DSIC takes no homography, so ``--h`` must stay identity,
-which gives the containers of bench.py's H-less calls).
+The fast codecs.  ``--model hesic`` (the default) builds HESIC
+N=128/M=192/K=5 and codes batches of 64 over 6 timed batches; ``--model
+dsic`` builds DSIC N=128/M=192/F=21/C=32/K=5 and codes batches of 32 over
+4 (bench.py's DSIC point; DSIC takes no homography, so ``--h`` must stay
+identity, which gives the containers of bench.py's H-less calls).
 Either model has bf16 transforms and seed 0 and is calibrated as
 bench.py does (``training.recipe.calibrate``: 60 steps at 256x256, batch
 4), and its fast codec has grid cap ``--mm`` and ``codec_batch`` =
-``--batch``.  A pool of ``--pool`` distinct batches of smooth pairs is
-uploaded untimed and stays on the device.  Warm-up: every pool batch
+``--batch``.  A pool of ``--pool`` (4) distinct batches of smooth pairs
+is uploaded untimed and stays on the device.  Warm-up: every pool batch
 through the synchronous batch encode and ``decompress_fast_batch``, then
 one untimed pipelined epoch.  The pipelined re-encode of a batch must
 equal its synchronous batch container byte for byte.  Then the timed
@@ -25,17 +28,35 @@ loop over ``--batches`` batches (the pool cycled): ``--pipeline 2``
 dispatches, each iteration, decode(i-1), then ``compress_fast_start``
 (i+1), then ``compress_fast_finish`` (i) (bench.py's thread-pool encode
 of the DSIC point maps here too); ``--pipeline 0`` runs encode then
-decode, batch after batch.  Outside the timed window every container of
-the loop must have decoded to the encoder's latents.  ``--h real`` is
-bench.py's ``BENCH_H=real`` homography (1.5 degree rotation, shift (6,
--4)).
+decode, batch after batch.  ``--h real`` is bench.py's ``BENCH_H=real``
+homography (1.5 degree rotation, shift (6, -4)).
 
-Prints one JSON line: ``metric`` (stereo_pairs_per_sec_<size>px_encdec,
-or dsic_pairs_per_sec_<size>px_encdec), ``value`` (pairs/s), ``unit``,
-``model``, ``bpp_real`` (mean over the loop), ``batches``, ``batch``, ``h``,
-``pipeline``, ``peak_memory_gib`` (``torch.cuda.max_memory_allocated``),
-the grid widths and outlier counts of the loop's containers, and
-``card`` (name and power limit).
+The wavefront device codecs.  ``--model mbt-device`` builds mbt2018
+N=192/M=192 (float32) and ``--model hesic-plus-device`` HESIC+
+N=192/M=192 (bf16 transforms), both seed 0, calibrated as bench.py does
+(``calibrate_single`` for mbt2018, ``calibrate`` for HESIC+), coded by
+their wavefront device codecs at mm 16, 8 channel groups (HESIC+'s
+with bench.py's cap 64, which reaches no container), in
+batches of 11 over 4 timed batches of one pool batch (``--pool`` 1, the
+images bench.py draws after its calibration).  Warm-up: every pool
+batch round trip, whose decoded latents must equal the encoder's; then
+one encode on a worker thread while the main thread decodes must give
+the synchronous container byte for byte.  The timed loop is bench.py's:
+``--pipeline 1`` encodes batch i+1 on one worker thread while the main
+thread decodes batch i; ``--pipeline 0`` encodes, then decodes.
+
+Outside the timed window every container of the loop must have decoded
+to the encoder's latents, or the run raises.  Prints one JSON line:
+``metric`` (stereo_pairs_per_sec_<size>px_encdec,
+dsic_pairs_per_sec_<size>px_encdec,
+mbt2018_device_images_per_sec_<size>px_encdec or
+hesic_plus_device_pairs_per_sec_<size>px_encdec), ``value`` (pairs or
+images a second), ``unit``, ``model``, ``bpp_real`` (mean over the loop),
+``batches``, ``batch``, ``h``, ``pipeline``, ``peak_memory_gib``
+(``torch.cuda.max_memory_allocated``), the fast codecs' grid widths and
+outlier counts or the device codecs' grid, groups and escape counts,
+and ``card`` (name and power limit).  No MFU field: the port has no
+FLOP count of these programs.
 """
 
 from __future__ import annotations
@@ -45,18 +66,29 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from .models.ar_device import (HESICPlusDeviceCodec,
+                               JointAutoregressiveDeviceCodec)
 from .models.dsic import DSIC
 from .models.dsic_fast import DSICFastCodec
 from .models.hesic import HESIC
 from .models.hesic_fast import HESICFastCodec
-from .training.recipe import calibrate, smooth_pairs
+from .models.hesic_plus import HESICPlus
+from .models.priors import JointAutoregressiveHierarchicalPriors
+from .training.recipe import calibrate, calibrate_single, smooth_pairs
 
-# per model: (metric prefix, batch, timed batches), bench.py's points
-POINTS = {"hesic": ("stereo", 64, 6), "dsic": ("dsic", 32, 4)}
+# per model: (metric prefix, what a batch item is, batch, timed batches,
+# pipelined mode, pool), bench.py's points
+POINTS = {"hesic": ("stereo", "pairs", 64, 6, 2, 4),
+          "dsic": ("dsic", "pairs", 32, 4, 2, 4),
+          "mbt-device": ("mbt2018_device", "images", 11, 4, 1, 1),
+          "hesic-plus-device": ("hesic_plus_device", "pairs", 11, 4, 1, 1)}
+# the wavefront device codecs' points
+DEVICE_POINTS = ("mbt-device", "hesic-plus-device")
 
 
 def parse_args(argv=None):
@@ -64,24 +96,41 @@ def parse_args(argv=None):
     p.add_argument("--model", choices=tuple(POINTS), default="hesic")
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--batch", type=int, default=None,
-                   help="pairs per batch (default 64 for hesic, 32 for "
-                        "dsic)")
+                   help="pairs or images per batch (default 64 for "
+                        "hesic, 32 for dsic, 11 for the device codecs)")
     p.add_argument("--batches", type=int, default=None,
-                   help="timed batches (default 6 for hesic, 4 for dsic)")
+                   help="timed batches (default 6 for hesic, 4 for the "
+                        "others)")
     p.add_argument("--calib-steps", type=int, default=60)
     p.add_argument("--mm", type=int, default=16)
-    p.add_argument("--bf16", type=int, choices=(0, 1), default=1)
+    p.add_argument("--groups", type=int, default=8,
+                   help="channel groups of the device codecs")
+    p.add_argument("--bf16", type=int, choices=(0, 1), default=None,
+                   help="bf16 transforms (default 1; mbt2018 is float32)")
     p.add_argument("--h", choices=("identity", "real"), default="identity")
-    p.add_argument("--pipeline", type=int, choices=(0, 2), default=2)
-    p.add_argument("--pool", type=int, default=4)
+    p.add_argument("--pipeline", type=int, choices=(0, 1, 2), default=None,
+                   help="2 (fast codecs) or 1 (device codecs) pipelined, "
+                        "0 encode then decode")
+    p.add_argument("--pool", type=int, default=None,
+                   help="distinct batches cycled (default 4, 1 for the "
+                        "device codecs)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for a rehearsal")
     args = p.parse_args(argv)
-    _, batch, batches = POINTS[args.model]
+    _, _, batch, batches, mode, pool = POINTS[args.model]
     args.batch = args.batch or batch
     args.batches = args.batches or batches
-    if args.model == "dsic" and args.h != "identity":
-        p.error("DSIC takes no homography: --h must be identity")
+    args.pool = args.pool or pool
+    args.pipeline = mode if args.pipeline is None else args.pipeline
+    if args.pipeline not in (0, mode):
+        p.error(f"--model {args.model} runs --pipeline {mode} or 0")
+    mbt = args.model == "mbt-device"
+    if args.bf16 is None:
+        args.bf16 = 0 if mbt else 1
+    if mbt and args.bf16:
+        p.error("mbt2018 is float32: --bf16 must be 0")
+    if args.model in ("dsic", "mbt-device") and args.h != "identity":
+        p.error(f"{args.model} takes no homography: --h must be identity")
     return args
 
 
@@ -92,6 +141,12 @@ def build_model(args):
     if args.model == "dsic":
         return DSIC(N=128, M=192, F=21, C=32, K=5, dtype=dtype,
                     device=args.device, seed=0)
+    if args.model == "mbt-device":
+        return JointAutoregressiveHierarchicalPriors(
+            N=192, M=192, device=args.device, seed=0)
+    if args.model == "hesic-plus-device":
+        return HESICPlus(N=192, M=192, dtype=dtype, device=args.device,
+                         seed=0)
     return HESIC(N=128, M=192, K=5, dtype=dtype, device=args.device, seed=0)
 
 
@@ -241,17 +296,147 @@ def run(codec, pool, h, n_batches: int, pipeline: int = 2) -> dict:
     }
 
 
+# ---- the wavefront device codecs (bench.py's ar-device and
+# hesic-plus-device points) ----
+
+def make_device_codec(model, mm: int, groups: int):
+    """The wavefront device codec of `model` (mbt2018 or HESIC+), tables
+    built; HESIC+'s with bench.py's cap 64, which reaches no container."""
+    if model.single_image:
+        return JointAutoregressiveDeviceCodec(model, mm=mm,
+                                              groups=groups).update()
+    return HESICPlusDeviceCodec(model, mm=mm, groups=groups,
+                                cap=64).update()
+
+
+def device_args(codec, x1, x2, h) -> tuple:
+    """The arguments of `codec`'s compress for a pool batch: mbt2018
+    codes the first eyes alone."""
+    if isinstance(codec, JointAutoregressiveDeviceCodec):
+        return (x1,)
+    return (x1, x2, h)
+
+
+def latent_keys(codec) -> tuple:
+    if isinstance(codec, JointAutoregressiveDeviceCodec):
+        return ("y_hat",)
+    return ("y1_hat", "y2_hat")
+
+
+def check_decoded(codec, out, rec, label: str) -> None:
+    """Raise unless `rec` decoded to `out`'s own latents, and its
+    reconstructions are finite."""
+    for key in latent_keys(codec):
+        if not torch.equal(rec[key], out[key]):
+            bad = int((rec[key] != out[key]).sum())
+            raise AssertionError(f"{label}: decoded {key} differs from the "
+                                 f"encoder's latents at {bad} cells")
+    for key, x in rec.items():
+        if key.startswith("x") and not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: {key} not finite")
+
+
+def check_threaded_bytes(codec, args) -> None:
+    """An encode on a worker thread while the main thread decodes must
+    give the synchronous container, byte for byte."""
+    ref = codec.compress(*args)
+    with ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(codec.compress, *args)
+        rec = codec.decompress(ref["strings"])
+        again = fut.result()
+    if again["strings"] != ref["strings"]:
+        raise AssertionError("the threaded encode diverged from the "
+                             "synchronous container")
+    check_decoded(codec, ref, rec, "threaded round trip")
+
+
+def device_timed_loop(codec, batches, pipeline: int) -> dict:
+    """bench.py's timed loop over `batches` (compress arguments): mode 1
+    encodes batch i+1 on one worker thread while the main thread decodes
+    batch i; mode 0 encodes then decodes each batch.  Returns {"seconds",
+    "containers", "decoded": each decode's latents, "last": the last
+    decode}."""
+    outs, decoded = [], []
+    keys = latent_keys(codec)
+
+    def decode(out):
+        rec = codec.decompress(out["strings"])
+        outs.append(out)
+        decoded.append({k: rec[k] for k in keys})
+        return rec
+
+    _sync(codec)
+    t0 = time.perf_counter()
+    if pipeline == 1:
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(codec.compress, *batches[0])
+            for i in range(len(batches)):
+                out = fut.result()
+                if i + 1 < len(batches):
+                    fut = ex.submit(codec.compress, *batches[i + 1])
+                rec = decode(out)
+    else:
+        for args in batches:
+            rec = decode(codec.compress(*args))
+    _sync(codec)
+    return {"seconds": time.perf_counter() - t0, "containers": outs,
+            "decoded": decoded, "last": rec}
+
+
+def warm_up_device(codec, pool, h) -> None:
+    """Every pool batch's round trip, whose decoded latents must equal the
+    encoder's, then the threaded byte check on the first."""
+    for i, (x1, x2) in enumerate(pool):
+        args = device_args(codec, x1, x2, h)
+        out = codec.compress(*args)
+        check_decoded(codec, out, codec.decompress(out["strings"]),
+                      f"warm-up batch {i}")
+    check_threaded_bytes(codec, device_args(codec, *pool[0], h))
+
+
+def check_device_loop(codec, loop) -> None:
+    """Raise unless every container of a timed loop decoded to its
+    encoder's latents and the last decode is finite."""
+    for i, (out, dec) in enumerate(zip(loop["containers"],
+                                       loop["decoded"])):
+        check_decoded(codec, out, dec, f"timed batch {i}")
+    check_decoded(codec, loop["containers"][-1], loop["last"],
+                  "the last batch")
+
+
+def run_device(codec, pool, h, n_batches: int, pipeline: int = 1) -> dict:
+    """The warm-up, the timed loop over `n_batches` batches (the pool
+    cycled) and its exactness check.  Returns the loop's seconds, mean
+    bpp_real and escapes."""
+    warm_up_device(codec, pool, h)
+    batches = [device_args(codec, *pool[i % len(pool)], h)
+               for i in range(n_batches)]
+    loop = device_timed_loop(codec, batches, pipeline)
+    check_device_loop(codec, loop)
+    outs = loop["containers"]
+    return {"seconds": loop["seconds"],
+            "bpp_real": float(np.mean([o["bpp_real"] for o in outs])),
+            "escapes": [o["escapes"] for o in outs]}
+
+
 def bench(model, args, calib_hw: int = 256) -> dict:
     """Calibrate `model`, build the codec and the pool, and run the bench
-    point of `args` (parse_args).  Returns run()'s numbers."""
+    point of `args` (parse_args).  Returns run()'s or run_device()'s
+    numbers."""
     rng = np.random.RandomState(0)
     if args.calib_steps > 0:
-        calibrate(model, rng, args.calib_steps, hw=calib_hw)
+        cal = calibrate_single if model.single_image else calibrate
+        cal(model, rng, args.calib_steps, hw=calib_hw)
+    h = homographies(args.h, args.batch)
+    if args.model in DEVICE_POINTS:
+        codec = make_device_codec(model, args.mm, args.groups)
+        pool = make_pool(rng, min(args.batches, args.pool), args.batch,
+                         args.size, codec.device)
+        return run_device(codec, pool, h, args.batches, args.pipeline)
     codec = make_codec(model, args.mm, args.batch)
     pool = make_pool(rng, min(args.batches, args.pool), args.batch,
                      args.size, codec.device)
-    return run(codec, pool, homographies(args.h, args.batch), args.batches,
-               args.pipeline)
+    return run(codec, pool, h, args.batches, args.pipeline)
 
 
 def main(argv=None) -> int:
@@ -265,11 +450,16 @@ def main(argv=None) -> int:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     res = bench(model, args)
+    prefix, item = POINTS[args.model][:2]
+    if args.model in DEVICE_POINTS:
+        codec_fields = {"mm": args.mm, "groups": args.groups,
+                        "escapes": res["escapes"]}
+    else:
+        codec_fields = {"mm": res["mm"], "outliers": res["outliers"]}
     print(json.dumps({
-        "metric": f"{POINTS[args.model][0]}_pairs_per_sec_{args.size}px_"
-                  f"encdec",
-        "value": res["pairs_per_sec"],
-        "unit": "pairs/s/chip",
+        "metric": f"{prefix}_{item}_per_sec_{args.size}px_encdec",
+        "value": args.batches * args.batch / res["seconds"],
+        "unit": f"{item}/s/chip",
         "model": args.model,
         "bpp_real": res["bpp_real"],
         "batches": args.batches,
@@ -278,8 +468,7 @@ def main(argv=None) -> int:
         "pipeline": args.pipeline,
         "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                             if cuda else None),
-        "mm": res["mm"],
-        "outliers": res["outliers"],
+        **codec_fields,
         "card": card_line() if cuda else None,
     }))
     return 0

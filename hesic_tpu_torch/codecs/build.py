@@ -22,7 +22,8 @@ not the sum.  Concurrent builds (test workers, two processes) each
 write a pid-unique temporary file and rename it into place atomically.
 
 ``launch_counts`` counts kernel launches by name: each kernel wrapper adds
-one where it launches its kernel, and nowhere else.
+one (``count_launch``, under a lock: a worker thread may encode while
+the main thread decodes) where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,6 +66,13 @@ WARPS_SM = 64           # resident warps an SM holds
 LANE_GROUP = 8          # lanes a rANS block owns: a 32-byte row segment
 
 launch_counts: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel `name` to ``launch_counts``."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 _loaded: dict = {}
 

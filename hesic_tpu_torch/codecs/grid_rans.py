@@ -207,7 +207,7 @@ def rans_encode_grid_cuda(freq, sym_mbl, ppl: int = 1, cap: int = None):
         plan.d, plan.helpers, plan.ahead, plan.vec, split_entries(s),
         plan.smem, stream)
     build.check_status(rc, _ENC, _limits(plan, s))
-    build.launch_counts[_ENC] += 1
+    build.count_launch(_ENC)
     return words, counts, states
 
 
@@ -225,7 +225,7 @@ def rans_decode_grid_cuda(freq, words, counts, states, ppl: int = 1):
         raise ValueError("words must hold at least one column")
     syms = _launch_decode(_launch_plan(ppl, False, freq), freq, words,
                          counts, states, ppl)
-    build.launch_counts[_DEC] += 1
+    build.count_launch(_DEC)
     return syms
 
 

@@ -146,7 +146,7 @@ def rans_encode_pairs_cuda(starts, freqs, valid, cap: int):
         f"ahead={plan.ahead}, R={plan.ring}: D even and >= (ahead + 1) * "
         f"H, H <= 15, R a power of two >= D*{SLOTS} + 4, {plan.smem} bytes "
         f"of shared memory within {SMEM_BLOCK}"))
-    build.launch_counts[_NAME] += 1
+    build.count_launch(_NAME)
     return words, counts, states
 
 

@@ -107,7 +107,7 @@ def gmm_freq_cuda(sigma, means, weights, mm: int, k: int, center):
         center.data_ptr(), freq.data_ptr(), b, k, m, hw, mm,
         0 if pooled else 1, stream)
     build.check_status(rc, _NAME)
-    build.launch_counts[_NAME] += 1
+    build.count_launch(_NAME)
     return freq
 
 

@@ -7,7 +7,8 @@ tail-mass targets, and ``pmf_data`` (the PMF table the codec's z CDFs are
 quantized from).  ``GaussianMixtureConditional`` is HESIC's K-component
 mixture over the y latents.  Likelihoods are float32 (erfc near the
 1e-9 bound underflows in bf16); softplus is ``logaddexp(x, 0)``, the JAX
-package's formulation.
+package's formulation.  ``GaussianConditional`` is the single Gaussian
+over the y latents of the autoregressive families (mbt2018, HESIC+).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 from ..ops import lower_bound, quantize
 
 LIKELIHOOD_BOUND = 1e-9    # every likelihood's floor, through lower_bound
-SCALE_BOUND = 0.11         # the mixture's smallest scale
+SCALE_BOUND = 0.11         # the Gaussians' smallest scale
 
 
 def standardized_cumulative(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +136,34 @@ class EntropyBottleneck(nn.Module):
         tail_mass = (torch.sigmoid(lower[:, 0, 0])
                      + torch.sigmoid(-upper[:, 0, -1]))
         return pmf, tail_mass, pmf_length, -minima
+
+
+class GaussianConditional(nn.Module):
+    """Scale- (and mean-) conditioned Gaussian, the y entropy model of the
+    autoregressive families.  Parameter-free.  Scales are bounded below at
+    SCALE_BOUND and likelihoods at LIKELIHOOD_BOUND through
+    ``lower_bound``; the likelihood is float32 whatever the inputs'
+    dtype.  Training adds noise without the means; eval rounds about
+    them.  The scale table and the host coder's tables are not here: the
+    wavefront codec codes its own Gaussian intervals."""
+
+    def _likelihood(self, inputs, scales, means=None):
+        values = inputs - means if means is not None else inputs
+        scales = lower_bound(scales.float(), SCALE_BOUND)
+        values = torch.abs(values.float())
+        upper = standardized_cumulative((0.5 - values) / scales)
+        lower = standardized_cumulative((-0.5 - values) / scales)
+        return upper - lower
+
+    def forward(self, inputs, scales, means=None, training: bool = False,
+                generator=None):
+        """inputs (B, M, h, w) -> (outputs, likelihoods), both that shape."""
+        if training:
+            outputs = quantize(inputs, "noise", generator=generator)
+        else:
+            outputs = quantize(inputs, "dequantize", means=means)
+        return outputs, lower_bound(
+            self._likelihood(outputs, scales, means), LIKELIHOOD_BOUND)
 
 
 class GaussianMixtureConditional(nn.Module):

@@ -288,6 +288,7 @@ class DSIC(nn.Module):
     DSIC takes no homography."""
 
     entropy_bottlenecks = ("entropy_bottleneck1", "entropy_bottleneck2")
+    single_image = False
     uses_homography = False
 
     def __init__(self, N: int = 128, M: int = 192, F: int = 21, C: int = 32,

@@ -220,6 +220,7 @@ class HESIC(nn.Module):
     seed)`` and then moved to ``device``."""
 
     entropy_bottlenecks = ("entropy_bottleneck1", "entropy_bottleneck2")
+    single_image = False
     uses_homography = True
 
     def __init__(self, N: int = 128, M: int = 192, K: int = 5, dtype=None,

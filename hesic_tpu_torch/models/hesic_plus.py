@@ -1,8 +1,9 @@
 """HESIC+: stereo compression with per-eye joint autoregressive priors,
 NCHW.
 
-Counterpart of hesic_tpu/models/hesic_plus.py (``HESICPlus``), the
-codec-facing sub-programs only.  Each eye has mbt2018-style machinery:
+Counterpart of hesic_tpu/models/hesic_plus.py (``HESICPlus``): the
+codec-facing sub-programs, the training forward, ``left_prior`` and
+``aux_loss``.  Each eye has mbt2018-style machinery:
 a hyper-analysis ``h_a``, a hyper-synthesis ``h_s`` (the ``pre`` input of
 the entropy parameters), a masked 5x5 context conv and a 1x1
 entropy-parameter stack.  The right eye's stack takes 5M channels:
@@ -14,11 +15,12 @@ by their index in the list, activations counted: ``h_a1_0``, ``h_s1_4``,
 so state_dict keys map one to one onto the JAX parameter tree
 (utils/from_jax.py).  ``dtype`` (None = float32) is the compute type of
 every conv, as in models/hesic.py; the hyper and entropy-parameter
-outputs are cast to float32.  Activations are ``leaky_relu`` with slope
-0.01, flax's default.
+outputs are cast to float32, and the Gaussian conditionals' likelihood
+math is float32.  Activations are ``leaky_relu`` with slope 0.01, flax's
+default.
 
-Not carried over yet: the training forward, ``GaussianConditional``,
-``left_prior``'s training warp and ``HESICPlusTogether``.
+Not carried over yet: ``HESICPlusTogether`` and the host codecs
+(``HESICPlusCodec``, the reference layout).
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..entropy_models import EntropyBottleneck
+from ..entropy_models import EntropyBottleneck, GaussianConditional
+from ..geometry import warp_perspective_train
 from ..layers import Conv, Deconv, MaskedConv2d
+from ..ops import quantize
 from .hesic import StereoDecoder, StereoDecoder2, StereoEncoder, StereoEncoder2
 
 
@@ -44,6 +48,8 @@ class HESICPlus(nn.Module):
     seed)`` and then moved to ``device``."""
 
     entropy_bottlenecks = ("entropy_bottleneck1", "entropy_bottleneck2")
+    single_image = False
+    uses_homography = True
 
     def __init__(self, N: int = 128, M: int = 192, dtype=None,
                  device="cuda", seed: int = 0):
@@ -77,6 +83,8 @@ class HESICPlus(nn.Module):
                 M, 2 * M, kernel_size=5, mask_type="A", **kw))
         self.entropy_bottleneck1 = EntropyBottleneck(N, generator=g)
         self.entropy_bottleneck2 = EntropyBottleneck(N, generator=g)
+        self.gaussian_conditional1 = GaussianConditional()
+        self.gaussian_conditional2 = GaussianConditional()
         self.to(device)
         self.requires_grad_(False)
 
@@ -120,3 +128,61 @@ class HESICPlus(nn.Module):
 
     def entropy_params2(self, x):
         return self._stack("entropy_parameters2", x)
+
+    def aux_loss(self) -> torch.Tensor:
+        return (self.entropy_bottleneck1.loss()
+                + self.entropy_bottleneck2.loss())
+
+    def left_prior(self, x1_hat, h):
+        """The decoder-reproducible cross-eye prior: the decoded left view
+        warped by `h`, re-encoded and rounded (eval quantization)."""
+        warped = warp_perspective_train(x1_hat, h, self.dtype)
+        return quantize(self.encoder1(warped), "dequantize")
+
+    def _eye(self, eye: int, y, params, extra, training, generator):
+        """One eye's y_hat and its likelihoods: y_hat, then the context
+        conv and the entropy parameters over cat(params, ctx, *extra),
+        then the Gaussian conditional's own draw."""
+        y_hat = quantize(y, "noise" if training else "dequantize",
+                         generator=generator)
+        ctx = getattr(self, f"context_prediction{eye}")(y_hat).float()
+        scales, means = getattr(self, f"entropy_params{eye}")(
+            torch.cat([params, ctx, *extra], dim=1)).chunk(2, dim=1)
+        _, lik = getattr(self, f"gaussian_conditional{eye}")(
+            y, scales, means, training, generator)
+        return y_hat, lik
+
+    def forward(self, x1, x2, h, training: bool = False, generator=None):
+        """x1, x2 (B, 3, H, W) float32 views, h (B, 3, 3) homographies ->
+        {"x1_hat", "x2_hat", "y1_hat", "y2_hat", "likelihoods": {"y1",
+        "y2", "z1", "z2"}}, NCHW float32.
+
+        Training draws the noise of seven quantizations from `generator`,
+        in the JAX package's order: z1, y1_hat, the first Gaussian
+        conditional's draw, z2, the re-encoded warped left
+        reconstruction, y2_hat, the second conditional's draw.  Eval
+        rounds instead.  The warps run in the model's dtype."""
+        mode = "noise" if training else "dequantize"
+        y1 = self.encoder1(x1)
+        z1_hat, z1_lik = self.entropy_bottleneck1(
+            self.hyper_analysis1(y1), training, generator)
+        y1_hat, y1_lik = self._eye(1, y1, self.hyper_synthesis1(z1_hat), (),
+                                   training, generator)
+        x1_hat = self.decoder1(y1_hat)
+
+        x1_warp = warp_perspective_train(x1, h, self.dtype)
+        y2 = self.encoder2(x1_warp, x2)
+        z2_hat, z2_lik = self.entropy_bottleneck2(
+            self.hyper_analysis2(y2), training, generator)
+        # the warped left reconstruction feeds the right eye's prior
+        # (re-encoded) and its decoder
+        x1_hat_warp = warp_perspective_train(x1_hat, h, self.dtype)
+        y1_hat_warpf2 = quantize(self.encoder1(x1_hat_warp), mode,
+                                 generator=generator)
+        y2_hat, y2_lik = self._eye(2, y2, self.hyper_synthesis2(z2_hat),
+                                   (y1_hat_warpf2,), training, generator)
+        x2_hat = self.decoder2(y2_hat, x1_hat_warp)
+        return {"x1_hat": x1_hat, "x2_hat": x2_hat, "y1_hat": y1_hat,
+                "y2_hat": y2_hat,
+                "likelihoods": {"y1": y1_lik, "y2": y2_lik, "z1": z1_lik,
+                                "z2": z2_lik}}

@@ -456,7 +456,7 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
     build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, M, H1 "
                        "and H2 multiples of 16, a stage plan that fits "
                        "shared memory")
-    build.launch_counts[_NAME] += 1
+    build.count_launch(_NAME)
     return starts, freqs, y_hat, resid
 
 

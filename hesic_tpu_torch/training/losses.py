@@ -60,19 +60,26 @@ def msssim_db(ms):
 
 def make_loss_fn(lmbda: float = 1e-2):
     """The training loss of the JAX package's training CLI and bench.py:
-    the stereo RD loss of the training forward plus the bottlenecks' aux
-    loss.  Returns loss_fn(model, batch, generator) -> (loss, {"bpp",
-    "mse"}) for ``make_train_step``; `batch` holds "x1", "x2" (B, 3, H,
-    W) and "h" (B, 3, 3) on the model's device.  The homographies reach
-    only a model that takes them (``uses_homography``: HESIC); DSIC's
-    forward takes none (bench.py's ``_calibrate(arch="dsic")``)."""
+    the RD loss of the training forward plus the bottlenecks' aux loss.
+    Returns loss_fn(model, batch, generator) -> (loss, {"bpp", "mse"})
+    for ``make_train_step``.  A single-image model (``single_image``:
+    mbt2018) takes `batch`'s "x" (B, 3, H, W) and the single-image RD
+    loss; a stereo model takes "x1", "x2" (B, 3, H, W) and the stereo RD
+    loss, and "h" (B, 3, 3) only if it takes homographies
+    (``uses_homography``: HESIC, HESIC+; DSIC's forward takes none, as
+    bench.py's ``_calibrate(arch="dsic")``).  Tensors on the model's
+    device."""
 
     def loss_fn(model, batch, generator):
-        args = (batch["x1"], batch["x2"]) + (
-            (batch["h"],) if model.uses_homography else ())
-        out = model(*args, training=True, generator=generator)
-        rd = stereo_rate_distortion_loss(out, batch["x1"], batch["x2"],
-                                         lmbda)
+        if model.single_image:
+            out = model(batch["x"], training=True, generator=generator)
+            rd = rate_distortion_loss(out, batch["x"], lmbda)
+        else:
+            args = (batch["x1"], batch["x2"]) + (
+                (batch["h"],) if model.uses_homography else ())
+            out = model(*args, training=True, generator=generator)
+            rd = stereo_rate_distortion_loss(out, batch["x1"], batch["x2"],
+                                             lmbda)
         return rd["loss"] + model.aux_loss(), {"bpp": rd["bpp_loss"],
                                                "mse": rd["mse_loss"]}
 

@@ -1,7 +1,8 @@
 """bench.py's training recipe: its smooth stereo pairs, a training batch
 of them on a device, its optimizer and train step (RD loss at lambda
 1e-2 plus the aux loss, Adam 1e-4 / 1e-3) with a seeded noise generator,
-and its calibration run (``calibrate``).
+and its calibration runs (``calibrate`` for the stereo models,
+``calibrate_single`` for mbt2018).
 """
 
 from __future__ import annotations
@@ -35,21 +36,21 @@ def smooth_pairs(rng, batch: int, hw: int):
             np.stack(x2).astype(np.float32))
 
 
+def _nchw(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(device)
+
+
 def train_batch(rng, batch: int, hw: int, device: str) -> dict:
     """A training batch of `batch` smooth pairs on `device`: {"x1", "x2"
     (batch, 3, hw, hw) float32, "h" identity homographies (batch, 3, 3)}."""
     x1, x2 = smooth_pairs(rng, batch, hw)
-
-    def nchw(a):
-        return torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(
-            device)
-
-    return {"x1": nchw(x1), "x2": nchw(x2),
+    return {"x1": _nchw(x1, device), "x2": _nchw(x2, device),
             "h": torch.eye(3, device=device).expand(batch, 3, 3).contiguous()}
 
 
 def trainer(model):
-    """``bench.py``'s training setup for `model` (HESIC or DSIC): its Adam
+    """``bench.py``'s training setup for `model` (any model of the port's
+    training loss: HESIC, DSIC, HESIC+, mbt2018): its Adam
     (lr 1e-4, aux 1e-3), its train step on the RD loss at lambda 1e-2 plus
     the aux loss, and a noise generator on the model's device seeded 7.
     Returns (optimizer, step, generator)."""
@@ -62,11 +63,26 @@ def trainer(model):
 def calibrate(model, rng, steps: int = 60, hw: int = 256, batch: int = 4):
     """``bench.py``'s ``_calibrate``: `steps` train steps of `model` on one
     batch of `batch` smooth hw x hw pairs drawn from `rng` (identity H),
-    so the codec's entropy code is sane before it is timed; HESIC and
-    DSIC alike.  Returns the steps' (losses, training bpps) as floats."""
+    so the codec's entropy code is sane before it is timed; HESIC, DSIC
+    and HESIC+ alike.  Returns the steps' (losses, training bpps) as
+    floats."""
     device = next(model.parameters()).device
+    return _run(model, train_batch(rng, batch, hw, device), steps)
+
+
+def calibrate_single(model, rng, steps: int = 60, hw: int = 256,
+                     batch: int = 4):
+    """``bench.py``'s ``_calibrate_single``: `steps` train steps of a
+    single-image `model` (mbt2018) on the first eyes of `batch` smooth hw
+    x hw pairs drawn from `rng` (the same draws as ``calibrate``'s).
+    Returns the steps' (losses, training bpps) as floats."""
+    device = next(model.parameters()).device
+    x, _ = smooth_pairs(rng, batch, hw)
+    return _run(model, {"x": _nchw(x, device)}, steps)
+
+
+def _run(model, data: dict, steps: int):
     _, step, gen = trainer(model)
-    data = train_batch(rng, batch, hw, device)
     metrics = [step(data, gen) for _ in range(steps)]
     return ([float(m["loss"]) for m in metrics],
             [float(m["bpp"]) for m in metrics])

@@ -4,7 +4,8 @@ the card.
 Usage (on a machine with a CUDA card):
 
     python -m hesic_tpu_torch.utils.profile_fast [--model hesic|hesic-plus
-        --batch B --mm MM --homography identity|rotated]
+        |mbt --batch B --mm MM --homography identity|rotated
+        --calib-steps S]
     python -m hesic_tpu_torch.utils.profile_fast --model train [--batch B]
     python -m hesic_tpu_torch.utils.profile_fast --model hesic-batch
         [--batch B --mm MM --homography identity|rotated]
@@ -16,8 +17,14 @@ Usage (on a machine with a CUDA card):
 mm 32 by default).  ``--model hesic-plus`` builds HESIC+ N=192/M=192 and
 traces ``HESICPlusDeviceCodec.compress`` + ``decompress`` (batch 11,
 mm 16, 8 channel groups, word cap 64 by default: bench.py's HESIC+
-point).  Both use bf16 transforms and random weights from seed 0, warm
-the codec up with one round trip on 512x512 pairs, time one untraced
+point).  ``--model mbt`` builds mbt2018 N=192/M=192 (float32) and traces
+``JointAutoregressiveDeviceCodec.compress`` + ``decompress`` on the
+first eyes (batch 11, mm 16, 8 groups: bench.py's ar-device point).
+HESIC and HESIC+ use bf16 transforms; every model has seed 0 and is
+calibrated as bench.py does for ``--calib-steps`` steps (default 60 for
+mbt, 0 for the others: random weights; the images are then the next
+draws of bench.py's generator, as its loop codes them).  The codec is
+warmed up with one round trip on 512x512 images, times one untraced
 round trip, then trace one with ``torch.profiler`` (CPU and CUDA
 activities).  Prints the card, the encode and decode wall times, traced
 and untraced (tracing adds host time to every launch), the device time
@@ -81,7 +88,8 @@ import sys
 import numpy as np
 
 from ..bench import card_line, rotated_homography
-from ..training.recipe import smooth_pairs, train_batch, trainer
+from ..training.recipe import (calibrate, calibrate_single, smooth_pairs,
+                               train_batch, trainer)
 
 SIZE = 512     # image side, pixels
 
@@ -108,26 +116,45 @@ def _group(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def _codec(model: str, batch: int, mm: int):
-    """The model's codec at its published widths (bf16 transforms, seed
-    0) as a round trip fn(x1, x2, h) -> (encode dict, decode dict,
-    per-eye outlier or escape counts)."""
+def _codec(model: str, batch: int, mm: int, calib_steps: int, rng):
+    """The model's codec at its published widths (seed 0; calibrated for
+    `calib_steps` steps on `rng`'s draws) as a round trip fn(x1, x2, h) ->
+    (encode dict, decode dict, per-eye outlier or escape counts)."""
     import torch
     if model == "hesic":
         from ..models.hesic import HESIC
         from ..models.hesic_fast import HESICFastCodec
         net = HESIC(N=128, M=192, K=5, dtype=torch.bfloat16, device="cuda",
                     seed=0)
+    elif model == "mbt":
+        from ..models.priors import JointAutoregressiveHierarchicalPriors
+        net = JointAutoregressiveHierarchicalPriors(N=192, M=192,
+                                                    device="cuda", seed=0)
+    else:
+        from ..models.hesic_plus import HESICPlus
+        net = HESICPlus(N=192, M=192, dtype=torch.bfloat16, device="cuda",
+                        seed=0)
+    if calib_steps:
+        cal = calibrate_single if net.single_image else calibrate
+        cal(net, rng, calib_steps)
+        net.requires_grad_(False)
+    if model == "hesic":
         codec = HESICFastCodec(net, mm=mm, codec_batch=batch).update()
 
         def trip(x1, x2, h):
             out = codec.compress_fast(x1, x2, h)
             return out, codec.decompress_fast(out["blobs"]), out["outliers"]
+    elif model == "mbt":
+        from ..models.ar_device import JointAutoregressiveDeviceCodec
+        codec = JointAutoregressiveDeviceCodec(net, mm=mm,
+                                               groups=8).update()
+
+        def trip(x1, x2, h):
+            out = codec.compress(x1)
+            return (out, codec.decompress(out["strings"]),
+                    (out["escapes"], 0))
     else:
         from ..models.ar_device import HESICPlusDeviceCodec
-        from ..models.hesic_plus import HESICPlus
-        net = HESICPlus(N=192, M=192, dtype=torch.bfloat16, device="cuda",
-                        seed=0)
         codec = HESICPlusDeviceCodec(net, mm=mm, groups=8, cap=64).update()
 
         def trip(x1, x2, h):
@@ -543,18 +570,21 @@ def batch_main(batch: int, mm: int, homography: str,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("hesic", "hesic-plus", "train",
-                                       "hesic-batch", "dsic-batch"),
+    p.add_argument("--model", choices=("hesic", "hesic-plus", "mbt",
+                                       "train", "hesic-batch", "dsic-batch"),
                    default="hesic")
     p.add_argument("--batch", type=int, default=None,
                    help="pairs per batch (default 8 for hesic and train, "
-                        "11 for hesic-plus, 64 for hesic-batch, 32 for "
-                        "dsic-batch)")
+                        "11 for hesic-plus and mbt, 64 for hesic-batch, 32 "
+                        "for dsic-batch)")
     p.add_argument("--mm", type=int, default=None,
                    help="grid half-width cap (default 32 for hesic, 16 "
-                        "for hesic-plus and hesic-batch)")
+                        "for the others)")
     p.add_argument("--homography", choices=("identity", "rotated"),
                    default="identity")
+    p.add_argument("--calib-steps", type=int, default=None,
+                   help="calibration steps of hesic, hesic-plus and mbt "
+                        "(default 60 for mbt, 0 for the others)")
     args = p.parse_args(argv)
     if args.model == "train":
         return train_main(args.batch or 8)
@@ -563,9 +593,11 @@ def main(argv=None) -> int:
     if args.model == "dsic-batch":
         return batch_main(args.batch or 32, args.mm or 16, "identity",
                           "dsic")
-    plus = args.model == "hesic-plus"
-    b = args.batch or (11 if plus else 8)
-    mm = args.mm or (16 if plus else 32)
+    ar = args.model in ("hesic-plus", "mbt")
+    b = args.batch or (11 if ar else 8)
+    mm = args.mm or (16 if ar else 32)
+    calib_steps = (args.calib_steps if args.calib_steps is not None
+                   else 60 if args.model == "mbt" else 0)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -574,8 +606,9 @@ def main(argv=None) -> int:
         print("profile_fast: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
-    trip = _codec(args.model, b, mm)
-    x1, x2 = smooth_pairs(np.random.RandomState(0), b, SIZE)
+    rng = np.random.RandomState(0)
+    trip = _codec(args.model, b, mm, calib_steps, rng)
+    x1, x2 = smooth_pairs(rng, b, SIZE)
     hm = (np.eye(3, dtype=np.float32) if args.homography == "identity"
           else rotated_homography())
     h = np.tile(hm[None], (b, 1, 1))
@@ -603,8 +636,9 @@ def main(argv=None) -> int:
     busy_ms = sum(ms for ms, _ in kernels.values())
 
     print(f"card: {card}")
-    print(f"{args.model}, batch {b} pairs {SIZE}x{SIZE}, H "
-          f"{args.homography}, mm cap {mm}: bpp_real "
+    print(f"{args.model}, batch {b} {SIZE}x{SIZE}, H "
+          f"{args.homography}, mm cap {mm}, {calib_steps} calibration "
+          f"steps: bpp_real "
           f"{out['bpp_real']:.6f}, outliers/escapes "
           f"{outliers[0]}/{outliers[1]}, encode "
           f"{out['enctime'] * 1e3:.2f} ms, decode "
@@ -631,6 +665,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": card, "model": args.model, "batch": b, "size": SIZE,
         "homography": args.homography, "mm_cap": mm,
+        "calib_steps": calib_steps,
         "bpp_real": out["bpp_real"], "encode_ms": out["enctime"] * 1e3,
         "decode_ms": rec["dectime"] * 1e3,
         "untraced_encode_ms": plain["enctime"] * 1e3,

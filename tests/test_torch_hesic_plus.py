@@ -23,7 +23,21 @@ hesic_from_jax (strict load: every parameter maps, by module type).
   depend on the codec's initial word cap.
 * HESIC's carry-over gives the same state_dict as the name rule it
   replaced.
+* The training forward (eval and training, identity and rotated H),
+  its likelihoods, and the loss and gradients of bench.py's calibration
+  loss (stereo RD loss + aux loss) against the JAX package under one
+  noise sequence (test_torch_training.py's ``Noise``, drawn in the JAX
+  forward's order: z1, y1_hat, the first Gaussian conditional, z2, the
+  re-encoded warped left reconstruction, y2_hat, the second
+  conditional): tensors atol 2e-5, scalar sums rtol 1e-6, gradients per
+  tensor max |d| <= 1e-4 x max |g_jax|, as tests/test_torch_training.py;
+  left_prior and aux_loss atol 2e-5 and rtol 1e-6.  The bf16 model's
+  loss within rtol 2e-2 of JAX's bf16 model.
+* A calibrated model (training.recipe.calibrate, two steps at 64x64)
+  round-trips exactly through the device codec.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -32,6 +46,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import hesic_tpu.ops.ops as j_ops
+import hesic_tpu_torch.ops.ops as t_ops
 from hesic_tpu.models import HESIC as JHESIC
 from hesic_tpu.models import HESICPlus as JHESICPlus
 from hesic_tpu.models import HESICPlusCodec
@@ -44,12 +60,19 @@ from hesic_tpu_torch.geometry import warp_perspective
 from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
 from hesic_tpu_torch.models.autoregressive import extract_ar_weights
 from hesic_tpu_torch.models.hesic import HESIC
+from hesic_tpu.training import stereo_rate_distortion_loss as j_stereo_loss
 from hesic_tpu_torch.models.hesic_plus import HESICPlus
+from hesic_tpu_torch.training import make_loss_fn
+from hesic_tpu_torch.training.recipe import calibrate
 from hesic_tpu_torch.utils.from_jax import hesic_from_jax
+from test_torch_training import Noise
 
 torch.set_num_threads(2)
 
 ATOL = 2e-5
+SCALAR_RTOL = 1e-6
+GRAD_REL = 1e-4
+LMBDA = 1e-2
 SHAPES = [(2, 64, 64, 3), (2, 64, 64, 3), (2, 3, 3)]
 
 
@@ -170,16 +193,18 @@ def test_pairs_encoder_launches_once_per_eye(codec, monkeypatch):
 
 
 def test_containers_do_not_depend_on_the_cap(models, codec):
-    """cap is the decoder's starting budget only: a cap below the counts
-    (8, which the decoder doubles), the codec path's 64 and 4096 give the
-    same bytes."""
+    """cap is the JAX class's argument only: a cap below the counts (8),
+    the codec path's 64 and 4096 give the same bytes, and a codec of cap
+    8 decodes them (its word buffer is as wide as the largest count)."""
     x1, x2, h = _pair(seed=7)
-    outs = {cap: HESICPlusDeviceCodec(models[2], mm=8, groups=4,
-                                      cap=cap).update().compress(x1, x2, h)
-            for cap in (8, 64, 4096)}
+    codecs = {cap: HESICPlusDeviceCodec(models[2], mm=8, groups=4,
+                                        cap=cap).update()
+              for cap in (8, 64, 4096)}
+    outs = {cap: c.compress(x1, x2, h) for cap, c in codecs.items()}
     assert outs[8]["strings"] == outs[64]["strings"] == outs[4096]["strings"]
-    assert outs[4096]["caps"] == (4096, 4096)
-    assert min(outs[8]["caps"]) > 8
+    rec = codecs[8].decompress(outs[4096]["strings"])
+    for key in ("y1_hat", "y2_hat"):
+        torch.testing.assert_close(rec[key], outs[8][key], rtol=0, atol=0)
 
 
 def test_escape_corrections_roundtrip(models):
@@ -274,3 +299,133 @@ def test_kernel_without_conv_module_raises(models):
     _, params, _ = models
     with pytest.raises(ValueError, match="no conv module"):
         hesic_from_jax({"h_a1_0": params["h_a1_0"]}, torch.nn.Module())
+
+
+# ---- the training forward ----
+
+@pytest.fixture
+def noise(monkeypatch):
+    jn = Noise()
+    monkeypatch.setattr(j_ops, "quantize_noise", jn.jax)
+    monkeypatch.setattr(t_ops, "quantize_noise", Noise().torch)
+    return jn
+
+
+def _noise_shapes(b=2, hw=64, n=16, m=24):
+    """The seven draws of HESIC+'s training forward, in JAX's layout."""
+    z = (n, 1, b * (hw // 64) ** 2)
+    y = (b, hw // 16, hw // 16, m)
+    return [z, y, y, z, y, y, y]
+
+
+def _close(got, want, key, atol=ATOL):
+    np.testing.assert_allclose(got.detach().float().numpy().transpose(
+        0, 2, 3, 1), np.asarray(want), atol=atol, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("deg,training", [(0.0, True), (6.0, True),
+                                          (0.0, False)])
+def test_forward_matches_jax(models, noise, deg, training):
+    base, params, model = models
+    x1, x2, h = _pair(seed=12, deg=deg)
+    noise.fed = noise.feed(_noise_shapes() if training else [])
+    want = jax.jit(lambda p, a, b, c: base.module.apply(
+        {"params": p}, a, b, c, training=training,
+        rngs={"noise": jax.random.PRNGKey(0)}))(
+        params, jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(h))
+    with torch.no_grad():
+        got = model(_nchw(x1), _nchw(x2), torch.from_numpy(h),
+                    training=training,
+                    generator=torch.Generator().manual_seed(0))
+    assert not noise.fed        # JAX took every draw it was fed
+    for key in ("x1_hat", "x2_hat", "y1_hat", "y2_hat"):
+        _close(got[key], want[key], key)
+    for key in ("y1", "y2", "z1", "z2"):
+        _close(got["likelihoods"][key], want["likelihoods"][key], key)
+
+
+def test_left_prior_and_aux_loss_match_jax(models):
+    base, params, model = models
+    x1, _, h = _pair(seed=13, deg=6.0)
+    want = base.module.apply({"params": params}, jnp.asarray(x1),
+                             jnp.asarray(h), method="left_prior")
+    with torch.no_grad():
+        got = model.left_prior(_nchw(x1), torch.from_numpy(h))
+    _close(got, want, "left_prior")
+    np.testing.assert_allclose(
+        float(model.aux_loss()),
+        float(base.module.apply({"params": params}, method="aux_loss")),
+        rtol=SCALAR_RTOL)
+
+
+def _jax_loss_fn(module, params, batch, rng, noise):
+    """bench.py's _calibrate loss: stereo RD loss + aux loss."""
+    noise.fed = list(batch["noise"])
+    out = module.apply({"params": params}, batch["x1"], batch["x2"],
+                       batch["h"], training=True, rngs={"noise": rng})
+    rd = j_stereo_loss(out, batch["x1"], batch["x2"], lmbda=LMBDA)
+    aux = module.apply({"params": params}, method="aux_loss")
+    return rd["loss"] + aux, {"bpp": rd["bpp_loss"], "mse": rd["mse_loss"]}
+
+
+def _jax_loss(module, params, noise, grad: bool):
+    x1, x2, h = _pair(seed=14, deg=6.0)
+    batch = {"x1": jnp.asarray(x1), "x2": jnp.asarray(x2),
+             "h": jnp.asarray(h), "noise": noise.feed(_noise_shapes())}
+    fn = lambda p, b: _jax_loss_fn(module, p, b,  # noqa: E731
+                                   jax.random.PRNGKey(0), noise)
+    if grad:
+        fn = jax.value_and_grad(fn, has_aux=True)
+    return jax.jit(fn)(jax.tree_util.tree_map(jnp.asarray, params), batch)
+
+
+def _port_loss(model):
+    x1, x2, h = _pair(seed=14, deg=6.0)
+    return make_loss_fn(LMBDA)(
+        model, {"x1": _nchw(x1), "x2": _nchw(x2), "h": torch.from_numpy(h)},
+        torch.Generator().manual_seed(0))
+
+
+def test_loss_and_gradients_match_jax(models, noise):
+    base, params, model = models
+    (want_loss, _), grads = _jax_loss(base.module, params, noise, True)
+    model = copy.deepcopy(model).requires_grad_(True)
+    loss, _ = _port_loss(model)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=SCALAR_RTOL)
+    want = hesic_from_jax(jax.tree_util.tree_map(np.asarray, grads), model)
+    got = dict(model.named_parameters())
+    assert set(want) == set(got)
+    for name, g in want.items():
+        limit = GRAD_REL * float(g.abs().max())
+        err = float((got[name].grad - g).abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+def test_bf16_loss_matches_jax(models, noise):
+    _, params, model = models
+    want_loss, want = _jax_loss(JHESICPlus(N=16, M=24, dtype=jnp.bfloat16),
+                                params, noise, False)
+    bf = HESICPlus(N=16, M=24, dtype=torch.bfloat16, device="cpu")
+    bf.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got_loss, got = _port_loss(bf)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=2e-2)
+    for key in ("bpp", "mse"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=2e-2, err_msg=key)
+
+
+def test_calibrated_round_trip_exact(models):
+    model = copy.deepcopy(models[2])
+    losses, _ = calibrate(model, np.random.RandomState(0), steps=2, hw=64,
+                          batch=2)
+    assert np.isfinite(losses).all()
+    model.requires_grad_(False)
+    cal = HESICPlusDeviceCodec(model, mm=8, groups=4).update()
+    x1, x2, h = _pair(seed=15, deg=6.0)
+    out = cal.compress(x1, x2, h)
+    rec = cal.decompress(out["strings"])
+    for key in ("y1_hat", "y2_hat"):
+        torch.testing.assert_close(rec[key], out[key], rtol=0, atol=0)
