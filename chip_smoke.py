@@ -149,7 +149,27 @@ and prints no result):
      random-weights one, then runs phase 11's bench loop on it (batch
      11, 4 timed batches, modes 1 and 0, the same checks; kernel 4 once
      per eye);
- 13. prints one JSON line with each kernel's numbers (launches: phases 5,
+ 13. drives phase 11's calibrated mbt2018 through the host AR codec
+     (JointAutoregressiveCodec: the transforms on the card, the
+     raster-causal recursion in the native host coder, one thread an
+     image): a round trip of phase 11's 11 images, whose decoded y_hat
+     must equal the encoder's and x_hat be finite and of the input's
+     shape, its bpp_real printed beside the device codec's at the same
+     weights; then the port's bench loop at bench.py's ar point
+     (hesic_tpu_torch/bench.py --model mbt: batch 8, one untimed round
+     trip, 2 timed batches of encode then decode, every one exact);
+     prints images/s, the seconds in the native coder and the card;
+ 14. drives phase 12's calibrated HESIC+ through its host codec
+     (HESICPlusCodec, one pair at a time, both eyes through the native
+     coder, the right eye's analysis input warped by the full bilinear
+     gather): one of phase 6's pairs at the identity H and one at the
+     rotated H.  The decoded y1_hat and y2_hat must equal the encoder's,
+     the reconstructions be finite and of the input's shape, bpp_real
+     be below phase 6's random-weights one, and a container carrying
+     the CPU's writer byte must be refused.  Phases 13 and 14 launch
+     none of the five kernels: the host codecs compute what kernels 4
+     and 5 compute, serially in C++, as the JAX package's do;
+ 15. prints one JSON line with each kernel's numbers (launches: phases 5,
      6, 8, 10, 11 and 12's round trips and phases 9-12's timed loops;
      kernels 1-3's times and bounds at batch 64 on the widest grid phase
      9 ran, kernels 4 and 5's at the HESIC+ point, their errors the
@@ -164,6 +184,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import sys
 import time
 
@@ -201,6 +222,8 @@ PEAK_F32_FLOPS = 67e12          # an FMA counts as two
 # batches.
 AR_B, AR_N, AR_M, AR_MM, AR_GROUPS, AR_CAP = 11, 192, 192, 16, 8, 64
 AR_BENCH_BATCHES = 4
+# bench.py's ar point (the host AR codec): batch 8, 2 timed batches
+HOST_B, HOST_BATCHES = 8, 2
 # kernel 5 against its twin on lattice inputs (the twin's own
 # reconstruction), where no residual may differ: y_hat within Y_TOL and
 # starts/freqs within FREQ_TOL counts of 65536.  The kernel's f32 sums over
@@ -1506,7 +1529,8 @@ def phase_mbt(card: str) -> tuple:
     whose bpp_real must be below the random one's, kernels 5 (no post)
     and 4 held against their twins at the calibrated weights, and the
     bench loop.  Returns (launches of the round trips and the timed
-    loops, the kernels' hold)."""
+    loops, the kernels' hold, (the calibrated model, its images, the
+    device codec's calibrated bpp_real))."""
     import numpy as np
     import torch
     from hesic_tpu_torch.models.ar_device import (
@@ -1564,7 +1588,7 @@ def phase_mbt(card: str) -> tuple:
     torch.cuda.empty_cache()
     for name, n in phase_device_bench(model, card, "mbt2018", 1).items():
         launches[name] = launches.get(name, 0) + n
-    return launches, held
+    return launches, held, (model, x, bpp)
 
 
 def phase_hesic_plus_calibrated(card: str, pairs, random_bpp: float):
@@ -1572,7 +1596,8 @@ def phase_hesic_plus_calibrated(card: str, pairs, random_bpp: float):
     training.recipe.calibrate: CAL_STEPS steps at CAL_HW, batch CAL_B,
     identity H), a round trip on phase 6's pairs whose bpp_real must be
     below phase 6's random-weights one, then the bench loop.  Returns the
-    launches of the round trip and the timed loops."""
+    launches of the round trip and the timed loops, and the calibrated
+    model."""
     import numpy as np
     import torch
     from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
@@ -1600,7 +1625,102 @@ def phase_hesic_plus_calibrated(card: str, pairs, random_bpp: float):
     torch.cuda.empty_cache()
     for name, n in phase_device_bench(model, card, "HESIC+", 2).items():
         launches[name] = launches.get(name, 0) + n
-    return launches
+    return launches, model
+
+
+def phase_mbt_host(card: str, model, x, device_bpp: float) -> None:
+    """Phase 13: phase 11's calibrated mbt2018 through the host AR codec:
+    a round trip of its AR_B images, then the port's bench loop at
+    bench.py's ar point (batch HOST_B, HOST_BATCHES timed), every round
+    trip exact.  Launches none of the five kernels."""
+    import numpy as np
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.autoregressive import host_threads
+    from hesic_tpu_torch.models.codec import JointAutoregressiveCodec
+
+    codec = JointAutoregressiveCodec(model).update()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    out = bench.host_round_trip(codec, x, "mbt2018 host codec")
+    trip_s = time.perf_counter() - t0
+    print(f"mbt2018 host codec [{card}]: {AR_B} {HW_IMG}x{HW_IMG} images "
+          f"round trip in {trip_s:.2f} s ({out['coder_s']:.2f} s encode "
+          f"and {out['dec_coder_s']:.2f} s decode in the native coder, "
+          f"{host_threads(AR_B)} threads); decoded y_hat equals the "
+          f"encoder's; bpp_real {out['bpp_real']:.6f} against the device "
+          f"codec's {device_bpp:.6f} at the same weights")
+    pool = bench.make_pool(np.random.RandomState(0), 1, HOST_B, HW_IMG,
+                           DEVICE)
+    res = bench.run_host(codec, pool[0][0], HOST_BATCHES)
+    if build.launch_counts:
+        raise AssertionError(f"the host AR codec launched kernels "
+                             f"{dict(build.launch_counts)}")
+    print(f"bench mbt2018 host [{card}]: "
+          f"{HOST_BATCHES * HOST_B / res['seconds']:.3f} images/s "
+          f"({HOST_BATCHES} batches of {HOST_B} in {res['seconds']:.2f} s, "
+          f"{res['coder_s']:.2f} s in the native coder, "
+          f"{host_threads(HOST_B)} threads, os.cpu_count() "
+          f"{os.cpu_count()}), bpp_real {res['bpp_real']:.6f}; every "
+          f"round trip exact")
+
+
+def phase_hesic_plus_host(card: str, model, pairs, random_bpp: float):
+    """Phase 14: phase 12's calibrated HESIC+ through its host codec, one
+    of phase 6's pairs at the identity H and one at the rotated H; the
+    decoded latents must equal the encoder's, bpp_real be below phase 6's
+    random-weights one, and a container with the CPU's writer byte be
+    refused.  Launches none of the five kernels."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.hesic_plus_codec import (HESICPlusCodec,
+                                                         writer_id)
+
+    codec = HESICPlusCodec(model).update()
+    x1, x2 = pairs
+    build.launch_counts.clear()
+    for i, (label, hm) in enumerate((
+            ("identity H", np.eye(3, dtype=np.float32)),
+            ("rotated H", bench.rotated_homography()))):
+        a, b = x1[i:i + 1], x2[i:i + 1]
+        out = codec.compress(a, b, hm[None])
+        rec = codec.decompress(out["strings"])
+        for key in ("y1_hat", "y2_hat"):
+            if not torch.equal(rec[key], out[key]):
+                bad = int((rec[key] != out[key]).sum())
+                raise AssertionError(f"HESIC+ host codec [{label}]: "
+                                     f"decoded {key} differs from the "
+                                     f"encoder's at {bad} cells")
+        for key in ("x1_hat", "x2_hat"):
+            x = rec[key]
+            if tuple(x.shape) != tuple(a.shape) or not torch.isfinite(
+                    x).all():
+                raise AssertionError(f"HESIC+ host codec [{label}]: {key} "
+                                     f"shape {tuple(x.shape)} or not "
+                                     f"finite")
+        if not out["bpp_real"] < random_bpp:
+            raise AssertionError(f"HESIC+ host codec [{label}]: bpp_real "
+                                 f"{out['bpp_real']} is not below the "
+                                 f"random weights' {random_bpp}")
+        print(f"HESIC+ host codec [{card}] [{label}]: bpp_real "
+              f"{out['bpp_real']:.6f} (phase 6's random weights "
+              f"{random_bpp:.6f}), encode {out['enctime']:.2f} s, decode "
+              f"{rec['dectime']:.2f} s for one {HW_IMG}x{HW_IMG} pair; "
+              f"decoded latents equal the encoder's")
+    blob = out["strings"][0]
+    try:
+        codec.decompress([bytes([writer_id("cpu")]) + blob[1:]])
+    except ValueError as e:
+        print(f"HESIC+ host codec: the CPU writer's container refused "
+              f"({e})")
+    else:
+        raise AssertionError("HESIC+ host codec: a container with the "
+                             "CPU's writer byte was not refused")
+    if build.launch_counts:
+        raise AssertionError(f"the HESIC+ host codec launched kernels "
+                             f"{dict(build.launch_counts)}")
 
 
 def main() -> int:
@@ -1665,11 +1785,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     dsic_launches, _ = phase_dsic(card)
     torch.cuda.empty_cache()
-    mbt_launches, mbt_held = phase_mbt(card)
+    mbt_launches, mbt_held, (mbt_model, mbt_x, mbt_bpp) = phase_mbt(card)
     torch.cuda.empty_cache()
-    plus_cal_launches = phase_hesic_plus_calibrated(card, pairs,
-                                                    plus_random_bpp)
-    del pairs
+    plus_cal_launches, plus_model = phase_hesic_plus_calibrated(
+        card, pairs, plus_random_bpp)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_mbt_host(card, mbt_model, mbt_x, mbt_bpp)
+    phase_hesic_plus_host(card, plus_model, pairs, plus_random_bpp)
+    print(f"phases 13-14 (the host AR codecs) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del pairs, mbt_model, mbt_x, plus_model
     for counts in (cal_launches, bench_launches, dsic_launches,
                    mbt_launches, plus_cal_launches):
         for name, n in counts.items():

@@ -1,13 +1,14 @@
 """End-to-end encode + decode throughput of a codec on the card: the
 port's counterpart of bench.py's codec points, HESIC's (``main``),
 DSIC's (``bench_dsic``, ``BENCH_MODE=dsic``), mbt2018's wavefront device
-codec (``bench_ar_device``, ``BENCH_MODE=ar-device``) and HESIC+'s
-(``bench_hesic_plus_device``, ``BENCH_MODE=hesic-plus-device``).
+codec (``bench_ar_device``, ``BENCH_MODE=ar-device``), HESIC+'s
+(``bench_hesic_plus_device``, ``BENCH_MODE=hesic-plus-device``) and
+mbt2018's host AR codec (``bench_ar``, ``BENCH_MODE=ar``).
 
 Usage (on a machine with a CUDA card):
 
     python -m hesic_tpu_torch.bench [--model hesic|dsic|mbt-device|
-        hesic-plus-device --size 512 --batch B --batches N
+        hesic-plus-device|mbt --size 512 --batch B --batches N
         --calib-steps 60 --mm 16 --groups 8 --bf16 0|1
         --h identity|real --pipeline 2|1|0 --pool P]
 
@@ -45,24 +46,39 @@ the synchronous container byte for byte.  The timed loop is bench.py's:
 ``--pipeline 1`` encodes batch i+1 on one worker thread while the main
 thread decodes batch i; ``--pipeline 0`` encodes, then decodes.
 
+The host AR codec.  ``--model mbt`` builds mbt2018 N=192/M=192
+(float32, seed 0) with random weights, as bench.py's ar point has them
+(``--calib-steps`` calibrates it when given), and codes the first eyes
+of one batch of 8 smooth pairs through ``JointAutoregressiveCodec``
+(models/codec.py: the transforms on the card, the raster-causal
+recursion in the native host coder, one thread an image): one untimed
+round trip, then 2 timed batches of encode then decode (``--pipeline``
+0, bench.py's loop).  Every round trip must decode to the encoder's
+y_hat (tolerance 0).
+
 Outside the timed window every container of the loop must have decoded
 to the encoder's latents, or the run raises.  Prints one JSON line:
 ``metric`` (stereo_pairs_per_sec_<size>px_encdec,
 dsic_pairs_per_sec_<size>px_encdec,
-mbt2018_device_images_per_sec_<size>px_encdec or
-hesic_plus_device_pairs_per_sec_<size>px_encdec), ``value`` (pairs or
-images a second), ``unit``, ``model``, ``bpp_real`` (mean over the loop),
-``batches``, ``batch``, ``h``, ``pipeline``, ``peak_memory_gib``
+mbt2018_device_images_per_sec_<size>px_encdec,
+hesic_plus_device_pairs_per_sec_<size>px_encdec or
+mbt2018_images_per_sec_<size>px_encdec), ``value`` (pairs or images a
+second), ``unit``, ``model``, ``bpp_real`` (mean over the loop; the host
+codec's counts its y and z strings' bytes), ``batches``, ``batch``,
+``h``, ``pipeline``, ``peak_memory_gib``
 (``torch.cuda.max_memory_allocated``), the fast codecs' grid widths and
-outlier counts or the device codecs' grid, groups and escape counts,
-and ``card`` (name and power limit).  No MFU field: the port has no
-FLOP count of these programs.
+outlier counts, the device codecs' grid, groups and escape counts, or
+the host codec's ``host_threads`` (the coder pool's width),
+``cpu_count`` (``os.cpu_count()``) and seconds in the native coder, and
+``card`` (name and power limit).  No MFU field: the port has no FLOP
+count of these programs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -73,6 +89,8 @@ import torch
 
 from .models.ar_device import (HESICPlusDeviceCodec,
                                JointAutoregressiveDeviceCodec)
+from .models.autoregressive import host_threads
+from .models.codec import JointAutoregressiveCodec
 from .models.dsic import DSIC
 from .models.dsic_fast import DSICFastCodec
 from .models.hesic import HESIC
@@ -86,9 +104,12 @@ from .training.recipe import calibrate, calibrate_single, smooth_pairs
 POINTS = {"hesic": ("stereo", "pairs", 64, 6, 2, 4),
           "dsic": ("dsic", "pairs", 32, 4, 2, 4),
           "mbt-device": ("mbt2018_device", "images", 11, 4, 1, 1),
-          "hesic-plus-device": ("hesic_plus_device", "pairs", 11, 4, 1, 1)}
+          "hesic-plus-device": ("hesic_plus_device", "pairs", 11, 4, 1, 1),
+          "mbt": ("mbt2018", "images", 8, 2, 0, 1)}
 # the wavefront device codecs' points
 DEVICE_POINTS = ("mbt-device", "hesic-plus-device")
+# mbt2018's points
+MBT_POINTS = ("mbt-device", "mbt")
 
 
 def parse_args(argv=None):
@@ -97,11 +118,13 @@ def parse_args(argv=None):
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--batch", type=int, default=None,
                    help="pairs or images per batch (default 64 for "
-                        "hesic, 32 for dsic, 11 for the device codecs)")
+                        "hesic, 32 for dsic, 11 for the device codecs, 8 "
+                        "for mbt)")
     p.add_argument("--batches", type=int, default=None,
-                   help="timed batches (default 6 for hesic, 4 for the "
-                        "others)")
-    p.add_argument("--calib-steps", type=int, default=60)
+                   help="timed batches (default 6 for hesic, 2 for mbt, "
+                        "4 for the others)")
+    p.add_argument("--calib-steps", type=int, default=None,
+                   help="calibration steps (default 60; 0 for mbt)")
     p.add_argument("--mm", type=int, default=16)
     p.add_argument("--groups", type=int, default=8,
                    help="channel groups of the device codecs")
@@ -110,7 +133,7 @@ def parse_args(argv=None):
     p.add_argument("--h", choices=("identity", "real"), default="identity")
     p.add_argument("--pipeline", type=int, choices=(0, 1, 2), default=None,
                    help="2 (fast codecs) or 1 (device codecs) pipelined, "
-                        "0 encode then decode")
+                        "0 encode then decode (the only mode of mbt)")
     p.add_argument("--pool", type=int, default=None,
                    help="distinct batches cycled (default 4, 1 for the "
                         "device codecs)")
@@ -124,12 +147,15 @@ def parse_args(argv=None):
     args.pipeline = mode if args.pipeline is None else args.pipeline
     if args.pipeline not in (0, mode):
         p.error(f"--model {args.model} runs --pipeline {mode} or 0")
-    mbt = args.model == "mbt-device"
+    if args.calib_steps is None:
+        # bench.py's ar point codes with random weights
+        args.calib_steps = 0 if args.model == "mbt" else 60
+    mbt = args.model in MBT_POINTS
     if args.bf16 is None:
         args.bf16 = 0 if mbt else 1
     if mbt and args.bf16:
         p.error("mbt2018 is float32: --bf16 must be 0")
-    if args.model in ("dsic", "mbt-device") and args.h != "identity":
+    if (args.model == "dsic" or mbt) and args.h != "identity":
         p.error(f"{args.model} takes no homography: --h must be identity")
     return args
 
@@ -141,7 +167,7 @@ def build_model(args):
     if args.model == "dsic":
         return DSIC(N=128, M=192, F=21, C=32, K=5, dtype=dtype,
                     device=args.device, seed=0)
-    if args.model == "mbt-device":
+    if args.model in MBT_POINTS:
         return JointAutoregressiveHierarchicalPriors(
             N=192, M=192, device=args.device, seed=0)
     if args.model == "hesic-plus-device":
@@ -318,7 +344,8 @@ def device_args(codec, x1, x2, h) -> tuple:
 
 
 def latent_keys(codec) -> tuple:
-    if isinstance(codec, JointAutoregressiveDeviceCodec):
+    if isinstance(codec, (JointAutoregressiveDeviceCodec,
+                          JointAutoregressiveCodec)):
         return ("y_hat",)
     return ("y1_hat", "y2_hat")
 
@@ -419,6 +446,39 @@ def run_device(codec, pool, h, n_batches: int, pipeline: int = 1) -> dict:
             "escapes": [o["escapes"] for o in outs]}
 
 
+# ---- the host AR codec (bench.py's ar point) ----
+
+def host_round_trip(codec, x, label: str) -> dict:
+    """One round trip of images `x` through the host AR codec: the decoded
+    y_hat must equal the encoder's (tolerance 0) and x_hat be finite and
+    of the input's shape.  Returns the encode's dict, the decode's
+    coder seconds added as 'dec_coder_s'."""
+    out = codec.compress(x)
+    rec = codec.decompress(out["strings"], out["shape"])
+    check_decoded(codec, out, rec, label)
+    if tuple(rec["x_hat"].shape) != tuple(x.shape):
+        raise AssertionError(f"{label}: x_hat shape "
+                             f"{tuple(rec['x_hat'].shape)}")
+    return {**out, "dec_coder_s": rec["coder_s"]}
+
+
+def run_host(codec, x, n_batches: int) -> dict:
+    """bench.py's ar loop: one untimed round trip of `x`, then
+    `n_batches` timed round trips (encode then decode), every one exact.
+    Returns the loop's seconds, mean bpp_real and seconds in the native
+    coder (encode and decode)."""
+    host_round_trip(codec, x, "warm-up")
+    outs = []
+    _sync(codec)
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        outs.append(host_round_trip(codec, x, f"timed batch {i}"))
+    _sync(codec)
+    return {"seconds": time.perf_counter() - t0,
+            "bpp_real": float(np.mean([o["bpp_real"] for o in outs])),
+            "coder_s": sum(o["coder_s"] + o["dec_coder_s"] for o in outs)}
+
+
 def bench(model, args, calib_hw: int = 256) -> dict:
     """Calibrate `model`, build the codec and the pool, and run the bench
     point of `args` (parse_args).  Returns run()'s or run_device()'s
@@ -427,6 +487,10 @@ def bench(model, args, calib_hw: int = 256) -> dict:
     if args.calib_steps > 0:
         cal = calibrate_single if model.single_image else calibrate
         cal(model, rng, args.calib_steps, hw=calib_hw)
+    if args.model == "mbt":
+        codec = JointAutoregressiveCodec(model).update()
+        x = make_pool(rng, 1, args.batch, args.size, codec.device)[0][0]
+        return run_host(codec, x, args.batches)
     h = homographies(args.h, args.batch)
     if args.model in DEVICE_POINTS:
         codec = make_device_codec(model, args.mm, args.groups)
@@ -451,7 +515,11 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
     res = bench(model, args)
     prefix, item = POINTS[args.model][:2]
-    if args.model in DEVICE_POINTS:
+    if args.model == "mbt":
+        codec_fields = {"host_threads": host_threads(args.batch),
+                        "cpu_count": os.cpu_count(),
+                        "coder_seconds": res["coder_s"]}
+    elif args.model in DEVICE_POINTS:
         codec_fields = {"mm": args.mm, "groups": args.groups,
                         "escapes": res["escapes"]}
     else:

@@ -2,11 +2,17 @@
 
 Five shared libraries, each built from this package's sources on first
 use into ``hesic_tpu_torch/_build/`` (gitignored) and rebuilt when its
-source is newer than the library:
+source is newer than the library.  The host library's file name carries
+a hash of the target options ``-march=native`` resolves to, so a
+``_build/`` copied to a host with another CPU builds its own instead of
+loading instructions that CPU may lack:
 
-  ``rans``       csrc/rans.cpp, g++: the host rANS coder for z and the CDF
-                 quantizer (``-ffp-contract=off``: no FMA contraction in
-                 the float quantizer, as the JAX package builds it);
+  ``rans``       csrc/rans.cpp, g++: the host rANS coder for z, the CDF
+                 quantizer, the streaming decoder and the host AR coder,
+                 with the JAX package's flags (``-ffp-contract=off``: no
+                 FMA contraction, so the AR coder's float sums are exact
+                 IEEE mul+add in a fixed order; ``-march=native``, retried
+                 without it where the compiler refuses);
   ``pmf``        csrc/pmf.cu, nvcc for sm_90a with ``-fmad=false``:
                  kernel 1 (GMM -> frequency rows);
   ``grid_rans``  csrc/grid_rans.cu, nvcc for sm_90a: kernels 2 and 3
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -48,7 +56,9 @@ SOURCES = {
     "wavefront": "wavefront.cu",
 }
 
-_HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
+_HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+               "-Wall"]
+_HOST_ARCH = ["-march=native"]
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # kernel 1 and kernel 5's coder must be bit-equal to eager PyTorch: no
@@ -77,8 +87,25 @@ def count_launch(name: str) -> None:
 _loaded: dict = {}
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+@functools.lru_cache(maxsize=None)
+def host_tag() -> str:
+    """12 hex digits of the target options that ``-march=native``
+    resolves to on this host (as ``g++ -Q --help=target`` prints them),
+    or "portable" where the compiler does not take it."""
+    proc = subprocess.run([_cxx(), *_HOST_ARCH, "-Q", "--help=target"],
+                          stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+    if proc.returncode != 0 or not proc.stdout:
+        return "portable"
+    return hashlib.sha256(proc.stdout).hexdigest()[:12]
+
+
 def lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+    tag = f"-{host_tag()}" if name == "rans" else ""
+    return os.path.join(BUILD_DIR, f"lib{name}{tag}.so")
 
 
 def _nvcc() -> str:
@@ -92,10 +119,12 @@ def _nvcc() -> str:
                        "toolkit (sm_90a)")
 
 
-def _command(name: str, out: str) -> list:
+def _command(name: str, out: str, portable: bool = False) -> list:
     src = os.path.join(CSRC, SOURCES[name])
     if name == "rans":
-        return [os.environ.get("CXX", "g++"), *_HOST_FLAGS, src, "-o", out]
+        arch = [] if portable else _HOST_ARCH
+        return [_cxx(), *_HOST_FLAGS, *arch, src,
+                "-o", out]
     return [_nvcc(), *_NVCC_FLAGS, *_NVCC_EXTRA.get(name, []), src,
             "-o", out]
 
@@ -121,6 +150,12 @@ def _start(name: str):
 
 def _finish(name: str, proc, tmp: str):
     out, _ = proc.communicate()
+    if proc.returncode != 0 and name == "rans":
+        # the host library again without -march=native
+        proc = subprocess.Popen(_command(name, tmp, portable=True),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        out, _ = proc.communicate()
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -1,16 +1,25 @@
-// Host-side rANS coder for the z latents of the PyTorch/CUDA port.
+// Host-side coders of the PyTorch/CUDA port: z latents and the
+// autoregressive y latents.
 //
-// A copy of the subset of hesic_tpu/codecs/csrc/rans.cpp that the fast
-// codec's z path uses, kept byte-for-byte in its arithmetic so z strings
-// are identical to the JAX package's at equal symbols and tables:
+// A copy of the subset of hesic_tpu/codecs/csrc/rans.cpp that the port's
+// codecs use, kept byte-for-byte in its arithmetic so strings are
+// identical to the JAX package's at equal inputs and tables:
 //   * rANS (64-bit state, 32-bit word renormalization, 16-bit probability
 //     resolution, escape/bypass coding in 4-bit chunks), CompressAI framing;
 //   * pmf_to_quantized_cdf: float PMF -> integer CDF summing to 2^precision
-//     with frequency stealing so no symbol has zero width.
+//     with frequency stealing so no symbol has zero width;
+//   * the stateful (streaming) rANS decoder of the autoregressive codecs'
+//     numpy cross-check decoder;
+//   * the autoregressive (raster-causal) coder of the host AR codecs
+//     (hesic_ar_code), one float implementation for encode and decode.
 // The API is array-oriented (raw pointers + lengths, C ABI for ctypes).
 //
-// Build (hesic_tpu_torch/codecs/build.py):
-//   g++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC rans.cpp -o librans_host.so
+// Build (hesic_tpu_torch/codecs/build.py), the JAX package's flags:
+//   g++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC -Wall
+//       -march=native rans.cpp -o librans-<host tag>.so
+// and without -march=native where the compiler refuses it.  With FMA
+// contraction off, -march=native only vectorizes the AR coder's
+// independent output lanes; no sum changes its order.
 
 #include <algorithm>
 #include <cmath>
@@ -450,6 +459,272 @@ int64_t hesic_rans_decode_batch(const uint8_t* data, const int64_t* begins,
       dst[i] = decode_symbol(rans, src, rows[i], sizes[i]) + offs[i];
   }
   return n_per * n_streams;
+}
+
+
+// ---- rANS, stateful decoder (autoregressive models) ----
+
+struct HesicRansDecoder {
+  std::vector<uint8_t> data;
+  RansState rans;
+  WordSource src;
+};
+
+void* hesic_rans_decoder_new(const uint8_t* data, int64_t nbytes) {
+  if (nbytes < 8 || (nbytes % 4) != 0) return nullptr;
+  auto* d = new HesicRansDecoder();
+  d->data.assign(data, data + nbytes);
+  d->src.ptr = reinterpret_cast<const uint32_t*>(d->data.data());
+  d->src.end = reinterpret_cast<const uint32_t*>(d->data.data() + nbytes);
+  rans_dec_init(d->rans, d->src);
+  return d;
+}
+
+void hesic_rans_decoder_free(void* dec) {
+  delete static_cast<HesicRansDecoder*>(dec);
+}
+
+int64_t hesic_rans_decoder_decode(void* dec, const int32_t* indexes, int64_t n,
+                                  const int32_t* cdfs, int32_t cdf_stride,
+                                  const int32_t* cdf_sizes,
+                                  const int32_t* offsets, int32_t ncdfs,
+                                  int32_t* out) {
+  auto* d = static_cast<HesicRansDecoder*>(dec);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -1;
+    const int32_t* cdf = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    out[i] = decode_symbol(d->rans, d->src, cdf, cdf_sizes[idx]) + offsets[idx];
+  }
+  return n;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Autoregressive (PixelCNN-context) coder core
+// ---------------------------------------------------------------------------
+//
+// Runs the raster-causal recursion of the mbt2018/HESIC+ codecs on the host
+// with ONE float implementation shared by encode and decode — the recursion's
+// Gaussian parameters feed the entropy coder, so encoder and decoder must
+// compute bit-identical values (device/host f32 drift corrupts streams).
+// Reference semantics: models/priors.py:490-612, newnet1_joint.py:793-1322.
+
+namespace {
+
+struct ArModel {
+  int h, w, m, p_dim, q_dim;
+  const float* pre;        // (h, w, p_dim)
+  const float* post;       // (h, w, q_dim) or nullptr
+  const float* k_up;       // (2*5*m, 2m) upper context taps, row-major
+  const float* k_left2;    // (m, 2m)
+  const float* k_left1;    // (m, 2m)
+  const float* ctx_bias;   // (2m)
+  const float* w1; const float* b1; int c1_in, c1_mid;
+  const float* w2; const float* b2; int c2_mid;
+  const float* w3; const float* b3; int c3_out;  // == 2m
+  const float* thresholds; int n_thresholds;     // scale_table[:-1]
+};
+
+inline void matvec(const float* __restrict w, const float* __restrict x,
+                   const float* __restrict bias, int in_dim, int out_dim,
+                   float* __restrict out) {
+  // w: (in_dim, out_dim) row-major; out = x @ w + bias
+  for (int o = 0; o < out_dim; ++o) out[o] = bias ? bias[o] : 0.f;
+  for (int i = 0; i < in_dim; ++i) {
+    const float xi = x[i];
+    if (xi == 0.f) continue;
+    const float* wr = w + static_cast<size_t>(i) * out_dim;
+    for (int o = 0; o < out_dim; ++o) out[o] += xi * wr[o];
+  }
+}
+
+inline float leaky(float v) { return v >= 0.f ? v : 0.01f * v; }
+
+// Computes scales/means for pixel (hh, ww) given the padded y_hat buffer
+// and the row's precomputed upper context.
+void ar_pixel_params(const ArModel& md, const float* y_pad, int w_pad,
+                     const float* ctx_up_row, int hh, int ww,
+                     std::vector<float>& scratch, float* scales,
+                     float* means) {
+  const int m = md.m, two_m = 2 * md.m;
+  const float* row = y_pad + (static_cast<size_t>(hh + 2) * w_pad) * m;
+  scratch.resize(two_m + md.c1_in + md.c1_mid + md.c2_mid + md.c3_out);
+  float* ctx = scratch.data();
+  float* feat = ctx + two_m;
+  float* g1 = feat + md.c1_in;
+  float* g2 = g1 + md.c1_mid;
+  float* g3 = g2 + md.c2_mid;
+
+  for (int o = 0; o < two_m; ++o)
+    ctx[o] = ctx_up_row[static_cast<size_t>(ww) * two_m + o]
+             + md.ctx_bias[o];
+  matvec(md.k_left2, row + static_cast<size_t>(ww) * m, nullptr, m, two_m,
+         g1);  // reuse g1 as temp
+  for (int o = 0; o < two_m; ++o) ctx[o] += g1[o];
+  matvec(md.k_left1, row + static_cast<size_t>(ww + 1) * m, nullptr, m,
+         two_m, g1);
+  for (int o = 0; o < two_m; ++o) ctx[o] += g1[o];
+
+  // feat = [pre, ctx, post]
+  int fo = 0;
+  const float* pre_px = md.pre
+      + (static_cast<size_t>(hh) * md.w + ww) * md.p_dim;
+  for (int i = 0; i < md.p_dim; ++i) feat[fo++] = pre_px[i];
+  for (int i = 0; i < two_m; ++i) feat[fo++] = ctx[i];
+  if (md.post) {
+    const float* post_px = md.post
+        + (static_cast<size_t>(hh) * md.w + ww) * md.q_dim;
+    for (int i = 0; i < md.q_dim; ++i) feat[fo++] = post_px[i];
+  }
+  matvec(md.w1, feat, md.b1, md.c1_in, md.c1_mid, g1);
+  for (int i = 0; i < md.c1_mid; ++i) g1[i] = leaky(g1[i]);
+  matvec(md.w2, g1, md.b2, md.c1_mid, md.c2_mid, g2);
+  for (int i = 0; i < md.c2_mid; ++i) g2[i] = leaky(g2[i]);
+  matvec(md.w3, g2, md.b3, md.c2_mid, md.c3_out, g3);
+  for (int i = 0; i < m; ++i) scales[i] = g3[i];
+  for (int i = 0; i < m; ++i) means[i] = g3[m + i];
+}
+
+// Upper-context row: for each ww, taps from the two decoded rows above.
+void ar_upper_ctx_row(const ArModel& md, const float* y_pad, int w_pad,
+                      int hh, float* ctx_up /* (w, 2m) */) {
+  const int m = md.m, two_m = 2 * md.m;
+  const int in_dim = 2 * 5 * m;
+  std::vector<float> window(in_dim);
+  for (int ww = 0; ww < md.w; ++ww) {
+    // rows hh..hh+1 of the padded buffer, cols ww..ww+4
+    int o = 0;
+    for (int dy = 0; dy < 2; ++dy) {
+      const float* r = y_pad
+          + (static_cast<size_t>(hh + dy) * w_pad + ww) * m;
+      for (int dx = 0; dx < 5; ++dx)
+        for (int c = 0; c < m; ++c) window[o++] = r[dx * m + c];
+    }
+    matvec(md.k_up, window.data(), nullptr, in_dim, two_m,
+           ctx_up + static_cast<size_t>(ww) * two_m);
+  }
+}
+
+inline int32_t scale_index(const ArModel& md, float scale) {
+  int32_t idx = 0;
+  for (int i = 0; i < md.n_thresholds; ++i)
+    if (scale > md.thresholds[i]) ++idx;
+  return idx;
+}
+
+ArModel ar_model_from_args(int h, int w, int m, int p_dim, int q_dim,
+                           const float* pre, const float* post,
+                           const float* k_up, const float* k_left2,
+                           const float* k_left1, const float* ctx_bias,
+                           const float* w1, const float* b1, int c1_mid,
+                           const float* w2, const float* b2, int c2_mid,
+                           const float* w3, const float* b3,
+                           const float* thresholds, int n_thresholds) {
+  ArModel md;
+  md.h = h; md.w = w; md.m = m; md.p_dim = p_dim; md.q_dim = q_dim;
+  md.pre = pre; md.post = post;
+  md.k_up = k_up; md.k_left2 = k_left2; md.k_left1 = k_left1;
+  md.ctx_bias = ctx_bias;
+  md.w1 = w1; md.b1 = b1;
+  md.c1_in = p_dim + 2 * m + q_dim; md.c1_mid = c1_mid;
+  md.w2 = w2; md.b2 = b2; md.c2_mid = c2_mid;
+  md.w3 = w3; md.b3 = b3; md.c3_out = 2 * m;
+  md.thresholds = thresholds; md.n_thresholds = n_thresholds;
+  return md;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared-argument AR coder.  direction 0 = encode (y given, stream out),
+// 1 = decode (stream given, y_hat out).
+//   y:        encode: (h, w, m) float latents (input)
+//   y_hat:    (h, w, m) float output (decoded/reconstructed latents)
+//   stream:   encode: output buffer (cap bytes, returns length or
+//             -needed); decode: input buffer (nbytes)
+// Weight layouts: k_up (2*5*m, 2m); k_left* (m, 2m); w_i (in, out).
+int64_t hesic_ar_code(
+    int direction, const float* y, float* y_hat, uint8_t* stream,
+    int64_t stream_len, int h, int w, int m, int p_dim, int q_dim,
+    const float* pre, const float* post, const float* k_up,
+    const float* k_left2, const float* k_left1, const float* ctx_bias,
+    const float* w1, const float* b1, int c1_mid, const float* w2,
+    const float* b2, int c2_mid, const float* w3, const float* b3,
+    const float* thresholds, int n_thresholds, const int32_t* cdfs,
+    int32_t cdf_stride, const int32_t* cdf_sizes, const int32_t* offsets,
+    int32_t ncdfs) {
+  ArModel md = ar_model_from_args(h, w, m, p_dim, q_dim, pre, post, k_up,
+                                  k_left2, k_left1, ctx_bias, w1, b1,
+                                  c1_mid, w2, b2, c2_mid, w3, b3,
+                                  thresholds, n_thresholds);
+  const int w_pad = w + 4;
+  std::vector<float> y_pad(static_cast<size_t>(h + 4) * w_pad * m, 0.f);
+  std::vector<float> ctx_up(static_cast<size_t>(w) * 2 * m);
+  std::vector<float> scales(m), means(m), scratch;
+  std::vector<int32_t> idx(m), syms(m);
+
+  std::vector<Buffered> enc_buf;
+  RansState rans;
+  WordSource src{nullptr, nullptr};
+  if (direction == 1) {
+    if (stream_len < 8 || (stream_len % 4) != 0) return -1;
+    src.ptr = reinterpret_cast<const uint32_t*>(stream);
+    src.end = reinterpret_cast<const uint32_t*>(stream + stream_len);
+    rans_dec_init(rans, src);
+  } else {
+    enc_buf.reserve(static_cast<size_t>(h) * w * m + 64);
+  }
+
+  for (int hh = 0; hh < h; ++hh) {
+    ar_upper_ctx_row(md, y_pad.data(), w_pad, hh, ctx_up.data());
+    float* out_row = y_pad.data()
+        + (static_cast<size_t>(hh + 2) * w_pad + 2) * m;
+    for (int ww = 0; ww < w; ++ww) {
+      ar_pixel_params(md, y_pad.data(), w_pad, ctx_up.data(), hh, ww,
+                      scratch, scales.data(), means.data());
+      for (int c = 0; c < m; ++c)
+        idx[c] = scale_index(md, scales[c]);
+      float* dst = out_row + static_cast<size_t>(ww) * m;
+      if (direction == 0) {
+        const float* y_px = y
+            + (static_cast<size_t>(hh) * w + ww) * m;
+        for (int c = 0; c < m; ++c) {
+          const float q = std::round(y_px[c] - means[c]);
+          dst[c] = q + means[c];
+          const int32_t cdf_idx = idx[c];
+          if (cdf_idx < 0 || cdf_idx >= ncdfs) return -2;
+          buffer_symbol(enc_buf, static_cast<int32_t>(q) - offsets[cdf_idx],
+                        cdfs + static_cast<size_t>(cdf_idx) * cdf_stride,
+                        cdf_sizes[cdf_idx]);
+        }
+      } else {
+        for (int c = 0; c < m; ++c) {
+          const int32_t cdf_idx = idx[c];
+          if (cdf_idx < 0 || cdf_idx >= ncdfs) return -2;
+          const int32_t v = decode_symbol(
+              rans, src, cdfs + static_cast<size_t>(cdf_idx) * cdf_stride,
+              cdf_sizes[cdf_idx]) + offsets[cdf_idx];
+          dst[c] = static_cast<float>(v) + means[c];
+        }
+      }
+    }
+  }
+
+  // copy the interior of the padded buffer to y_hat
+  for (int hh = 0; hh < h; ++hh) {
+    const float* src_row = y_pad.data()
+        + (static_cast<size_t>(hh + 2) * w_pad + 2) * m;
+    std::memcpy(y_hat + (static_cast<size_t>(hh) * w) * m, src_row,
+                sizeof(float) * static_cast<size_t>(w) * m);
+  }
+
+  if (direction == 0) {
+    return flush_buffer(enc_buf, stream, stream_len);
+  }
+  return 0;
 }
 
 }  // extern "C"

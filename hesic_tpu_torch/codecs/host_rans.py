@@ -1,8 +1,16 @@
-"""ctypes bindings for the host rANS coder (csrc/rans.cpp).
+"""ctypes bindings for the host coders (csrc/rans.cpp).
 
 Array-oriented: every call takes numpy arrays and crosses the Python/C++
 boundary once per tensor.  The library is built and loaded on first use
-(codecs/build.py), never at import.
+(codecs/build.py), never at import.  It is loaded with ``ctypes.CDLL``,
+which releases the GIL for the length of every native call, so the host
+AR codecs' threads code a batch's images in parallel.
+
+Beyond the batched z coder and the CDF quantizer: the single-stream
+``encode_with_indexes``/``decode_with_indexes``, the stateful
+``RansDecoder`` (``set_stream``/``decode_stream``, the numpy AR
+decoder's coder) and the raster-causal AR coder (``ArWeightsNative``,
+``ar_code``), as hesic_tpu/codecs/rans.py binds them.
 """
 
 from __future__ import annotations
@@ -30,6 +38,24 @@ _SIGNATURES = {
         _c_u8p, _c_i64p, _c_i64p, _c_i32p, ctypes.c_int64,
         ctypes.c_int32, _c_i32p, ctypes.c_int32, _c_i32p, _c_i32p,
         ctypes.c_int32, _c_i32p]),
+    "hesic_rans_encode_with_indexes": (ctypes.c_int64, [
+        _c_i32p, _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32, _c_i32p,
+        _c_i32p, ctypes.c_int32, _c_u8p, ctypes.c_int64]),
+    "hesic_rans_decode_with_indexes": (ctypes.c_int64, [
+        _c_u8p, ctypes.c_int64, _c_i32p, ctypes.c_int64, _c_i32p,
+        ctypes.c_int32, _c_i32p, _c_i32p, ctypes.c_int32, _c_i32p]),
+    "hesic_rans_decoder_new": (ctypes.c_void_p, [_c_u8p, ctypes.c_int64]),
+    "hesic_rans_decoder_free": (None, [ctypes.c_void_p]),
+    "hesic_rans_decoder_decode": (ctypes.c_int64, [
+        ctypes.c_void_p, _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32,
+        _c_i32p, _c_i32p, ctypes.c_int32, _c_i32p]),
+    "hesic_ar_code": (ctypes.c_int64, [
+        ctypes.c_int, _c_f32p, _c_f32p, _c_u8p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _c_f32p, _c_f32p, _c_f32p, _c_f32p, _c_f32p, _c_f32p,
+        _c_f32p, _c_f32p, ctypes.c_int, _c_f32p, _c_f32p, ctypes.c_int,
+        _c_f32p, _c_f32p, _c_f32p, ctypes.c_int,
+        _c_i32p, ctypes.c_int32, _c_i32p, _c_i32p, ctypes.c_int32]),
 }
 
 
@@ -132,3 +158,167 @@ def rans_decode_batch(data: bytes, begins, ends, indexes, n_per: int,
     if n != b.size * n_per:
         raise ValueError("batched rANS decode failed")
     return out
+
+
+def _table(cdfs, cdf_sizes, offsets):
+    return (np.ascontiguousarray(cdfs, dtype=np.int32), _i32(cdf_sizes),
+            _i32(offsets))
+
+
+def encode_with_indexes(symbols, indexes, cdfs, cdf_sizes,
+                        offsets) -> bytes:
+    """Encode one stream: symbols[i] with the CDF row indexes[i]."""
+    sym, idx = _i32(symbols), _i32(indexes)
+    if sym.size != idx.size:
+        raise ValueError("symbols and indexes must have the same size")
+    table, sizes, offs = _table(cdfs, cdf_sizes, offsets)
+    cap = max(1 << 12, sym.size * 12 + 64)
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        n = _lib().hesic_rans_encode_with_indexes(
+            _ptr(sym, _c_i32p), _ptr(idx, _c_i32p), sym.size,
+            _ptr(table, _c_i32p), table.shape[1], _ptr(sizes, _c_i32p),
+            _ptr(offs, _c_i32p), table.shape[0], _ptr(out, _c_u8p), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n == -1:
+            raise ValueError("encode failed: index out of range")
+        if n == -3:
+            raise ValueError("encode failed: invalid CDF table")
+        cap = int(-n)
+
+
+def decode_with_indexes(data: bytes, indexes, cdfs, cdf_sizes,
+                        offsets) -> np.ndarray:
+    """Decode one stream of ``indexes.size`` symbols -> int32 (n,)."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    idx = _i32(indexes)
+    table, sizes, offs = _table(cdfs, cdf_sizes, offsets)
+    out = np.empty(idx.size, dtype=np.int32)
+    n = _lib().hesic_rans_decode_with_indexes(
+        _ptr(buf, _c_u8p), buf.size, _ptr(idx, _c_i32p), idx.size,
+        _ptr(table, _c_i32p), table.shape[1], _ptr(sizes, _c_i32p),
+        _ptr(offs, _c_i32p), table.shape[0], _ptr(out, _c_i32p))
+    if n != idx.size:
+        raise ValueError("rANS decode failed")
+    return out
+
+
+class RansDecoder:
+    """Stateful rANS decoder: ``set_stream`` once, then ``decode_stream``
+    walks the stream a chunk of symbols at a time (the autoregressive
+    decode pattern).  The native decoder keeps its own copy of the
+    bytes."""
+
+    def __init__(self):
+        self._handle = None
+
+    def __del__(self):
+        self._close()
+
+    def _close(self):
+        if getattr(self, "_handle", None):
+            _lib().hesic_rans_decoder_free(self._handle)
+            self._handle = None
+
+    def set_stream(self, encoded: bytes):
+        self._close()
+        data = np.frombuffer(encoded, dtype=np.uint8)
+        self._handle = _lib().hesic_rans_decoder_new(_ptr(data, _c_u8p),
+                                                     data.size)
+        if not self._handle:
+            raise ValueError("invalid rANS stream")
+
+    def decode_stream(self, indexes, cdfs, cdf_sizes,
+                      offsets) -> np.ndarray:
+        if not self._handle:
+            raise ValueError("set_stream() first")
+        idx = _i32(indexes)
+        table, sizes, offs = _table(cdfs, cdf_sizes, offsets)
+        out = np.empty(idx.size, dtype=np.int32)
+        n = _lib().hesic_rans_decoder_decode(
+            self._handle, _ptr(idx, _c_i32p), idx.size,
+            _ptr(table, _c_i32p), table.shape[1], _ptr(sizes, _c_i32p),
+            _ptr(offs, _c_i32p), table.shape[0], _ptr(out, _c_i32p))
+        if n != idx.size:
+            raise ValueError("rANS decode_stream failed")
+        return out
+
+
+def _f32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+class ArWeightsNative:
+    """The AR coder's weights as contiguous float32 host arrays: the
+    masked context kernel's two upper rows as one (10M, 2M) matrix and
+    its two left taps (M, 2M) each, the entropy-parameter kernels (in,
+    out) and biases, and the scale table's thresholds (all but its last
+    entry)."""
+
+    def __init__(self, ctx_kernel, ctx_bias, ep_kernels, ep_biases,
+                 scale_table):
+        ck = np.asarray(ctx_kernel, np.float32)  # (5, 5, M, 2M), masked
+        self.m = ck.shape[2]
+        self.k_up = _f32(ck[:2].reshape(2 * 5 * self.m, 2 * self.m))
+        self.k_left2 = _f32(ck[2, 0])
+        self.k_left1 = _f32(ck[2, 1])
+        self.ctx_bias = _f32(ctx_bias)
+        self.ep_w = [_f32(w) for w in ep_kernels]
+        self.ep_b = [_f32(b) for b in ep_biases]
+        self.thresholds = _f32(np.asarray(scale_table)[:-1])
+
+
+def ar_code(direction: int, weights: ArWeightsNative, pre, post, tables,
+            y=None, stream: bytes = None):
+    """Run the raster-causal coder (0 = encode, 1 = decode) natively.
+
+    pre: (h, w, P) float32; post: (h, w, Q) float32 or None; tables: the
+    Gaussian conditional's CdfTables.  Encode: y (h, w, M) -> (stream
+    bytes, y_hat (h, w, M)); decode: stream -> y_hat.  Both directions
+    run one float implementation, so their Gaussian parameters are
+    bit-identical."""
+    pre = _f32(pre)
+    h, w, p_dim = pre.shape
+    m = weights.m
+    post_arr = None if post is None else _f32(post)
+    q_dim = 0 if post_arr is None else post_arr.shape[-1]
+    y_hat = np.empty((h, w, m), np.float32)
+    cdf, sizes, offs = _table(tables.quantized_cdf, tables.cdf_length,
+                              tables.offset)
+    wt = weights
+
+    def call(direction, y_ptr, buf, n):
+        return _lib().hesic_ar_code(
+            direction, y_ptr, _ptr(y_hat, _c_f32p), _ptr(buf, _c_u8p), n,
+            h, w, m, p_dim, q_dim, _ptr(pre, _c_f32p),
+            _ptr(post_arr, _c_f32p) if q_dim else None,
+            _ptr(wt.k_up, _c_f32p), _ptr(wt.k_left2, _c_f32p),
+            _ptr(wt.k_left1, _c_f32p), _ptr(wt.ctx_bias, _c_f32p),
+            _ptr(wt.ep_w[0], _c_f32p), _ptr(wt.ep_b[0], _c_f32p),
+            wt.ep_w[0].shape[1], _ptr(wt.ep_w[1], _c_f32p),
+            _ptr(wt.ep_b[1], _c_f32p), wt.ep_w[1].shape[1],
+            _ptr(wt.ep_w[2], _c_f32p), _ptr(wt.ep_b[2], _c_f32p),
+            _ptr(wt.thresholds, _c_f32p), wt.thresholds.size,
+            _ptr(cdf, _c_i32p), cdf.shape[1], _ptr(sizes, _c_i32p),
+            _ptr(offs, _c_i32p), cdf.shape[0])
+
+    if direction == 0:
+        y_arr = _f32(y)
+        if y_arr.shape != (h, w, m):
+            raise ValueError(f"y must be {(h, w, m)}, got {y_arr.shape}")
+        cap = h * w * m * 12 + 1024
+        while True:
+            out = np.empty(cap, np.uint8)
+            n = call(0, _ptr(y_arr, _c_f32p), out, cap)
+            if n >= 0:
+                return out[:n].tobytes(), y_hat
+            if n == -2:
+                raise ValueError("ar encode failed: scale index outside "
+                                 "the tables")
+            cap = int(-n)
+    data = np.frombuffer(stream, np.uint8)
+    rc = call(1, None, data, data.size)
+    if rc != 0:
+        raise ValueError(f"ar decode failed (rc={rc})")
+    return y_hat

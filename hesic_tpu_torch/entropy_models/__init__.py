@@ -2,13 +2,16 @@
 tables."""
 
 from .codec import (CdfTables, compress_with_indexes, decode_streams_batch,
-                    decompress_with_indexes, tables_from_pmf)
+                    decompress_with_indexes, gaussian_tables,
+                    tables_from_pmf)
 from .entropy_models import (EntropyBottleneck, GaussianConditional,
-                             GaussianMixtureConditional,
+                             GaussianMixtureConditional, build_indexes,
+                             gaussian_pmf_data, get_scale_table,
                              standardized_cumulative)
 
 __all__ = ["CdfTables", "EntropyBottleneck", "GaussianConditional",
-           "GaussianMixtureConditional",
+           "GaussianMixtureConditional", "build_indexes",
            "compress_with_indexes", "decode_streams_batch",
-           "decompress_with_indexes", "standardized_cumulative",
+           "decompress_with_indexes", "gaussian_pmf_data",
+           "gaussian_tables", "get_scale_table", "standardized_cumulative",
            "tables_from_pmf"]

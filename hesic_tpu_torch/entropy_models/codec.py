@@ -1,6 +1,7 @@
-"""Host-side coder state: quantized CDF tables + (de)compress helpers,
-as hesic_tpu/entropy_models/codec.py, over the port's own host rANS coder
-(codecs/host_rans.py)."""
+"""Host-side coder state: quantized CDF tables (the EntropyBottleneck's
+from its PMFs, the GaussianConditional's over a scale table) and the
+(de)compress helpers, as hesic_tpu/entropy_models/codec.py, over the
+port's own host rANS coder (codecs/host_rans.py)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import dataclasses
 import numpy as np
 
 from ..codecs import host_rans
+from .entropy_models import gaussian_pmf_data
 
 
 @dataclasses.dataclass
@@ -30,18 +32,34 @@ def tables_from_pmf(pmf, tail_mass, pmf_length, offset,
     return CdfTables(cdf, pmf_length + 2, np.asarray(offset, np.int32))
 
 
+def gaussian_tables(scale_table, tail_mass: float = 1e-9) -> CdfTables:
+    """The GaussianConditional's tables over a scale table."""
+    return tables_from_pmf(*gaussian_pmf_data(scale_table, tail_mass))
+
+
+def _shared(indexes: np.ndarray) -> bool:
+    """Whether every batch item shares the index pattern of item 0 (a
+    broadcast array, or a batch of one)."""
+    return indexes.shape[0] == 1 or indexes.strides[0] == 0
+
+
 def compress_with_indexes(symbols: np.ndarray, indexes: np.ndarray,
                           tables: CdfTables) -> list:
     """Encode a batched symbol tensor; one string per leading-dim item.
-    Every item shares the index pattern of ``indexes[0]``."""
+    Items that share one index pattern (a broadcast index array) are
+    coded in one native call, others one stream at a time."""
     symbols = np.asarray(symbols)
     indexes = np.asarray(indexes)
     if symbols.shape != indexes.shape:
         raise ValueError("`symbols` and `indexes` must have the same shape")
     b = symbols.shape[0]
-    return host_rans.rans_encode_batch(
-        symbols.reshape(b, -1), indexes[0].reshape(-1),
-        tables.quantized_cdf, tables.cdf_length, tables.offset)
+    if _shared(indexes):
+        return host_rans.rans_encode_batch(
+            symbols.reshape(b, -1), indexes[0].reshape(-1),
+            tables.quantized_cdf, tables.cdf_length, tables.offset)
+    return [host_rans.encode_with_indexes(
+        symbols[i], indexes[i], tables.quantized_cdf, tables.cdf_length,
+        tables.offset) for i in range(b)]
 
 
 def decode_streams_batch(data: bytes, begins, ends, indexes_1d,
@@ -56,11 +74,15 @@ def decode_streams_batch(data: bytes, begins, ends, indexes_1d,
 
 def decompress_with_indexes(strings: list, indexes: np.ndarray,
                             tables: CdfTables) -> np.ndarray:
-    """Decode strings back to the symbol tensor shaped like `indexes`
-    (every item sharing the index pattern of ``indexes[0]``)."""
+    """Decode strings back to the symbol tensor shaped like `indexes`."""
     indexes = np.asarray(indexes)
     if len(strings) != indexes.shape[0]:
         raise ValueError("one string per batch item expected")
+    if not _shared(indexes):
+        return np.stack([host_rans.decode_with_indexes(
+            s, indexes[i], tables.quantized_cdf, tables.cdf_length,
+            tables.offset).reshape(indexes.shape[1:])
+            for i, s in enumerate(strings)])
     data = b"".join(strings)
     ends = np.cumsum([len(s) for s in strings], dtype=np.int64)
     begins = np.concatenate([[0], ends[:-1]]).astype(np.int64)

@@ -9,6 +9,12 @@ mixture over the y latents.  Likelihoods are float32 (erfc near the
 1e-9 bound underflows in bf16); softplus is ``logaddexp(x, 0)``, the JAX
 package's formulation.  ``GaussianConditional`` is the single Gaussian
 over the y latents of the autoregressive families (mbt2018, HESIC+).
+
+The Gaussian conditional's host side: the scale table
+(``get_scale_table``, float64 numpy), the scale-table indexes of a
+scale tensor (``build_indexes``) and the per-scale PMFs the y CDF tables
+are quantized from (``gaussian_pmf_data``, evaluated on the CPU in
+float32 so the tables do not depend on the card).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -24,10 +31,94 @@ from ..ops import lower_bound, quantize
 LIKELIHOOD_BOUND = 1e-9    # every likelihood's floor, through lower_bound
 SCALE_BOUND = 0.11         # the Gaussians' smallest scale
 
+# the scale table of the host Gaussian coder (Balle's tensorflow
+# compression examples): 64 scales, log-spaced over [0.11, 256]
+SCALES_MIN = 0.11
+SCALES_MAX = 256
+SCALES_LEVELS = 64
+
+
+def get_scale_table(minimum=SCALES_MIN, maximum=SCALES_MAX,
+                    levels=SCALES_LEVELS) -> np.ndarray:
+    """(levels,) float64 scales, log-spaced over [minimum, maximum]."""
+    return np.exp(np.linspace(math.log(minimum), math.log(maximum), levels))
+
 
 def standardized_cumulative(x: torch.Tensor) -> torch.Tensor:
     """0.5 * erfc(-x / sqrt(2)): the standard normal CDF, in float32."""
     return 0.5 * torch.erfc(-(2 ** -0.5) * x.float())
+
+
+def standardized_quantile(quantile: float) -> float:
+    """Inverse standard normal CDF of a scalar, in float64 on the host:
+    Acklam's rational approximation, then three Newton steps on
+    0.5 * erfc(-x / sqrt(2)) - q."""
+    q = float(quantile)
+    if not 0.0 < q < 1.0:
+        raise ValueError("quantile must be in (0, 1)")
+    a = [-3.969683028665376e+01, 2.209460984245205e+02,
+         -2.759285104469687e+02, 1.383577518672690e+02,
+         -3.066479806614716e+01, 2.506628277459239e+00]
+    b = [-5.447609879822406e+01, 1.615858368580409e+02,
+         -1.556989798598866e+02, 6.680131188771972e+01,
+         -1.328068155288572e+01]
+    c = [-7.784894002430293e-03, -3.223964580411365e-01,
+         -2.400758277161838e+00, -2.549732539343734e+00,
+         4.374664141464968e+00, 2.938163982698783e+00]
+    d = [7.784695709041462e-03, 3.224671290700398e-01,
+         2.445134137142996e+00, 3.754408661907416e+00]
+    p_low = 0.02425
+    if q < p_low:
+        u = np.sqrt(-2 * np.log(q))
+        x = (((((c[0] * u + c[1]) * u + c[2]) * u + c[3]) * u + c[4]) * u
+             + c[5]) / ((((d[0] * u + d[1]) * u + d[2]) * u + d[3]) * u + 1)
+    elif q > 1 - p_low:
+        u = np.sqrt(-2 * np.log(1 - q))
+        x = -(((((c[0] * u + c[1]) * u + c[2]) * u + c[3]) * u + c[4]) * u
+              + c[5]) / ((((d[0] * u + d[1]) * u + d[2]) * u + d[3]) * u + 1)
+    else:
+        u = q - 0.5
+        t = u * u
+        x = (((((a[0] * t + a[1]) * t + a[2]) * t + a[3]) * t + a[4]) * t
+             + a[5]) * u / (((((b[0] * t + b[1]) * t + b[2]) * t + b[3]) * t
+                             + b[4]) * t + 1)
+    for _ in range(3):
+        phi = 0.5 * math.erfc(-x / math.sqrt(2))
+        pdf = math.exp(-0.5 * x * x) / math.sqrt(2 * math.pi)
+        x -= (phi - q) / pdf
+    return float(x)
+
+
+def build_indexes(scales: torch.Tensor, scale_table,
+                  scale_bound: float = SCALES_MIN) -> torch.Tensor:
+    """Each scale's bucket in the scale table: the number of entries of
+    ``scale_table[:-1]`` (float32) below the scale bounded at
+    `scale_bound`.  int32, the shape of `scales`, on its device."""
+    table = torch.as_tensor(np.asarray(scale_table, np.float32),
+                            device=scales.device)
+    bounded = torch.clamp_min(scales.float(), scale_bound)
+    return (bounded[..., None] > table[:-1]).sum(-1).to(torch.int32)
+
+
+def gaussian_pmf_data(scale_table, tail_mass: float = 1e-9):
+    """Per-scale PMFs over each scale's centred support [-c, c], c =
+    ceil(scale * -quantile(tail_mass / 2)), for the y CDF tables: numpy
+    (pmf (L, max_len) float32, tail (L,) float32, pmf_length (L,) int32,
+    offset (L,) int32).  The PMFs are float32 CPU math (torch.erfc)."""
+    scale_table = np.asarray(scale_table, np.float64)
+    multiplier = -standardized_quantile(tail_mass / 2)
+    pmf_center = np.ceil(scale_table * multiplier).astype(np.int32)
+    pmf_length = 2 * pmf_center + 1
+    max_length = int(pmf_length.max())
+    samples = torch.from_numpy(np.abs(
+        np.arange(max_length, dtype=np.int32) - pmf_center[:, None]
+    ).astype(np.float32))
+    scales = torch.from_numpy(scale_table[:, None].astype(np.float32))
+    upper = standardized_cumulative((0.5 - samples) / scales)
+    lower = standardized_cumulative((-0.5 - samples) / scales)
+    pmf = (upper - lower).numpy()
+    tail = (2 * lower[:, 0]).numpy()
+    return pmf, tail, pmf_length, -pmf_center
 
 
 class EntropyBottleneck(nn.Module):
@@ -144,8 +235,10 @@ class GaussianConditional(nn.Module):
     SCALE_BOUND and likelihoods at LIKELIHOOD_BOUND through
     ``lower_bound``; the likelihood is float32 whatever the inputs'
     dtype.  Training adds noise without the means; eval rounds about
-    them.  The scale table and the host coder's tables are not here: the
-    wavefront codec codes its own Gaussian intervals."""
+    them.  The scale table and the host coder's tables are not here:
+    ``CompressionModel.update`` builds them (``get_scale_table``,
+    ``gaussian_pmf_data``), and the wavefront codec codes its own
+    Gaussian intervals."""
 
     def _likelihood(self, inputs, scales, means=None):
         values = inputs - means if means is not None else inputs

@@ -1,26 +1,33 @@
-"""Host-side model wrapper: a stereo model + the integer z coder tables.
+"""Host-side model wrapper: a model + the integer coder tables.
 
 Counterpart of the parts of hesic_tpu/models/base.py that the codecs
-use: ``update()`` builds the EntropyBottleneck CDF tables, ``tables``
-holds them, ``eb_medians`` gives the z symbol offsets, and the z-symbol
-helpers code (B, zh, zw, C) symbol tensors in NHWC order (channel as the
-table index), as hesic_tpu/models/hesic_fast.py's z path does.  The
-input helpers move the caller's NHWC images and homographies to the
+use: ``update()`` builds the EntropyBottleneck CDF tables and, for a
+model with Gaussian conditionals, the scale table and the Gaussian CDF
+tables; ``tables`` holds them, ``eb_medians`` gives the z symbol
+offsets.  Two z codings: ``eb_encode_symbols``/``eb_decode_streams``
+code (B, zh, zw, C) symbols in NHWC order, as the fast codec's z path
+does (hesic_tpu/models/hesic_fast.py); ``eb_compress``/``eb_decompress``
+code them channel-major, the reference's NCHW flatten order, as the JAX
+package's host codecs do.  ``gc_compress``/``gc_decompress`` code y
+through the Gaussian tables, channel-major, given scale-table indexes.
+The input helpers move the caller's NHWC images and homographies to the
 model's device (on the card through pinned memory, without blocking the
-host).  ``deterministic_backends`` is the codecs' shared
-determinism policy.
+host).  ``deterministic_backends`` is the codecs' shared determinism
+policy.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..entropy_models import (CdfTables, compress_with_indexes,
-                              decode_streams_batch, tables_from_pmf)
+                              decode_streams_batch, decompress_with_indexes,
+                              gaussian_tables, get_scale_table,
+                              tables_from_pmf)
 
 
 def deterministic_backends():
@@ -33,12 +40,14 @@ def deterministic_backends():
 
 
 class CompressionModel:
-    """Pairs a stereo model (HESIC, HESIC+) with its host coder state."""
+    """Pairs a model (HESIC, DSIC, HESIC+, mbt2018) with its host coder
+    state."""
 
     def __init__(self, model: torch.nn.Module):
         self.model = model
         self.device = next(model.parameters()).device
         self.tables: Dict[str, CdfTables] = {}
+        self.scale_table: Optional[np.ndarray] = None
         self._medians: Dict[str, np.ndarray] = {}
 
     def _median(self, name: str) -> torch.Tensor:
@@ -89,10 +98,13 @@ class CompressionModel:
         h_np = np.ascontiguousarray(h_np)
         return self._upload(h_np), h_np
 
-    def update(self, force: bool = False):
-        """(Re)build the integer CDF tables of every entropy bottleneck.
-        The PMF tables are evaluated on the CPU in float32, so the tables
-        do not depend on the card."""
+    def update(self, scale_table=None, force: bool = False):
+        """(Re)build the integer CDF tables of every entropy bottleneck,
+        and for a model with Gaussian conditionals the scale table
+        (`scale_table`, or ``get_scale_table()``) and one set of Gaussian
+        tables that every conditional shares.  The PMF tables are
+        evaluated on the CPU in float32, so the tables do not depend on
+        the card."""
         for name in self.model.entropy_bottlenecks:
             if name in self.tables and not force:
                 continue
@@ -101,6 +113,15 @@ class CompressionModel:
             self.tables[name] = tables_from_pmf(
                 pmf.numpy(), tail.numpy(), length.numpy(), offset.numpy())
             self._medians[name] = eb.medians().detach().numpy().copy()
+        gc_names = getattr(self.model, "gaussian_conditionals", ())
+        if gc_names and (self.scale_table is None or scale_table is not None
+                         or force):
+            self.scale_table = (np.asarray(scale_table)
+                                if scale_table is not None
+                                else get_scale_table())
+            gc = gaussian_tables(self.scale_table)
+            for name in gc_names:
+                self.tables[name] = gc
         return self
 
     def eb_medians(self, name: str) -> np.ndarray:
@@ -125,3 +146,56 @@ class CompressionModel:
         out = decode_streams_batch(blob, begins, ends, idx,
                                    self.tables[name])
         return out.reshape(len(extents), zh, zw, c)
+
+    # ---- channel-major host coding (the JAX package's host codecs) ----
+
+    def eb_compress(self, name: str, z: torch.Tensor) -> list:
+        """(B, C, zh, zw) z -> one string per item, symbols round(z -
+        medians) in channel-major (NCHW flatten) order."""
+        medians = self.eb_medians(name)[:, None, None]
+        symbols = np.round(z.detach().float().cpu().numpy()
+                           - medians).astype(np.int32)
+        indexes = np.broadcast_to(
+            np.arange(symbols.shape[1], dtype=np.int32)[:, None, None],
+            symbols.shape)
+        return compress_with_indexes(symbols, indexes, self.tables[name])
+
+    def eb_decompress(self, name: str, strings: list,
+                      spatial_shape) -> torch.Tensor:
+        """Inverse of eb_compress -> (B, C, zh, zw) float32 z_hat on the
+        codec device, contiguous."""
+        medians = self.eb_medians(name)
+        c = medians.shape[0]
+        shape = (len(strings), c, int(spatial_shape[0]),
+                 int(spatial_shape[1]))
+        indexes = np.broadcast_to(
+            np.arange(c, dtype=np.int32)[:, None, None], shape)
+        symbols = decompress_with_indexes(strings, indexes,
+                                          self.tables[name])
+        return self._upload(symbols.astype(np.float32)
+                            + medians[:, None, None])
+
+    def gc_compress(self, name: str, y: torch.Tensor, indexes: torch.Tensor,
+                    means: Optional[torch.Tensor] = None) -> list:
+        """Code (B, C, h, w) y through the Gaussian tables given its
+        scale-table indexes (build_indexes), about `means` when given:
+        one string per item, channel-major."""
+        y = y.detach().float().cpu().numpy()
+        if means is not None:
+            y = y - means.detach().float().cpu().numpy()
+        symbols = np.round(y).astype(np.int32)
+        return compress_with_indexes(
+            symbols, indexes.cpu().numpy().astype(np.int32),
+            self.tables[name])
+
+    def gc_decompress(self, name: str, strings: list, indexes: torch.Tensor,
+                      means: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inverse of gc_compress -> (B, C, h, w) float32 y_hat on the
+        codec device."""
+        symbols = decompress_with_indexes(
+            strings, indexes.cpu().numpy().astype(np.int32),
+            self.tables[name])
+        out = symbols.astype(np.float32)
+        if means is not None:
+            out = out + means.detach().float().cpu().numpy()
+        return self._upload(out)

@@ -19,8 +19,9 @@ outputs are cast to float32, and the Gaussian conditionals' likelihood
 math is float32.  Activations are ``leaky_relu`` with slope 0.01, flax's
 default.
 
-Not carried over yet: ``HESICPlusTogether`` and the host codecs
-(``HESICPlusCodec``, the reference layout).
+The host codec, ``HESICPlusCodec``, is in models/hesic_plus_codec.py.
+Not carried over yet: ``HESICPlusTogether`` and the reference-layout
+codec.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class HESICPlus(nn.Module):
     seed)`` and then moved to ``device``."""
 
     entropy_bottlenecks = ("entropy_bottleneck1", "entropy_bottleneck2")
+    gaussian_conditionals = ("gaussian_conditional1", "gaussian_conditional2")
     single_image = False
     uses_homography = True
 

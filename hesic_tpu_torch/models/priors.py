@@ -6,8 +6,9 @@ single-image model whose y latents are coded with a Gaussian whose scale
 and mean come from the hyperprior (``h_s``) and a masked 5x5 context conv
 over the already-decoded latents, mixed by a 1x1 entropy-parameter
 stack.  The training forward runs the context conv over the whole latent
-at once; the sequential codec is the wavefront device codec
-(models/ar_device.py ``JointAutoregressiveDeviceCodec``).
+at once; the sequential codecs are the wavefront device codec
+(models/ar_device.py ``JointAutoregressiveDeviceCodec``) and the host AR
+codec (models/codec.py ``JointAutoregressiveCodec``).
 
 flax names the layers of a list attribute by their index in the list,
 activations counted (``g_a_1`` is a GDN, ``h_a_2`` the second conv); the
@@ -15,8 +16,7 @@ port registers them under the same names, so state_dict keys map one to
 one onto the JAX parameter tree (utils/from_jax.py).  Everything is
 float32, as in the JAX model.
 
-Not carried over yet: the host AR codec (``JointAutoregressiveCodec``,
-the scale table) and the other priors of the JAX module.
+Not carried over yet: the other priors of the JAX module.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ class JointAutoregressiveHierarchicalPriors(nn.Module):
     (``training.make_optimizer`` turns them on for what it trains)."""
 
     entropy_bottlenecks = ("entropy_bottleneck",)
+    gaussian_conditionals = ("gaussian_conditional",)
     single_image = True
     uses_homography = False
 

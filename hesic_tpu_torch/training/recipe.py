@@ -2,7 +2,11 @@
 of them on a device, its optimizer and train step (RD loss at lambda
 1e-2 plus the aux loss, Adam 1e-4 / 1e-3) with a seeded noise generator,
 and its calibration runs (``calibrate`` for the stereo models,
-``calibrate_single`` for mbt2018).
+``calibrate_single`` for mbt2018).  A calibration runs under the codecs'
+determinism policy (``models.base.deterministic_backends``: deterministic
+cuDNN, no benchmarking, no TF32), which it sets before its first step,
+so its weights do not depend on which algorithms a process happened to
+pick, or on whether a codec had been built before it.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.base import deterministic_backends
 from .losses import make_loss_fn
 from .train_state import make_optimizer, make_train_step
 
@@ -82,6 +87,7 @@ def calibrate_single(model, rng, steps: int = 60, hw: int = 256,
 
 
 def _run(model, data: dict, steps: int):
+    deterministic_backends()
     _, step, gen = trainer(model)
     metrics = [step(data, gen) for _ in range(steps)]
     return ([float(m["loss"]) for m in metrics],

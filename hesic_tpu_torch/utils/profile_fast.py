@@ -11,6 +11,8 @@ Usage (on a machine with a CUDA card):
         [--batch B --mm MM --homography identity|rotated]
     python -m hesic_tpu_torch.utils.profile_fast --model dsic-batch
         [--batch B --mm MM]
+    python -m hesic_tpu_torch.utils.profile_fast --model mbt-host
+        [--batch B --calib-steps S]
 
 ``--model hesic`` (the default) builds HESIC N=128/M=192/K=5 and traces
 ``HESICFastCodec.compress_fast`` + ``decompress_fast`` (batch 8, grid cap
@@ -77,12 +79,24 @@ convolutions and the rest.  Before the trace it times, on cost volume
 1's 3-D branch input at that batch (scale 8), the folded band
 convolution against ``F.conv3d`` on the unfolded layout (CUDA events,
 under the codec's determinism policy), and prints both.
+
+``--model mbt-host`` profiles the bench's host AR point
+(``hesic_tpu_torch.bench --model mbt``, bench.py's ar point): mbt2018
+N=192/M=192 float32, seed 0, random weights unless ``--calib-steps``,
+``JointAutoregressiveCodec`` on the first eyes of a batch of 8 smooth
+512x512 pairs (bench.py's generator).  After one warm-up round trip it
+times one untraced and traces one round trip (encode then decode).
+Prints the wall time, the seconds inside the native coder (the thread
+pool's wall time, encode and decode) against the rest, the device's busy
+time (the sum of its kernels' times) and idle share of the traced wall
+time, the kernel groups and the longest kernels, then one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -568,23 +582,113 @@ def batch_main(batch: int, mm: int, homography: str,
     return 0
 
 
+def host_main(batch: int, calib_steps: int) -> int:
+    """Profile one round trip of the host AR codec at the bench's mbt
+    point (see the module docstring)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..models.autoregressive import host_threads
+    from ..models.codec import JointAutoregressiveCodec
+    from ..models.priors import JointAutoregressiveHierarchicalPriors
+
+    if not torch.cuda.is_available():
+        print("profile_fast: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    rng = np.random.RandomState(0)
+    net = JointAutoregressiveHierarchicalPriors(N=192, M=192, device="cuda",
+                                                seed=0)
+    if calib_steps:
+        calibrate_single(net, rng, calib_steps)
+        net.requires_grad_(False)
+    codec = JointAutoregressiveCodec(net).update()
+    x, _ = smooth_pairs(rng, batch, SIZE)
+
+    def trip():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = codec.compress(x)
+        rec = codec.decompress(out["strings"], out["shape"])
+        wall = time.perf_counter() - t0
+        if not torch.equal(rec["y_hat"], out["y_hat"]):
+            raise AssertionError("decoded y_hat differs from the encoder's")
+        return out, rec, wall
+
+    trip()
+    _, _, plain_s = trip()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, rec, wall_s = trip()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.events()
+              if e.device_type == cuda and not e.is_user_annotation]
+    kernels = _tally((e.name, e) for e in device)
+    groups = _tally((_group(e.name), e) for e in device)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    wall_ms = wall_s * 1e3
+    coder_ms = (out["coder_s"] + rec["coder_s"]) * 1e3
+
+    print(f"card: {card}")
+    print(f"mbt-host, mbt2018 N192/M192 f32, batch {batch} images "
+          f"{SIZE}x{SIZE}, {calib_steps} calibration steps, "
+          f"{host_threads(batch)} coder threads (os.cpu_count() "
+          f"{os.cpu_count()}): bpp_real {out['bpp_real']:.6f}; round trip "
+          f"{plain_s * 1e3:.2f} ms wall untraced, {wall_ms:.2f} ms traced "
+          f"(encode {out['enctime'] * 1e3:.2f}, decode "
+          f"{rec['dectime'] * 1e3:.2f})")
+    print(f"native coder {coder_ms:.2f} ms (encode "
+          f"{out['coder_s'] * 1e3:.2f}, decode {rec['coder_s'] * 1e3:.2f}) "
+          f"of {wall_ms:.2f} ms wall: coder share "
+          f"{coder_ms / wall_ms:.3f}; the rest {wall_ms - coder_ms:.2f} ms")
+    if not kernels:
+        print("device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return 1
+    print(f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall: busy "
+          f"share {busy_ms / wall_ms:.3f}, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {label:<28s} {ms:9.3f} ms  {n:6d} launches  "
+              f"{ms / busy_ms:6.1%} of device time")
+    print("longest kernels:")
+    for name, (ms, n) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    print(json.dumps({
+        "card": card, "model": "mbt-host", "batch": batch, "size": SIZE,
+        "calib_steps": calib_steps, "host_threads": host_threads(batch),
+        "cpu_count": os.cpu_count(), "bpp_real": out["bpp_real"],
+        "round_trip_ms": plain_s * 1e3, "traced_round_trip_ms": wall_ms,
+        "coder_ms": coder_ms, "encode_coder_ms": out["coder_s"] * 1e3,
+        "decode_coder_ms": rec["coder_s"] * 1e3,
+        "rest_ms": wall_ms - coder_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms,
+        "groups_ms": {k: v[0] for k, v in groups.items()},
+        "launches": {k: v[1] for k, v in groups.items()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=("hesic", "hesic-plus", "mbt",
-                                       "train", "hesic-batch", "dsic-batch"),
+                                       "train", "hesic-batch", "dsic-batch",
+                                       "mbt-host"),
                    default="hesic")
     p.add_argument("--batch", type=int, default=None,
-                   help="pairs per batch (default 8 for hesic and train, "
-                        "11 for hesic-plus and mbt, 64 for hesic-batch, 32 "
-                        "for dsic-batch)")
+                   help="pairs per batch (default 8 for hesic, train and "
+                        "mbt-host, 11 for hesic-plus and mbt, 64 for "
+                        "hesic-batch, 32 for dsic-batch)")
     p.add_argument("--mm", type=int, default=None,
                    help="grid half-width cap (default 32 for hesic, 16 "
                         "for the others)")
     p.add_argument("--homography", choices=("identity", "rotated"),
                    default="identity")
     p.add_argument("--calib-steps", type=int, default=None,
-                   help="calibration steps of hesic, hesic-plus and mbt "
-                        "(default 60 for mbt, 0 for the others)")
+                   help="calibration steps of hesic, hesic-plus, mbt and "
+                        "mbt-host (default 60 for mbt, 0 for the others)")
     args = p.parse_args(argv)
     if args.model == "train":
         return train_main(args.batch or 8)
@@ -593,6 +697,8 @@ def main(argv=None) -> int:
     if args.model == "dsic-batch":
         return batch_main(args.batch or 32, args.mm or 16, "identity",
                           "dsic")
+    if args.model == "mbt-host":
+        return host_main(args.batch or 8, args.calib_steps or 0)
     ar = args.model in ("hesic-plus", "mbt")
     b = args.batch or (11 if ar else 8)
     mm = args.mm or (16 if ar else 32)
