@@ -84,7 +84,9 @@ and prints no result):
   8. calibrates as bench.py does (training.recipe.calibrate: bf16,
      256x256, batch 4, 60 steps, seeded noise), printing loss and bpp
      every 10 steps; the mean loss of the last 10 steps must be below the
-     first 10's.  Then the calibrated model goes through compress_fast ->
+     first 10's, and a second HESIC calibrated from the same seed must end
+     with every parameter and buffer bit-identical and every loss equal
+     (ROADMAP C5).  Then the calibrated model goes through compress_fast ->
      decompress_fast on phase 5's 8 pairs (identity H): the decoded
      latents must equal the encoder's, kernels 1-3 must have launched,
      and bpp_real must be below phase 5's random-weights bpp_real of the
@@ -119,7 +121,9 @@ and prints no result):
      shape, kernel 2 once per eye, kernels 1-3 launched.  Then calibrates
      it as bench.py's _calibrate(arch="dsic") does (60 bf16 steps at
      256x256, batch 4, no homography; the mean loss of the last 10 steps
-     must be below the first 10's), then runs phase 9's bench loop on it
+     must be below the first 10's, and a second DSIC calibrated from the
+     same seed must end bit-identical, as in phase 8), then runs phase 9's
+     bench loop on it
      at batch 32, 4 timed batches, identity H (DSIC ignores it), in
      modes 2 and 0, with phase 9's checks; then holds kernels 1-3 at batch
      32 on every grid those loops picked (bit-equal, timed, with bounds);
@@ -169,7 +173,30 @@ and prints no result):
      the CPU's writer byte must be refused.  Phases 13 and 14 launch
      none of the five kernels: the host codecs compute what kernels 4
      and 5 compute, serially in C++, as the JAX package's do;
- 15. prints one JSON line with each kernel's numbers (launches: phases 5,
+ 15. drives the CompressAI priors through their host codecs
+     (models/codec.py): bmshj2018-factorized, bmshj2018-hyperprior and
+     mbt2018-mean, each at the zoo's two widths (N128/M192 and N192/M320,
+     random seeded weights), on the first eyes of 4 of phase 6's pairs.
+     Decoded y_hat must equal the encoder's, and the factorized prior's
+     be round(y - medians) + medians.  Then mbt2018-mean N128/M192 is
+     calibrated by training.recipe.calibrate_single (60 steps; the loss
+     must fall as in phase 11) and its round trip must stay exact with a
+     bpp_real below the random weights'.  Prints bpp_real and the encode
+     and decode seconds;
+ 16. drives the reference-layout container codecs (a .npz header and a
+     .bin body in the reference's byte layout, through files in a
+     temporary directory) at full width and calibrated weights:
+     HESICCodec on phase 8's HESIC, DSICCodec on phase 10's DSIC and
+     HESICPlusRefCodec on phase 12's HESIC+, each on two of phase 6's
+     pairs, the first at the identity H and the second at the rotated H
+     (DSIC takes none).  Decoded y1_hat/y2_hat must equal the encoder's,
+     the reconstructions be finite and of the input's shape, and
+     decoding with the H passed equal decoding with the header's.
+     Prints bpp_real, bpp_side, the encode and decode seconds and the
+     host coder's share of them.  Phases 15 and 16 launch none of the
+     five kernels: their coders are host C++ (the range coder, rANS), as
+     the JAX package's are;
+ 17. prints one JSON line with each kernel's numbers (launches: phases 5,
      6, 8, 10, 11 and 12's round trips and phases 9-12's timed loops;
      kernels 1-3's times and bounds at batch 64 on the widest grid phase
      9 ran, kernels 4 and 5's at the HESIC+ point, their errors the
@@ -248,6 +275,11 @@ AR_OPS_PER_EDGE, AR_OPS_PER_BIN, AR_OPS_PER_LATENT = 56, 11, 27
 # largest |base|; a sound kernel read about 0.1 of that limit on the H100
 HOIST_TOL = 1e-5
 
+# phase 15: the CompressAI priors at the zoo's two widths
+# (hesic_tpu/zoo/__init__.py: qualities 1-5 or 1-4, and the rest), on the
+# first eyes of PRIOR_B of phase 6's pairs
+PRIOR_B = 4
+PRIOR_WIDTHS = ((128, 192), (192, 320))
 # the training step at bench.py's points (training.recipe.trainer: lambda
 # 1e-2, Adam lr 1e-4, aux 1e-3): BENCH_MODE=train (512x512, batch 8, 12
 # timed steps after a warm-up, bf16 and f32) and _calibrate (bf16,
@@ -1109,10 +1141,14 @@ def phase_calibrate(random_bpp: float):
     from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
     from hesic_tpu_torch.training.recipe import calibrate, smooth_pairs
 
-    model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
-                  seed=0)
-    losses, bpps = calibrate(model, np.random.RandomState(2), CAL_STEPS,
-                             CAL_HW, CAL_B)
+    def calibrated():
+        model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
+                      seed=0)
+        return model, calibrate(model, np.random.RandomState(2), CAL_STEPS,
+                                CAL_HW, CAL_B)
+
+    model, (losses, bpps) = calibrated()
+    check_same_calibration("HESIC", model, losses, *calibrated())
     for i in range(9, CAL_STEPS, 10):
         print(f"calibrate step {i + 1}: loss {losses[i]:.4f}, bpp "
               f"{bpps[i]:.4f}")
@@ -1147,6 +1183,25 @@ def phase_calibrate(random_bpp: float):
           f"{out['outliers'][0]}/{out['outliers'][1]}; decoded latents "
           f"equal the encoder's; launches {launches}")
     return launches, model
+
+
+def check_same_calibration(label: str, model, losses, twin,
+                           twin_run) -> None:
+    """Raise unless a second calibration from the same seed (`twin`, its
+    (losses, bpps) `twin_run`) ends with every parameter and buffer of
+    `model` bit-identical and took the same losses (ROADMAP C5)."""
+    import torch
+    a, b = model.state_dict(), twin.state_dict()
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    steps = [i for i, (u, v) in enumerate(zip(losses, twin_run[0]))
+             if u != v]
+    if bad or steps:
+        raise AssertionError(
+            f"{label}: two calibrations from one seed differ in {len(bad)} "
+            f"of {len(a)} tensors ({bad[:4]}) and in the losses of "
+            f"{len(steps)} steps (first {steps[:1]})")
+    print(f"{label}: two calibrations from one seed end bit-identical "
+          f"({len(a)} tensors, all {len(losses)} losses equal)")
 
 
 def strict_sync(codec):
@@ -1382,17 +1437,25 @@ def phase_dsic(card: str) -> tuple:
     then the calibration (training.recipe.calibrate, DSIC's loss without
     H), then the bench loop at batch DS_BENCH_B in modes 2 and 0, then
     kernels 1-3 held at that batch on every grid the loops picked.
+    A second DSIC calibrated from the same seed must end bit-identical.
     Returns (launches of the round trips and the timed loops, {grid:
-    hold_batch result})."""
+    hold_batch result}, the calibrated model)."""
     import numpy as np
     import torch
     from hesic_tpu_torch.training.recipe import calibrate
+
+    from hesic_tpu_torch.models.dsic import DSIC
 
     launches, model = phase_dsic_path()
     t0 = time.perf_counter()
     losses, bpps = calibrate(model, np.random.RandomState(2), CAL_STEPS,
                              CAL_HW, CAL_B)
     cal_s = time.perf_counter() - t0
+    twin = DSIC(N=N, M=M, F=DS_F, C=DS_C, K=K, dtype=torch.bfloat16,
+                device=DEVICE, seed=0)
+    check_same_calibration("DSIC", model, losses, twin, calibrate(
+        twin, np.random.RandomState(2), CAL_STEPS, CAL_HW, CAL_B))
+    del twin
     if not np.isfinite(losses).all():
         raise AssertionError("DSIC calibration: non-finite loss")
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
@@ -1409,10 +1472,9 @@ def phase_dsic(card: str) -> tuple:
                                         DS_BENCH_BATCHES, ("identity",))
     for name, n in bench_launches.items():
         launches[name] = launches.get(name, 0) + n
-    del model
     torch.cuda.empty_cache()
     held = {mm: hold_batch(mm, DS_BENCH_B) for mm in sorted(grids)}
-    return launches, held
+    return launches, held, model
 
 
 def check_loss_falls(label: str, losses, bpps, seconds: float) -> None:
@@ -1653,9 +1715,7 @@ def phase_mbt_host(card: str, model, x, device_bpp: float) -> None:
     pool = bench.make_pool(np.random.RandomState(0), 1, HOST_B, HW_IMG,
                            DEVICE)
     res = bench.run_host(codec, pool[0][0], HOST_BATCHES)
-    if build.launch_counts:
-        raise AssertionError(f"the host AR codec launched kernels "
-                             f"{dict(build.launch_counts)}")
+    no_kernel_launched("the host AR codec")
     print(f"bench mbt2018 host [{card}]: "
           f"{HOST_BATCHES * HOST_B / res['seconds']:.3f} images/s "
           f"({HOST_BATCHES} batches of {HOST_B} in {res['seconds']:.2f} s, "
@@ -1718,9 +1778,157 @@ def phase_hesic_plus_host(card: str, model, pairs, random_bpp: float):
     else:
         raise AssertionError("HESIC+ host codec: a container with the "
                              "CPU's writer byte was not refused")
+    no_kernel_launched("the HESIC+ host codec")
+
+
+def no_kernel_launched(label: str) -> None:
+    """Raise if any kernel launched since build.launch_counts was
+    cleared."""
+    from hesic_tpu_torch.codecs import build
     if build.launch_counts:
-        raise AssertionError(f"the HESIC+ host codec launched kernels "
+        raise AssertionError(f"{label} launched kernels "
                              f"{dict(build.launch_counts)}")
+
+
+def phase_priors(card: str, x) -> None:
+    """Phase 15: bmshj2018-factorized, bmshj2018-hyperprior and
+    mbt2018-mean at the zoo's two widths (random seeded weights) through
+    their host codecs on images `x`; decoded y_hat must equal the
+    encoder's, and the factorized prior's be round(y - medians) +
+    medians.  Then mbt2018-mean N128/M192 calibrated by calibrate_single,
+    whose round trip must stay exact and whose bpp_real must fall below
+    its random weights'.  Launches none of the five kernels."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models import codec as prior_codecs
+    from hesic_tpu_torch.models import priors
+    from hesic_tpu_torch.training.recipe import calibrate_single
+
+    kinds = {"bmshj2018-factorized": ("FactorizedPrior",
+                                      "FactorizedPriorCodec"),
+             "bmshj2018-hyperprior": ("ScaleHyperprior",
+                                      "ScaleHyperpriorCodec"),
+             "mbt2018-mean": ("MeanScaleHyperprior",
+                              "MeanScaleHyperpriorCodec")}
+
+    def round_trip(label, cdc):
+        out = cdc.compress(x)
+        rec = cdc.decompress(out["strings"], out["shape"])
+        if not torch.equal(rec["y_hat"], out["y_hat"]):
+            bad = int((rec["y_hat"] != out["y_hat"]).sum())
+            raise AssertionError(f"{label}: decoded y_hat differs from the "
+                                 f"encoder's at {bad} cells")
+        xh = rec["x_hat"]
+        if tuple(xh.shape) != x.shape or not torch.isfinite(xh).all():
+            raise AssertionError(f"{label}: x_hat shape {tuple(xh.shape)} "
+                                 f"or not finite")
+        print(f"{label} [{card}]: bpp_real {out['bpp_real']:.6f}, encode "
+              f"{out['enctime']:.3f} s, decode {rec['dectime']:.3f} s for "
+              f"{len(x)} {HW_IMG}x{HW_IMG} images; decoded y_hat equals the "
+              f"encoder's")
+        return out
+
+    build.launch_counts.clear()
+    random_bpp = None
+    for kind, (model_name, codec_name) in kinds.items():
+        for n, m in PRIOR_WIDTHS:
+            model = getattr(priors, model_name)(N=n, M=m, device=DEVICE,
+                                                seed=0)
+            cdc = getattr(prior_codecs, codec_name)(model).update()
+            out = round_trip(f"{kind} N{n}/M{m}, random weights", cdc)
+            if model_name == "FactorizedPrior":
+                with torch.no_grad():
+                    y = model.analysis(cdc._to_device(x))
+                med = cdc._median("entropy_bottleneck")
+                want = (torch.round(y - med) + med).permute(0, 2, 3, 1)
+                if not torch.equal(out["y_hat"], want):
+                    raise AssertionError(f"{kind} N{n}/M{m}: y_hat is not "
+                                         f"round(y - median) + median")
+            if model_name == "MeanScaleHyperprior" and (n, m) == (N, M):
+                random_bpp, cal_model = out["bpp_real"], model
+            del model, cdc
+    t0 = time.perf_counter()
+    losses, bpps = calibrate_single(cal_model, np.random.RandomState(2),
+                                    CAL_STEPS, CAL_HW, CAL_B)
+    check_loss_falls("mbt2018-mean", losses, bpps, time.perf_counter() - t0)
+    cdc = prior_codecs.MeanScaleHyperpriorCodec(cal_model).update()
+    bpp = round_trip(f"mbt2018-mean N{N}/M{M}, calibrated", cdc)["bpp_real"]
+    if not bpp < random_bpp:
+        raise AssertionError(f"mbt2018-mean: calibrated bpp_real {bpp} is "
+                             f"not below the random weights' {random_bpp}")
+    print(f"mbt2018-mean: calibrated bpp_real {bpp:.6f} against the random "
+          f"weights' {random_bpp:.6f}")
+    no_kernel_launched("the priors' host codecs")
+
+
+def phase_ref_codecs(card: str, hesic, dsic, plus, pairs) -> None:
+    """Phase 16: the reference-layout container codecs at full width and
+    calibrated weights (HESICCodec on phase 8's HESIC, DSICCodec on phase
+    10's DSIC, HESICPlusRefCodec on phase 12's HESIC+), each on two of
+    phase 6's pairs through files in a temporary directory: the first at
+    the identity H, the second at the rotated H (DSIC takes none).
+    Decoded y1_hat/y2_hat must equal the encoder's, the reconstructions
+    be finite and of the input's shape, and decoding with the H passed
+    equal decoding with the header's.  Launches none of the five
+    kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.dsic_codec import DSICCodec
+    from hesic_tpu_torch.models.hesic_codec import HESICCodec
+    from hesic_tpu_torch.models.hesic_plus_refcodec import HESICPlusRefCodec
+
+    x1, x2 = pairs
+    hs = (("identity H", np.eye(3, dtype=np.float32)[None]),
+          ("rotated H", bench.rotated_homography()[None]))
+    ref_codecs = (("HESICCodec", HESICCodec(hesic).update(), True),
+                  ("DSICCodec", DSICCodec(dsic).update(), False),
+                  ("HESICPlusRefCodec", HESICPlusRefCodec(plus).update(),
+                   True))
+    build.launch_counts.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cdc, takes_h in ref_codecs:
+            for i, (h_label, hm) in enumerate(hs):
+                label = f"{name} [{h_label if takes_h else f'pair {i}'}]"
+                args = (x1[i:i + 1], x2[i:i + 1]) + ((hm,) if takes_h
+                                                     else ())
+                out = cdc.compress(*args, f"pair{i}", tmp)
+                rec = cdc.decompress(f"pair{i}", tmp)
+                for key in ("y1_hat", "y2_hat"):
+                    if not torch.equal(rec[key], out[key]):
+                        bad = int((rec[key] != out[key]).sum())
+                        raise AssertionError(f"{label}: decoded {key} "
+                                             f"differs from the encoder's "
+                                             f"at {bad} cells")
+                for key in ("x1_hat", "x2_hat"):
+                    xh = rec[key]
+                    if (tuple(xh.shape) != (1, HW_IMG, HW_IMG, 3)
+                            or not torch.isfinite(xh).all()):
+                        raise AssertionError(f"{label}: {key} shape "
+                                             f"{tuple(xh.shape)} or not "
+                                             f"finite")
+                if takes_h:
+                    passed = cdc.decompress(f"pair{i}", tmp, h_matrix=hm)
+                    for key in ("y1_hat", "y2_hat", "x1_hat", "x2_hat"):
+                        if not torch.equal(passed[key], rec[key]):
+                            raise AssertionError(
+                                f"{label}: decoding with H passed differs "
+                                f"from decoding with the header's ({key})")
+                coder = out["coder_s"] + rec["coder_s"]
+                wall = out["enctime"] + rec["dectime"]
+                print(f"{label} [{card}]: bpp_real {out['bpp_real']:.6f}, "
+                      f"bpp_side {out['bpp_side']:.6f}, encode "
+                      f"{out['enctime']:.3f} s, decode {rec['dectime']:.3f} "
+                      f"s for one {HW_IMG}x{HW_IMG} pair, the host coder "
+                      f"{out['coder_s']:.3f} + {rec['coder_s']:.3f} s (share "
+                      f"{coder / wall:.3f}); decoded latents equal the "
+                      f"encoder's" + ("; the header's H decodes as the H "
+                                      "passed" if takes_h else ""))
+    no_kernel_launched("the reference-layout codecs")
 
 
 def main() -> int:
@@ -1781,9 +1989,8 @@ def main() -> int:
     cal_launches, cal_model = phase_calibrate(random_bpp)
     torch.cuda.empty_cache()
     bench_launches, grids = phase_bench(cal_model, card)
-    del cal_model
     torch.cuda.empty_cache()
-    dsic_launches, _ = phase_dsic(card)
+    dsic_launches, _, dsic_model = phase_dsic(card)
     torch.cuda.empty_cache()
     mbt_launches, mbt_held, (mbt_model, mbt_x, mbt_bpp) = phase_mbt(card)
     torch.cuda.empty_cache()
@@ -1795,7 +2002,14 @@ def main() -> int:
     phase_hesic_plus_host(card, plus_model, pairs, plus_random_bpp)
     print(f"phases 13-14 (the host AR codecs) took "
           f"{time.perf_counter() - t0:.1f} s")
-    del pairs, mbt_model, mbt_x, plus_model
+    del mbt_model, mbt_x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_priors(card, pairs[0][:PRIOR_B])
+    phase_ref_codecs(card, cal_model, dsic_model, plus_model, pairs)
+    print(f"phases 15-16 (the priors' codecs, the reference-layout "
+          f"codecs) took {time.perf_counter() - t0:.1f} s")
+    del pairs, plus_model, cal_model, dsic_model
     for counts in (cal_launches, bench_launches, dsic_launches,
                    mbt_launches, plus_cal_launches):
         for name, n in counts.items():

@@ -9,7 +9,11 @@
 //   * pmf_to_quantized_cdf: float PMF -> integer CDF summing to 2^precision
 //     with frequency stealing so no symbol has zero width;
 //   * the stateful (streaming) rANS decoder of the autoregressive codecs'
-//     numpy cross-check decoder;
+//     numpy cross-check decoder, and the row rANS coders (one CDF row per
+//     symbol, no escapes);
+//   * the LZMA-style range coder (arbitrary CDF totals) of the
+//     reference-layout container codecs (HESICCodec, DSICCodec,
+//     HESICPlusRefCodec);
 //   * the autoregressive (raster-causal) coder of the host AR codecs
 //     (hesic_ar_code), one float implementation for encode and decode.
 // The API is array-oriented (raw pointers + lengths, C ABI for ctypes).
@@ -216,6 +220,80 @@ inline int32_t decode_symbol(RansState& rans, WordSource& src,
   }
   return value;
 }
+
+// ---------------------------------------------------------------------------
+// LZMA-style range coder (arbitrary CDF totals)
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kRcTop = 1u << 24;
+
+struct RcEncoder {
+  std::vector<uint8_t> out;
+  uint64_t low = 0;
+  uint32_t range = 0xFFFFFFFFu;
+  uint8_t cache = 0;
+  uint64_t cache_size = 1;
+
+  inline void shift_low() {
+    if (static_cast<uint32_t>(low >> 32) != 0 ||
+        static_cast<uint32_t>(low) < 0xFF000000u) {
+      uint8_t carry = static_cast<uint8_t>(low >> 32);
+      do {
+        out.push_back(static_cast<uint8_t>(cache + carry));
+        cache = 0xFF;
+      } while (--cache_size != 0);
+      cache = static_cast<uint8_t>(low >> 24);
+    }
+    ++cache_size;
+    low = (static_cast<uint32_t>(low)) << 8;
+  }
+
+  inline void encode(uint32_t start, uint32_t freq, uint32_t total) {
+    range /= total;
+    low += static_cast<uint64_t>(start) * range;
+    range *= freq;
+    while (range < kRcTop) {
+      range <<= 8;
+      shift_low();
+    }
+  }
+
+  void flush() {
+    for (int i = 0; i < 5; ++i) shift_low();
+  }
+};
+
+struct RcDecoder {
+  const uint8_t* ptr;
+  const uint8_t* end;
+  uint32_t range = 0xFFFFFFFFu;
+  uint32_t code = 0;
+
+  void init(const uint8_t* data, int64_t n) {
+    ptr = data;
+    end = data + n;
+    range = 0xFFFFFFFFu;
+    code = 0;
+    for (int i = 0; i < 5; ++i) code = (code << 8) | next_byte();
+  }
+
+  inline uint8_t next_byte() { return ptr < end ? *ptr++ : 0; }
+
+  inline uint32_t get_freq(uint32_t total) {
+    range /= total;
+    return code / range;
+  }
+
+  inline void advance(uint32_t start, uint32_t freq) {
+    code -= start * range;
+    range *= freq;
+    while (range < kRcTop) {
+      code = (code << 8) | next_byte();
+      range <<= 8;
+    }
+  }
+};
+
 
 // ---------------------------------------------------------------------------
 // PMF -> quantized CDF (integer algorithm, frequency stealing)
@@ -462,6 +540,44 @@ int64_t hesic_rans_decode_batch(const uint8_t* data, const int64_t* begins,
 }
 
 
+// ---- rANS, per-symbol CDF rows (device-computed tables, no escapes) ----
+
+// Each symbol i draws from its own row cdf_rows[i] of `row_len` entries
+// (row_len-1 symbols).  Symbols must already lie in [0, row_len-2].
+int64_t hesic_rans_encode_with_rows(const int32_t* symbols, int64_t n,
+                                    const int32_t* cdf_rows, int32_t row_len,
+                                    uint8_t* out, int64_t out_cap) {
+  std::vector<Buffered> buf;
+  buf.reserve(static_cast<size_t>(n));
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* cdf = cdf_rows + static_cast<size_t>(i) * row_len;
+    const int32_t s = symbols[i];
+    if (s < 0 || s >= row_len - 1) return -1;
+    buf.push_back({static_cast<uint32_t>(cdf[s]),
+                   static_cast<uint32_t>(cdf[s + 1] - cdf[s]), 0});
+  }
+  return flush_buffer(buf, out, out_cap);
+}
+
+int64_t hesic_rans_decode_with_rows(const uint8_t* data, int64_t nbytes,
+                                    int64_t n, const int32_t* cdf_rows,
+                                    int32_t row_len, int32_t* out) {
+  if (nbytes < 8 || (nbytes % 4) != 0) return -1;
+  RansState rans;
+  WordSource src{reinterpret_cast<const uint32_t*>(data),
+                 reinterpret_cast<const uint32_t*>(data + nbytes)};
+  rans_dec_init(rans, src);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* cdf = cdf_rows + static_cast<size_t>(i) * row_len;
+    const uint32_t cf = rans_dec_peek(rans);
+    int32_t s = 0;
+    while (s + 1 < row_len - 1 && static_cast<uint32_t>(cdf[s + 1]) <= cf) ++s;
+    rans_dec_advance(rans, src, cdf[s], cdf[s + 1] - cdf[s]);
+    out[i] = s;
+  }
+  return n;
+}
+
 // ---- rANS, stateful decoder (autoregressive models) ----
 
 struct HesicRansDecoder {
@@ -497,6 +613,109 @@ int64_t hesic_rans_decoder_decode(void* dec, const int32_t* indexes, int64_t n,
     out[i] = decode_symbol(d->rans, d->src, cdf, cdf_sizes[idx]) + offsets[idx];
   }
   return n;
+}
+
+// ---- Range coder (arbitrary totals; HESIC y-path container) ----
+
+void* hesic_rc_encoder_new() { return new RcEncoder(); }
+
+void hesic_rc_encoder_free(void* enc) { delete static_cast<RcEncoder*>(enc); }
+
+// Encode n symbols sharing one cdf (len entries; total = cdf[len-1]).
+int hesic_rc_encode(void* enc, const int32_t* symbols, int64_t n,
+                    const int32_t* cdf, int32_t len) {
+  auto* e = static_cast<RcEncoder*>(enc);
+  const uint32_t total = static_cast<uint32_t>(cdf[len - 1]);
+  if (total == 0) return -1;
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t s = symbols[i];
+    if (s < 0 || s >= len - 1) return -1;
+    const uint32_t freq = static_cast<uint32_t>(cdf[s + 1] - cdf[s]);
+    if (freq == 0) return -2;
+    e->encode(static_cast<uint32_t>(cdf[s]), freq, total);
+  }
+  return 0;
+}
+
+// Encode n symbols, each with its own cdf row ([n, row_len] int32).
+int hesic_rc_encode_rows(void* enc, const int32_t* symbols, int64_t n,
+                         const int32_t* cdf_rows, int32_t row_len) {
+  auto* e = static_cast<RcEncoder*>(enc);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* cdf = cdf_rows + static_cast<size_t>(i) * row_len;
+    const uint32_t total = static_cast<uint32_t>(cdf[row_len - 1]);
+    const int32_t s = symbols[i];
+    if (total == 0 || s < 0 || s >= row_len - 1) return -1;
+    const uint32_t freq = static_cast<uint32_t>(cdf[s + 1] - cdf[s]);
+    if (freq == 0) return -2;
+    e->encode(static_cast<uint32_t>(cdf[s]), freq, total);
+  }
+  return 0;
+}
+
+// Flush and copy bytes out.  Returns byte count (or negative required size).
+int64_t hesic_rc_encoder_flush(void* enc, uint8_t* out, int64_t out_cap) {
+  auto* e = static_cast<RcEncoder*>(enc);
+  e->flush();
+  const int64_t n = static_cast<int64_t>(e->out.size());
+  if (n > out_cap) return -n;
+  std::memcpy(out, e->out.data(), n);
+  return n;
+}
+
+void* hesic_rc_decoder_new(const uint8_t* data, int64_t nbytes) {
+  auto* d = new RcDecoder();
+  // keep a copy alive alongside the decoder
+  auto* buf = new std::vector<uint8_t>(data, data + nbytes);
+  d->init(buf->data(), nbytes);
+  // stash the buffer pointer right after the decoder (paired free)
+  auto* pair = new std::pair<RcDecoder*, std::vector<uint8_t>*>(d, buf);
+  return pair;
+}
+
+void hesic_rc_decoder_free(void* dec) {
+  auto* pair =
+      static_cast<std::pair<RcDecoder*, std::vector<uint8_t>*>*>(dec);
+  delete pair->first;
+  delete pair->second;
+  delete pair;
+}
+
+int hesic_rc_decode(void* dec, int64_t n, const int32_t* cdf, int32_t len,
+                    int32_t* out) {
+  auto* pair =
+      static_cast<std::pair<RcDecoder*, std::vector<uint8_t>*>*>(dec);
+  RcDecoder* d = pair->first;
+  const uint32_t total = static_cast<uint32_t>(cdf[len - 1]);
+  if (total == 0) return -1;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint32_t cf = d->get_freq(total);
+    int32_t s = 0;
+    while (s + 1 < len - 1 && static_cast<uint32_t>(cdf[s + 1]) <= cf) ++s;
+    d->advance(static_cast<uint32_t>(cdf[s]),
+               static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+    out[i] = s;
+  }
+  return 0;
+}
+
+int hesic_rc_decode_rows(void* dec, int64_t n, const int32_t* cdf_rows,
+                         int32_t row_len, int32_t* out) {
+  auto* pair =
+      static_cast<std::pair<RcDecoder*, std::vector<uint8_t>*>*>(dec);
+  RcDecoder* d = pair->first;
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* cdf = cdf_rows + static_cast<size_t>(i) * row_len;
+    const uint32_t total = static_cast<uint32_t>(cdf[row_len - 1]);
+    if (total == 0) return -1;
+    const uint32_t cf = d->get_freq(total);
+    int32_t s = 0;
+    while (s + 1 < row_len - 1 && static_cast<uint32_t>(cdf[s + 1]) <= cf) ++s;
+    d->advance(static_cast<uint32_t>(cdf[s]),
+               static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+    out[i] = s;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -7,10 +7,22 @@ which releases the GIL for the length of every native call, so the host
 AR codecs' threads code a batch's images in parallel.
 
 Beyond the batched z coder and the CDF quantizer: the single-stream
-``encode_with_indexes``/``decode_with_indexes``, the stateful
+``encode_with_indexes``/``decode_with_indexes`` (and the classes over
+them, ``RansEncoder`` and ``BufferedRansEncoder``), the stateful
 ``RansDecoder`` (``set_stream``/``decode_stream``, the numpy AR
-decoder's coder) and the raster-causal AR coder (``ArWeightsNative``,
+decoder's coder), the row rANS coders (``rans_encode_with_rows``/
+``rans_decode_with_rows``: one CDF row per symbol, no escapes), the
+range coder of the reference-layout container codecs (``RangeEncoder``/
+``RangeDecoder``: arbitrary CDF totals, one row per symbol or one CDF
+for many) and the raster-causal AR coder (``ArWeightsNative``,
 ``ar_code``), as hesic_tpu/codecs/rans.py binds them.
+
+One divergence from that module: ``RangeEncoder.close`` sizes its
+buffer from the symbols encoded (an encode shifts out at most 3 bytes,
+since it leaves the range at least 1 and renormalizes below 2^24; the
+flush 5) and flushes once.  The
+JAX binding retries a flush that overflows its first 64 KiB buffer, and
+the native flush then runs twice, so a longer body comes back empty.
 """
 
 from __future__ import annotations
@@ -49,6 +61,28 @@ _SIGNATURES = {
     "hesic_rans_decoder_decode": (ctypes.c_int64, [
         ctypes.c_void_p, _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32,
         _c_i32p, _c_i32p, ctypes.c_int32, _c_i32p]),
+    "hesic_pmf_to_quantized_cdf": (ctypes.c_int, [
+        _c_f32p, ctypes.c_int32, ctypes.c_int32, _c_i32p]),
+    "hesic_rans_encode_with_rows": (ctypes.c_int64, [
+        _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32, _c_u8p,
+        ctypes.c_int64]),
+    "hesic_rans_decode_with_rows": (ctypes.c_int64, [
+        _c_u8p, ctypes.c_int64, ctypes.c_int64, _c_i32p, ctypes.c_int32,
+        _c_i32p]),
+    "hesic_rc_encoder_new": (ctypes.c_void_p, []),
+    "hesic_rc_encoder_free": (None, [ctypes.c_void_p]),
+    "hesic_rc_encode": (ctypes.c_int, [
+        ctypes.c_void_p, _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32]),
+    "hesic_rc_encode_rows": (ctypes.c_int, [
+        ctypes.c_void_p, _c_i32p, ctypes.c_int64, _c_i32p, ctypes.c_int32]),
+    "hesic_rc_encoder_flush": (ctypes.c_int64, [
+        ctypes.c_void_p, _c_u8p, ctypes.c_int64]),
+    "hesic_rc_decoder_new": (ctypes.c_void_p, [_c_u8p, ctypes.c_int64]),
+    "hesic_rc_decoder_free": (None, [ctypes.c_void_p]),
+    "hesic_rc_decode": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int64, _c_i32p, ctypes.c_int32, _c_i32p]),
+    "hesic_rc_decode_rows": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int64, _c_i32p, ctypes.c_int32, _c_i32p]),
     "hesic_ar_code": (ctypes.c_int64, [
         ctypes.c_int, _c_f32p, _c_f32p, _c_u8p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -75,6 +109,38 @@ def _i32(a) -> np.ndarray:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctype)
+
+
+def _as_cdf_table(cdfs) -> np.ndarray:
+    """A 2-D int array, or a ragged list of rows zero-padded to one, as a
+    contiguous int32 table."""
+    if isinstance(cdfs, np.ndarray) and cdfs.ndim == 2:
+        return np.ascontiguousarray(cdfs, dtype=np.int32)
+    rows = [np.asarray(r, dtype=np.int32) for r in cdfs]
+    out = np.zeros((len(rows), max(len(r) for r in rows)), dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out
+
+
+def _rows(cdf_rows, n: int) -> np.ndarray:
+    """(n, row_len) int32 CDF rows, one per symbol."""
+    rows = np.ascontiguousarray(np.asarray(cdf_rows), dtype=np.int32)
+    if rows.ndim != 2 or rows.shape[0] != n:
+        raise ValueError("cdf_rows must be (n_symbols, row_len)")
+    return rows
+
+
+def pmf_to_quantized_cdf(pmf, precision: int = 16) -> np.ndarray:
+    """Float PMF -> integer CDF of pmf.size + 1 entries summing to
+    2**precision, no zero bins."""
+    p = np.ascontiguousarray(np.asarray(pmf).reshape(-1), dtype=np.float32)
+    out = np.empty(p.size + 1, dtype=np.int32)
+    rc = _lib().hesic_pmf_to_quantized_cdf(_ptr(p, _c_f32p), p.size,
+                                           precision, _ptr(out, _c_i32p))
+    if rc != 0:
+        raise ValueError(f"pmf_to_quantized_cdf failed (rc={rc})")
+    return out
 
 
 def pmf_to_quantized_cdf_batch(pmfs, pmf_lengths, tail_mass,
@@ -161,8 +227,7 @@ def rans_decode_batch(data: bytes, begins, ends, indexes, n_per: int,
 
 
 def _table(cdfs, cdf_sizes, offsets):
-    return (np.ascontiguousarray(cdfs, dtype=np.int32), _i32(cdf_sizes),
-            _i32(offsets))
+    return _as_cdf_table(cdfs), _i32(cdf_sizes), _i32(offsets)
 
 
 def encode_with_indexes(symbols, indexes, cdfs, cdf_sizes,
@@ -202,6 +267,188 @@ def decode_with_indexes(data: bytes, indexes, cdfs, cdf_sizes,
     if n != idx.size:
         raise ValueError("rANS decode failed")
     return out
+
+
+class RansEncoder:
+    """Stateless rANS encoder: one stream per call."""
+
+    def encode_with_indexes(self, symbols, indexes, cdfs, cdf_sizes,
+                            offsets) -> bytes:
+        return encode_with_indexes(symbols, indexes, cdfs, cdf_sizes,
+                                   offsets)
+
+
+class BufferedRansEncoder:
+    """Accumulates (symbols, indexes, table) chunks; ``flush`` codes them
+    as one stream.  Chunks under one table are coded against it; chunks
+    under different tables against their concatenation, each chunk's
+    indexes shifted to its own rows."""
+
+    def __init__(self):
+        self._chunks: list = []
+
+    def encode_with_indexes(self, symbols, indexes, cdfs, cdf_sizes,
+                            offsets):
+        self._chunks.append((_i32(symbols), _i32(indexes),
+                             *_table(cdfs, cdf_sizes, offsets)))
+
+    def flush(self) -> bytes:
+        if not self._chunks:
+            return b""
+        chunks, self._chunks = self._chunks, []
+        first = chunks[0][2]
+        if all(c[2] is first or (c[2].shape == first.shape
+                                 and np.array_equal(c[2], first))
+               for c in chunks):
+            _, _, table, sizes, offs = chunks[0]
+            sym = np.concatenate([c[0] for c in chunks])
+            idx = np.concatenate([c[1] for c in chunks])
+        else:
+            stride = max(c[2].shape[1] for c in chunks)
+            tables, idxs, base = [], [], 0
+            for _, i, t, _, _ in chunks:
+                tables.append(np.pad(t, ((0, 0), (0, stride - t.shape[1]))))
+                idxs.append(i + base)
+                base += t.shape[0]
+            table = np.concatenate(tables)
+            sizes = np.concatenate([c[3] for c in chunks])
+            offs = np.concatenate([c[4] for c in chunks])
+            sym = np.concatenate([c[0] for c in chunks])
+            idx = np.concatenate(idxs)
+        return encode_with_indexes(sym, idx, table, sizes, offs)
+
+
+def rans_encode_with_rows(symbols, cdf_rows) -> bytes:
+    """Encode symbols[i] with its own CDF row cdf_rows[i] (rows of
+    2**16 total, no zero bins, no escapes) as one rANS stream."""
+    sym = _i32(symbols)
+    rows = _rows(cdf_rows, sym.size)
+    cap = max(1 << 12, sym.size * 8 + 64)
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        n = _lib().hesic_rans_encode_with_rows(
+            _ptr(sym, _c_i32p), sym.size, _ptr(rows, _c_i32p),
+            rows.shape[1], _ptr(out, _c_u8p), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n == -1:
+            raise ValueError("encode failed: symbol out of range")
+        cap = int(-n)
+
+
+def rans_decode_with_rows(encoded: bytes, n_symbols: int,
+                          cdf_rows) -> np.ndarray:
+    """Inverse of rans_encode_with_rows -> (n_symbols,) int32."""
+    rows = _rows(cdf_rows, n_symbols)
+    data = np.frombuffer(encoded, dtype=np.uint8)
+    out = np.empty(n_symbols, dtype=np.int32)
+    n = _lib().hesic_rans_decode_with_rows(
+        _ptr(data, _c_u8p), data.size, n_symbols, _ptr(rows, _c_i32p),
+        rows.shape[1], _ptr(out, _c_i32p))
+    if n != n_symbols:
+        raise ValueError("rANS row decode failed")
+    return out
+
+
+class RangeEncoder:
+    """The range coder (LZMA-style carry handling, arbitrary CDF totals
+    below 2^24): ``encode`` many symbols under one CDF or ``encode_rows``
+    each under its own row, any number of times, then ``close`` for the
+    bytes, which it also writes to `path` when one is given."""
+
+    def __init__(self, path: str = None):
+        self._handle = _lib().hesic_rc_encoder_new()
+        self._path = path
+        self._symbols = 0
+
+    def __del__(self):
+        self._free()
+
+    def _free(self):
+        if getattr(self, "_handle", None):
+            _lib().hesic_rc_encoder_free(self._handle)
+            self._handle = None
+
+    def _check(self, rc: int, n: int):
+        if rc != 0:
+            raise ValueError(f"range encode failed (rc={rc}): a symbol "
+                             f"outside its CDF or a zero-width bin")
+        self._symbols += n
+
+    def encode(self, symbols, cdf):
+        sym, c = _i32(symbols), _i32(cdf)
+        self._check(_lib().hesic_rc_encode(
+            self._handle, _ptr(sym, _c_i32p), sym.size, _ptr(c, _c_i32p),
+            c.size), sym.size)
+
+    def encode_rows(self, symbols, cdf_rows):
+        """Encode symbols[i] with cdf_rows[i] in one native call."""
+        sym = _i32(symbols)
+        rows = _rows(cdf_rows, sym.size)
+        self._check(_lib().hesic_rc_encode_rows(
+            self._handle, _ptr(sym, _c_i32p), sym.size,
+            _ptr(rows, _c_i32p), rows.shape[1]), sym.size)
+
+    def close(self) -> bytes:
+        cap = 3 * self._symbols + 64
+        out = np.empty(cap, dtype=np.uint8)
+        n = _lib().hesic_rc_encoder_flush(self._handle, _ptr(out, _c_u8p),
+                                          cap)
+        self._free()
+        if n < 0:
+            raise ValueError(f"range coder output of {-n} bytes exceeds "
+                             f"its bound of {cap}")
+        result = out[:n].tobytes()
+        if self._path is not None:
+            with open(self._path, "wb") as f:
+                f.write(result)
+        return result
+
+
+class RangeDecoder:
+    """Counterpart of RangeEncoder over bytes or a file path; the native
+    decoder keeps its own copy of the bytes."""
+
+    def __init__(self, source):
+        if isinstance(source, (bytes, bytearray)):
+            data = bytes(source)
+        else:
+            with open(source, "rb") as f:
+                data = f.read()
+        buf = np.frombuffer(data, dtype=np.uint8)
+        self._handle = _lib().hesic_rc_decoder_new(_ptr(buf, _c_u8p),
+                                                   buf.size)
+
+    def __del__(self):
+        self.close()
+
+    def close(self):
+        if getattr(self, "_handle", None):
+            _lib().hesic_rc_decoder_free(self._handle)
+            self._handle = None
+
+    def decode(self, n: int, cdf) -> np.ndarray:
+        """n symbols under one CDF -> (n,) int32."""
+        c = _i32(cdf)
+        out = np.empty(n, dtype=np.int32)
+        rc = _lib().hesic_rc_decode(self._handle, n, _ptr(c, _c_i32p),
+                                    c.size, _ptr(out, _c_i32p))
+        if rc != 0:
+            raise ValueError(f"range decode failed (rc={rc})")
+        return out
+
+    def decode_rows(self, cdf_rows) -> np.ndarray:
+        """One symbol per row of `cdf_rows` (n, row_len) -> (n,) int32."""
+        rows = np.ascontiguousarray(np.asarray(cdf_rows), dtype=np.int32)
+        if rows.ndim != 2:
+            raise ValueError("cdf_rows must be (n_symbols, row_len)")
+        out = np.empty(rows.shape[0], dtype=np.int32)
+        rc = _lib().hesic_rc_decode_rows(
+            self._handle, rows.shape[0], _ptr(rows, _c_i32p), rows.shape[1],
+            _ptr(out, _c_i32p))
+        if rc != 0:
+            raise ValueError(f"range decode failed (rc={rc})")
+        return out
 
 
 class RansDecoder:

@@ -6,12 +6,12 @@ from .codec import (CdfTables, compress_with_indexes, decode_streams_batch,
                     tables_from_pmf)
 from .entropy_models import (EntropyBottleneck, GaussianConditional,
                              GaussianMixtureConditional, build_indexes,
-                             gaussian_pmf_data, get_scale_table,
+                             gaussian_pmf_data, get_scale_table, gmm_pmf,
                              standardized_cumulative)
 
 __all__ = ["CdfTables", "EntropyBottleneck", "GaussianConditional",
            "GaussianMixtureConditional", "build_indexes",
            "compress_with_indexes", "decode_streams_batch",
            "decompress_with_indexes", "gaussian_pmf_data",
-           "gaussian_tables", "get_scale_table", "standardized_cumulative",
-           "tables_from_pmf"]
+           "gaussian_tables", "get_scale_table", "gmm_pmf",
+           "standardized_cumulative", "tables_from_pmf"]

@@ -10,7 +10,9 @@ mixture over the y latents.  Likelihoods are float32 (erfc near the
 package's formulation.  ``GaussianConditional`` is the single Gaussian
 over the y latents of the autoregressive families (mbt2018, HESIC+).
 
-The Gaussian conditional's host side: the scale table
+``gmm_pmf`` evaluates the mixture's PMF on a symbol grid, the
+reference-layout codecs' per-pixel CDF rows.  The Gaussian conditional's
+host side: the scale table
 (``get_scale_table``, float64 numpy), the scale-table indexes of a
 scale tensor (``build_indexes``) and the per-scale PMFs the y CDF tables
 are quantized from (``gaussian_pmf_data``, evaluated on the CPU in
@@ -98,6 +100,35 @@ def build_indexes(scales: torch.Tensor, scale_table,
                             device=scales.device)
     bounded = torch.clamp_min(scales.float(), scale_bound)
     return (bounded[..., None] > table[:-1]).sum(-1).to(torch.int32)
+
+
+def gmm_pmf(samples, scales, means, weights, K: int,
+            scale_bound: float = SCALE_BOUND) -> torch.Tensor:
+    """The Gaussian mixture's PMF on a symbol grid, in float32 on the
+    parameters' device, as the JAX package's ``gmm_pmf``.
+
+    samples: (S,) grid values; scales, means, weights: (..., M*K)
+    channels-last parameter maps (component k's channel m at k*M + m;
+    weights may broadcast, e.g. (1, 1, 1, M*K)) -> (..., M, S): the sum
+    over k of w * (Phi((0.5 - |s - mu|) / sigma) - Phi((-0.5 - |s - mu|)
+    / sigma)), sigma bounded below at `scale_bound`, the components
+    summed in order k = 0, 1, ..."""
+    m = scales.shape[-1] // K
+    s = torch.as_tensor(samples, dtype=torch.float32, device=scales.device)
+
+    def slab(t):                                   # (..., M, K, 1)
+        t = t.float()
+        return t.reshape(*t.shape[:-1], K, m).transpose(-1, -2)[..., None]
+
+    mu, w = slab(means), slab(weights)
+    sc = torch.clamp_min(slab(scales), scale_bound)
+    values = torch.abs(s - mu)                     # (..., M, K, S)
+    terms = (standardized_cumulative((0.5 - values) / sc)
+             - standardized_cumulative((-0.5 - values) / sc)) * w
+    pmf = terms[..., 0, :]
+    for k in range(1, K):
+        pmf = pmf + terms[..., k, :]
+    return pmf
 
 
 def gaussian_pmf_data(scale_table, tail_mass: float = 1e-9):

@@ -10,8 +10,9 @@ Submodules carry the JAX package's parameter names (``encoder1.Conv_0``,
 ``h_s1.Deconv_2``, ``entropy_bottleneck1.matrix_0``, ...) so weights map
 one to one (utils/from_jax.py).  ``HESIC`` keeps the codec's method
 split: ``analysis1/2``, ``synthesis1/2``, ``hyper_analysis1/2``,
-``gmm1/2``.  ``dtype`` (None = float32) is the transforms' compute type;
-the GMM heads' outputs and the encoders' latents are cast to float32.
+``gmm1/2``, ``left_prior``.  ``dtype`` (None = float32) is the
+transforms' compute type; the GMM heads' outputs and the encoders'
+latents are cast to float32.
 GMM weight channels are laid out k*M + m.
 
 ``forward`` is the training (and likelihood) forward of the JAX package's
@@ -44,11 +45,34 @@ def softmax_over_mixture(w: torch.Tensor, k: int) -> torch.Tensor:
         w.shape)
 
 
+def _half_pixel_matrix(n_in: int, scale: int, device) -> torch.Tensor:
+    """1-D half-pixel linear interpolation matrix (n_in * scale, n_in),
+    float32, built on `device` from comparisons (no host copy): output i
+    samples the input at (i + 0.5) / scale - 0.5, clamped to the edge
+    pixels.  At scale 4 every weight (0.125, 0.375, 0.625, 0.875, 1) is
+    exact in bf16."""
+    pos = torch.clamp((torch.arange(n_in * scale, dtype=torch.float32,
+                                    device=device) + 0.5) / scale - 0.5,
+                      0.0, n_in - 1)
+    lo = torch.floor(pos).to(torch.int64)
+    fr = pos - lo.float()
+    cols = torch.arange(n_in, device=device)[None, :]
+    zero = torch.zeros((), device=device)
+    return (torch.where(cols == lo[:, None], (1.0 - fr)[:, None], zero)
+            + torch.where(cols == lo[:, None] + 1, fr[:, None], zero))
+
+
 def upsample4(z: torch.Tensor) -> torch.Tensor:
     """Bilinear x4 upsampling (half-pixel centres, edge-clamped): the
-    upsampling case of ``jax.image.resize(..., "bilinear")``."""
-    return F.interpolate(z, scale_factor=4, mode="bilinear",
-                         align_corners=False)
+    upsampling case of ``jax.image.resize(..., "bilinear")``, as two
+    interpolation-matrix products in the input's dtype, rows then
+    columns.  Its backward is two matrix products too, so it is
+    deterministic (an interpolation kernel's backward accumulates with
+    atomics on the card)."""
+    h, w = z.shape[-2:]
+    mh = _half_pixel_matrix(h, 4, z.device).to(z.dtype)
+    mw = _half_pixel_matrix(w, 4, z.device).to(z.dtype)
+    return torch.matmul(torch.matmul(mh, z), mw.t())
 
 
 class _Stack(nn.Module):
@@ -312,3 +336,10 @@ class HESIC(nn.Module):
 
     def gmm2(self, z2_hat, y1_prior):
         return self.h_s2(z2_hat, y1_prior)
+
+    def left_prior(self, x1_hat, h):
+        """The decoder-reproducible cross-eye prior of the reference-layout
+        codec (models/hesic_codec.py): the decoded left view warped by
+        `h`, re-encoded and rounded (eval quantization, no means)."""
+        warped = warp_perspective_train(x1_hat, h, self.dtype)
+        return quantize(self.encoder1(warped), "dequantize")

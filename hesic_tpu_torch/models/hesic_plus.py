@@ -19,9 +19,10 @@ outputs are cast to float32, and the Gaussian conditionals' likelihood
 math is float32.  Activations are ``leaky_relu`` with slope 0.01, flax's
 default.
 
-The host codec, ``HESICPlusCodec``, is in models/hesic_plus_codec.py.
-Not carried over yet: ``HESICPlusTogether`` and the reference-layout
-codec.
+The host codec, ``HESICPlusCodec``, is in models/hesic_plus_codec.py,
+the reference-layout codec, ``HESICPlusRefCodec``, in
+models/hesic_plus_refcodec.py.  Not carried over yet:
+``HESICPlusTogether``.
 """
 
 from __future__ import annotations

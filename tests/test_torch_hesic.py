@@ -2,7 +2,10 @@
 package, at the tiny config (N=16, M=24, K=2, 64x64), with the JAX
 parameters carried over by hesic_from_jax (strict load: every parameter
 maps).  float32 on the CPU.  Tolerances: sub-programs atol 2e-5 (measured
-<= 4.1e-6 on outputs of magnitude ~4); bilinear x4 upsample atol 1e-6.
+<= 4.1e-6 on outputs of magnitude ~4); bilinear x4 upsample (two
+interpolation-matrix products) atol 1e-6 against jax.image.resize and
+F.interpolate, its gradient atol 1e-6 against JAX's vjp, and in bf16
+within two bf16 ulps of the float32 result.
 The warp's overflow counts must be identical.  Its sampling coordinates
 differ from XLA:CPU's in the last bit (XLA contracts the projective
 transform's mul+add into FMAs), so the float32 warp is held to atol 1e-5
@@ -93,6 +96,47 @@ def test_upsample4_matches_jax_image_resize():
     want = np.asarray(jax.image.resize(jnp.asarray(z), (2, 12, 20, 4),
                                        "bilinear"))
     np.testing.assert_allclose(_nhwc(upsample4(_nchw(z))), want, atol=1e-6,
+                               rtol=0)
+
+
+def test_upsample4_matches_f_interpolate():
+    """The matrix form against PyTorch's own half-pixel bilinear
+    interpolation: float32 within 1e-6; bf16 within two bf16 ulps of the
+    float32 result on the same (bf16) input, since the two products round
+    to bf16 once each (the weights are exact in bf16).  The ulp is taken
+    at the scale of the values combined, the float32 upsampling of |z|:
+    where neighbours of opposite sign cancel, the first product's rounding
+    is an error relative to them, not to the small result (measured 1.10
+    such ulps)."""
+    z = torch.from_numpy(
+        np.random.RandomState(2).randn(2, 5, 6, 7).astype(np.float32) * 3)
+    want = torch.nn.functional.interpolate(z, scale_factor=4,
+                                           mode="bilinear",
+                                           align_corners=False)
+    got = upsample4(z)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    zb = z.to(torch.bfloat16)
+    ref = upsample4(zb.float())
+    out = upsample4(zb)
+    assert out.dtype == torch.bfloat16
+    scale = upsample4(zb.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+    assert bool(((out.float() - ref).abs() <= 2 * ulp).all())
+
+
+def test_upsample4_gradient_matches_jax_vjp():
+    """The backward (two transposed matrix products, no atomics) against
+    JAX's vjp of jax.image.resize on a seeded cotangent, float32."""
+    rng = np.random.RandomState(3)
+    z = rng.randn(2, 3, 5, 4).astype(np.float32)
+    ct = rng.randn(2, 12, 20, 4).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, 12, 20, 4),
+                                                "bilinear"), jnp.asarray(z))
+    (want,) = vjp(jnp.asarray(ct))
+    zt = _nchw(z).requires_grad_(True)
+    upsample4(zt).backward(_nchw(ct))
+    np.testing.assert_allclose(_nhwc(zt.grad), np.asarray(want), atol=1e-6,
                                rtol=0)
 
 
