@@ -196,12 +196,44 @@ and prints no result):
      host coder's share of them.  Phases 15 and 16 launch none of the
      five kernels: their coders are host C++ (the range coder, rANS), as
      the JAX package's are;
- 17. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8, 10, 11 and 12's round trips and phases 9-12's timed loops;
-     kernels 1-3's times and bounds at batch 64 on the widest grid phase
-     9 ran, kernels 4 and 5's at the HESIC+ point, their errors the
-     largest of every hold, mbt2018's included), then the device line
-     {"ok": true, "device": {...}} last.
+ 17. drives Cheng2020 through the wavefront device codec (the zoo builds
+     both): cheng2020-anchor at quality 4 (N=192) on phase 11's 11
+     images, round trips at random weights (mm 16, and mm 1 on the
+     images amplified by CHENG_ESC_GAIN, which must escape),
+     calibrate_single (60 steps; the loss must fall as in phase 11), a
+     calibrated round trip whose decoded images' MSE must be below the
+     random weights' (whose near-zero latents code near the bpp floor:
+     the init is torch.nn.Conv2d's default), kernels 5 (no post) and 4
+     held against their twins at the calibrated weights under phase
+     11's gates, on the images and on the amplified ones, and the host
+     AR codec's round trip of 2 of the images; for the record (no gate)
+     kernel 5 against its twin at the JAX package's draw; then
+     cheng2020-attn at quality 1 (N=128, whose MLP widths 426 and 341
+     kernel 5 runs padded to 432 and 352): a round trip and kernels 5
+     and 4 held on its weights, on the amplified images' latents.  Every
+     decoded y_hat must equal the encoder's, kernel 4 launch once and
+     kernel 5 twice a round trip; prints kernel 5's times beside its
+     bound at the real widths, and the residual blocks' f32 3x3 conv at
+     the calibration's shape batched (cuDNN's pick) and image by image
+     (layers.ImageConv);
+ 18. drives stage 2: HESICTogetherCodec over phase 8's HESIC,
+     DSICPlusCodec over phase 10's DSIC and HESICPlusTogetherCodec over
+     phase 12's HESIC+ (each enhancement from a seed) on one 512x512 pair
+     at the identity and the rotated H (DSIC+ takes none).  Each
+     decode's *_base must be bit-equal to the inner codec's decode of
+     the same container and its output bit-equal to model.enhance on
+     the base; prints the enhancement's ms a pair and the PSNR of base
+     against enhanced (information only: the enhancement is untrained).
+     Then zoo.create_model builds every name at its lowest quality on
+     the card (its default device), as the registry's classes.  Phase 18
+     launches none of the five kernels;
+ 19. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8, 10, 11, 12 and 17's round trips and phases 9-12's timed
+     loops; kernels 1-3's times and bounds at batch 64 on the widest
+     grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
+     errors the largest of every hold, mbt2018's and Cheng2020's
+     included), then the device line {"ok": true, "device": {...}}
+     last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -275,6 +307,10 @@ AR_OPS_PER_EDGE, AR_OPS_PER_BIN, AR_OPS_PER_LATENT = 56, 11, 27
 # largest |base|; a sound kernel read about 0.1 of that limit on the H100
 HOIST_TOL = 1e-5
 
+# phase 17's escape case: Cheng2020's init (torch.nn.Conv2d's default)
+# keeps |y| below 1 on images in [0, 1], so the mm=1 codec codes them
+# amplified about 0.5 by this gain
+CHENG_ESC_GAIN = 32
 # phase 15: the CompressAI priors at the zoo's two widths
 # (hesic_tpu/zoo/__init__.py: qualities 1-5 or 1-4, and the rest), on the
 # first eyes of PRIOR_B of phase 6's pairs
@@ -336,6 +372,8 @@ def check_equal(name: str, got, want) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
+    if got.numel() == 0:        # e.g. no word emitted in a small window
+        return 0
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain twin "
@@ -918,25 +956,31 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     # pixel) against its twin, and one level's four stage products as
     # torch.matmul at a full level's rows (a yardstick, never called by
     # the port)
+    # H1, H2: the real widths (the bound's work); the kernel runs the
+    # packed ones, padded to multiples of 16
+    h1, h2 = w_raw.ep_kernels[1].shape
+    h1p, h2p = w.w1.shape
     base_k = wf.hoisted_base_cuda(w, pre, post)
     base_p = wf.hoisted_base_plain(w, pre, post)
     sync()
-    d_base = float((base_k - base_p).abs().max())
+    d_base = float((base_k[..., :h1] - base_p[..., :h1]).abs().max())
     base_lim = HOIST_TOL * float(base_p.abs().max())
     if not d_base <= base_lim:
         raise AssertionError(f"ar_wavefront {label}: hoisted product "
                              f"differs from its twin by {d_base} (limit "
                              f"{base_lim})")
+    if base_k[..., h1:].any():
+        raise AssertionError(f"ar_wavefront {label}: the hoisted "
+                             f"product's padded columns are not 0")
     hoist_ms = cuda_ms(lambda: wf.hoisted_base_cuda(w, pre, post), 10)
     n_levels, _, _, p_max = schedule(hy, wy)
     rows = b * p_max
-    h1, h2 = w_raw.ep_kernels[1].shape
-    shapes = wf.stage_shapes(m, h1, h2)
-    blocks = wf.stage_blocks(wf.stage_plan(m, h1, h2), shapes, rows)
+    shapes = wf.stage_shapes(m, h1p, h2p)
+    blocks = wf.stage_blocks(wf.stage_plan(m, h1p, h2p), shapes, rows)
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     mats = [(torch.randn(rows, k, generator=gen, device=DEVICE), wt)
             for (k, _), wt in zip(shapes.values(),
-                                  (w.tapk, w.w0_ctx, *w_raw.ep_kernels[1:]))]
+                                  (w.tapk, w.w0_ctx, w.w1, w.w2))]
     level_mm_ms = cuda_ms(lambda: [a @ wt for a, wt in mats], 50)
 
     pix = b * hy * wy
@@ -977,10 +1021,12 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
           f"read per level at {rows} rows; hoisted product {hoist_ms:.4f} "
           f"ms (max |d| {d_base:.3e} against its twin, limit "
           f"{base_lim:.3e}); one level's four products as torch.matmul at "
-          f"{rows} rows {level_mm_ms:.4f} ms (yardstick)")
+          f"{rows} rows {level_mm_ms:.4f} ms (yardstick); MLP widths H1 "
+          f"{h1}, H2 {h2}, packed {h1p}, {h2p}")
     return {
         "wavefront": {"err": d_y, "ms": ms5, "plain_ms": plain5,
-                      "bound_ms": bound5[by5], "bound_by": by5},
+                      "bound_ms": bound5[by5], "bound_by": by5,
+                      "dec_ms": dec_ms},
         "pairs": pairs,
     }
 
@@ -1931,6 +1977,348 @@ def phase_ref_codecs(card: str, hesic, dsic, plus, pairs) -> None:
     no_kernel_launched("the reference-layout codecs")
 
 
+def phase_cheng(card: str, x) -> tuple:
+    """Phase 17: Cheng2020 through the wavefront device codec.
+    cheng2020-anchor at quality 4 (N=192, built by the zoo) on AR_B
+    images `x`: round trips at random weights (mm 16, and mm 1 on `x`
+    amplified by CHENG_ESC_GAIN, which must escape), calibrate_single
+    (CAL_STEPS steps), a calibrated round trip whose decoded images' MSE
+    must be below the random weights', kernels 5 (no post) and 4 held
+    against their twins at the calibrated weights under phase 11's
+    gates (on `x` and on the amplified images), the host AR codec's
+    round trip of 2 images, and the JAX draw's reading for the record
+    (``jax_draw_reading``).
+    Then cheng2020-attn at quality 1 (N=128: MLP widths 426 and 341,
+    which kernel 5's packing pads to 432 and 352): a device round trip
+    and kernels 5 and 4 held on its weights, on the amplified images'
+    latents.  Also times the residual
+    blocks' 3x3 conv batched and image by image (``image_conv_ms``).
+    Returns (the device round trips' launches, {label: hold})."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench, zoo
+    from hesic_tpu_torch.models.ar_device import (
+        JointAutoregressiveDeviceCodec)
+    from hesic_tpu_torch.training.recipe import calibrate_single
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    def level_scan_inputs(cdc, images):
+        """The level scan's pre and raw latents of `images` under
+        `cdc`."""
+        m = cdc.model
+        with torch.no_grad():
+            y = m.analysis(cdc._to_device(images))
+            z_sym = cdc._z_symbols(m.hyper_analysis(y),
+                                   "entropy_bottleneck")
+            pre = nhwc(m.hyper_synthesis(cdc._z_hat(z_sym,
+                                                    "entropy_bottleneck")))
+        return pre, nhwc(y)
+
+    def add(total, counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    t0 = time.perf_counter()
+    host = zoo.create_model("cheng2020-anchor", 4, device=DEVICE)
+    model = host.model
+    label = f"cheng2020-anchor q4 (N={model.N})"
+    model_n = model.N
+    conv_ms = image_conv_ms(model_n)
+
+    def codec(mm):
+        return JointAutoregressiveDeviceCodec(model, mm=mm,
+                                              groups=AR_GROUPS).update()
+
+    hot = ((x - 0.5) * CHENG_ESC_GAIN + 0.5).astype(np.float32)
+    launches, runs = device_round_trips(
+        label, {"random weights": (codec(AR_MM), (x,)),
+                "escape (mm 1, amplified)": (codec(1), (hot,))}, 1)
+    if runs["escape (mm 1, amplified)"][0]["escapes"] == 0:
+        raise AssertionError(f"{label} escape (mm 1): no residual escaped")
+    def mse(run):
+        return float(((run[1]["x_hat"] - torch.as_tensor(
+            x, device=DEVICE)) ** 2).mean())
+
+    random_bpp = runs["random weights"][0]["bpp_real"]
+    random_mse = mse(runs["random weights"])
+    del runs
+    t1 = time.perf_counter()
+    losses, bpps = calibrate_single(model, np.random.RandomState(2),
+                                    CAL_STEPS, CAL_HW, CAL_B)
+    check_loss_falls(label, losses, bpps, time.perf_counter() - t1)
+    cal = codec(AR_MM)
+    cal_launches, runs = device_round_trips(
+        label, {"calibrated": (cal, (x,))}, 1)
+    add(launches, cal_launches)
+    bpp = runs["calibrated"][0]["bpp_real"]
+    cal_mse = mse(runs["calibrated"])
+    # the random weights code near-zero latents (bpp_real near its
+    # floor), so calibration shows in the decoded images' distortion
+    if not cal_mse < random_mse:
+        raise AssertionError(f"{label}: the calibrated round trip's MSE "
+                             f"{cal_mse} is not below the random weights' "
+                             f"{random_mse}")
+    print(f"{label}: calibrated round trip MSE {cal_mse:.6f} against the "
+          f"random weights' {random_mse:.6f}; bpp_real {bpp:.6f} against "
+          f"{random_bpp:.6f}")
+    del runs
+    # on the images, and on the amplified images, whose latents (|y| up
+    # to ~4) reject the bf16-weights control by a wider margin
+    held = {}
+    for case, images in (("", x), (", amplified images", hot)):
+        pre, y = level_scan_inputs(cal, images)
+        held[label + case] = phase_wavefront(
+            f"{label} calibrated, no post{case}", cal.w, pre, None, y)
+        del pre, y
+    out = bench.host_round_trip(host.update(), x[:2],
+                                f"{label} host codec")
+    print(f"{label} host codec [{card}]: 2 images round trip, bpp_real "
+          f"{out['bpp_real']:.6f} (the device codec's {bpp:.6f} over "
+          f"{AR_B}), {out['coder_s']:.2f} s encode and "
+          f"{out['dec_coder_s']:.2f} s decode in the native coder; decoded "
+          f"y_hat equals the encoder's")
+    del host, model, cal
+    torch.cuda.empty_cache()
+    jax_draw_reading(card, x)
+
+    attn = zoo.create_model("cheng2020-attn", 1, device=DEVICE).model
+    label_a = f"cheng2020-attn q1 (N={attn.N})"
+    cdc = JointAutoregressiveDeviceCodec(attn, mm=AR_MM,
+                                         groups=AR_GROUPS).update()
+    attn_launches, runs = device_round_trips(
+        label_a, {"random weights": (cdc, (x,))}, 1)
+    add(launches, attn_launches)
+    del runs
+    # at random weights the latents of images in [0, 1] are near zero,
+    # where even the bf16-weights control passes phase 11's gates; the
+    # amplified images give latents of the calibrated models' range
+    pre, y = level_scan_inputs(cdc, hot)
+    held[label_a] = phase_wavefront(f"{label_a}, no post, amplified "
+                                    f"images", cdc.w, pre, None, y)
+    del attn, cdc, pre, y
+    torch.cuda.empty_cache()
+    print("kernel ar_wavefront on Cheng2020 [" + card + "]: " + "; ".join(
+        f"{k}: teacher {r['wavefront']['ms']:.3f} ms, decode "
+        f"{r['wavefront']['dec_ms']:.3f} ms, bound "
+        f"{r['wavefront']['bound_ms']:.4f} ms by "
+        f"{r['wavefront']['bound_by']} (real widths)"
+        for k, r in held.items()) + f"; phase 17 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(f"the residual blocks' f32 3x3 conv ({model_n} channels) at the "
+          f"calibration's shape {conv_ms['shape']} [{card}]: batched "
+          f"{conv_ms['batched']:.3f} ms (cuDNN's pick under the codecs' "
+          f"policy), image by image {conv_ms['per image']:.3f} ms "
+          f"(layers.ImageConv)")
+    return launches, held
+
+
+def jax_draw_reading(card: str, x) -> None:
+    """For the record, no gate: cheng2020-anchor at quality 4 with the
+    JAX package's draw (every conv kaiming-normal, gain sqrt 2, zero
+    bias) instead of the port's torch.nn.Conv2d default: the RD loss of
+    one calibration step, the level scan's input magnitudes on images
+    `x`, and kernel 5 against its twin there (raw residual flips; on
+    lattice inputs max |dy_hat| and |dfreq| against Y_TOL and
+    FREQ_TOL)."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import zoo
+    from hesic_tpu_torch.layers import Conv, MaskedConv2d
+    from hesic_tpu_torch.layers.conv import _kaiming_
+    from hesic_tpu_torch.models import wavefront as wf
+    from hesic_tpu_torch.models.ar_device import (
+        JointAutoregressiveDeviceCodec, wavefront_valid_mask)
+    from hesic_tpu_torch.training.recipe import calibrate_single
+
+    model = zoo.create_model("cheng2020-anchor", 4, device=DEVICE).model
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (Conv, MaskedConv2d)):
+                w = torch.empty(mod.weight.shape)
+                _kaiming_(w, w[0].numel(), gen)
+                mod.weight.copy_(w)
+                mod.bias.zero_()
+    cdc = JointAutoregressiveDeviceCodec(model, mm=AR_MM,
+                                         groups=AR_GROUPS).update()
+    with torch.no_grad():
+        y = model.analysis(cdc._to_device(x))
+        z_sym = cdc._z_symbols(model.hyper_analysis(y), "entropy_bottleneck")
+        pre = model.hyper_synthesis(cdc._z_hat(z_sym, "entropy_bottleneck"))
+    pre = pre.permute(0, 2, 3, 1).contiguous()
+    y = y.permute(0, 2, 3, 1).contiguous()
+
+    def teach(fn, w, yy):
+        return fn(w, pre, None, yy, None, None, None, None, None, True,
+                  AR_MM, AR_GROUPS)
+
+    ref = teach(wf.ar_wavefront_plain, cdc.w.raw, y)
+    raw = teach(wf.ar_wavefront_cuda, cdc.w, y)
+    lat_t = teach(wf.ar_wavefront_plain, cdc.w.raw, ref[2])
+    lat_k = teach(wf.ar_wavefront_cuda, cdc.w, ref[2])
+    sync()
+    b, hy, wy, m = y.shape
+    valid = wavefront_valid_mask(hy, wy, b, AR_GROUPS, m, DEVICE)
+    flips = int((raw[3] != ref[3]).sum())
+    d_y = float((lat_k[2] - lat_t[2]).abs().max())
+    d_fr = int((lat_k[1] - lat_t[1]).abs()[valid].max())
+    losses, _ = calibrate_single(model, np.random.RandomState(2), 1, CAL_HW,
+                                 CAL_B)
+    print(f"cheng2020-anchor q4 with the JAX package's draw, for the record "
+          f"[{card}]: RD loss of one calibration step {losses[0]:.4g}; "
+          f"|pre| max {float(pre.abs().max()):.4g}, |y| max "
+          f"{float(y.abs().max()):.4g}; kernel 5 against its twin: raw "
+          f"{flips} residuals differ ({flips / y.numel():.4f}, phase 11's "
+          f"limit {RAW_FLIP_SHARE}), on lattice inputs max |dy_hat| "
+          f"{d_y:.3e} (Y_TOL {Y_TOL}), max |dfreq| {d_fr} (FREQ_TOL "
+          f"{FREQ_TOL})")
+    del model, cdc, pre, y, ref, raw, lat_t, lat_k
+    torch.cuda.empty_cache()
+
+
+def image_conv_ms(n: int) -> dict:
+    """A stride-1 f32 3x3 conv of `n` channels at the calibration's first
+    residual blocks' shape (CAL_B, n, CAL_HW / 2, CAL_HW / 2), batched
+    and image by image as layers.ImageConv runs it; ms per call."""
+    import torch
+    import torch.nn.functional as F
+    from hesic_tpu_torch.models.base import deterministic_backends
+    deterministic_backends()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    shape = (CAL_B, n, CAL_HW // 2, CAL_HW // 2)
+    a = torch.randn(shape, generator=gen, device=DEVICE)
+    w = torch.randn((n, n, 3, 3), generator=gen, device=DEVICE) * 0.02
+    return {"shape": shape,
+            "batched": cuda_ms(lambda: F.conv2d(a, w, padding=1), 2),
+            "per image": cuda_ms(lambda: [
+                F.conv2d(a[i:i + 1], w, padding=1)
+                for i in range(CAL_B)], 10)}
+
+
+def phase_stage2(card: str, hesic, dsic, plus, pairs) -> None:
+    """Phase 18: stage 2.  HESICTogetherCodec over phase 8's HESIC,
+    DSICPlusCodec over phase 10's DSIC and HESICPlusTogetherCodec over
+    phase 12's HESIC+, each enhancement from a seed, on one 512x512 pair
+    of phase 6's at the identity and the rotated H (DSIC+ takes none: the
+    pair at both).  Each decode's *_base must be bit-equal to the inner
+    codec's own decode of the same container, and its output bit-equal
+    to model.enhance on the base (contiguous NCHW, as the codec passes
+    it).  Prints the enhancement's ms a pair and the PSNR of the base
+    against the enhanced reconstruction (information only: the
+    enhancement is untrained).  Then zoo.create_model for every name at
+    its lowest quality on the card: each model's parameters must be on
+    the card and its codec the registry's class.  Launches none of the
+    five kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench, zoo
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.dsic import DSICPlus
+    from hesic_tpu_torch.models.dsic_codec import DSICPlusCodec
+    from hesic_tpu_torch.models.hesic import HESICTogether
+    from hesic_tpu_torch.models.hesic_codec import HESICTogetherCodec
+    from hesic_tpu_torch.models.hesic_plus import HESICPlusTogether
+    from hesic_tpu_torch.models.hesic_plus_codec import (
+        HESICPlusTogetherCodec)
+
+    t0 = time.perf_counter()
+    x1, x2 = pairs
+    a, b = x1[:1], x2[:1]
+    hs = (("identity H", np.eye(3, dtype=np.float32)[None]),
+          ("rotated H", bench.rotated_homography()[None]))
+    codecs = (
+        ("HESICTogetherCodec", HESICTogetherCodec(HESICTogether(
+            m1=hesic, seed=1)).update(), True),
+        ("DSICPlusCodec", DSICPlusCodec(DSICPlus(m1=dsic, seed=1)).update(),
+         False),
+        ("HESICPlusTogetherCodec", HESICPlusTogetherCodec(HESICPlusTogether(
+            m1=plus, seed=1)).update(), True))
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    def psnr(u, v):
+        mse = float(((u.float() - v.float()) ** 2).mean())
+        return 10 * np.log10(1.0 / mse) if mse > 0 else float("inf")
+
+    build.launch_counts.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cdc, takes_h in codecs:
+            if set(cdc.tables) != {f"m1/{k}" for k in cdc.inner.tables}:
+                raise AssertionError(f"{name}: tables {sorted(cdc.tables)}")
+            for h_label, hm in hs:
+                label = f"{name} [{h_label if takes_h else 'no H'}]"
+                args = (a, b, hm) if takes_h else (a, b)
+                if name == "HESICPlusTogetherCodec":
+                    blob = cdc.compress(*args)["strings"]
+                    rec = cdc.decompress(blob)
+                    ref = cdc.inner.decompress(blob)
+                else:
+                    cdc.compress(*args, "pair", tmp)
+                    rec = cdc.decompress("pair", tmp)
+                    ref = cdc.inner.decompress("pair", tmp)
+                base = [rec[f"{e}_hat_base"] for e in ("x1", "x2")]
+                for e, t in zip(("x1", "x2"), base):
+                    if not torch.equal(t, ref[f"{e}_hat"]):
+                        raise AssertionError(f"{label}: {e}_hat_base is "
+                                             f"not the inner codec's "
+                                             f"decode")
+                enh_args = [nchw(t) for t in base] + (
+                    [cdc._homographies(rec["h_matrix"], 1)[0]]
+                    if takes_h else [])
+                with torch.no_grad():
+                    enh = cdc.model.enhance(*enh_args)
+                for e in ("x1", "x2"):
+                    got = rec[f"{e}_hat"]
+                    if (tuple(got.shape) != (1, HW_IMG, HW_IMG, 3)
+                            or not torch.isfinite(got).all()):
+                        raise AssertionError(f"{label}: {e}_hat shape "
+                                             f"{tuple(got.shape)} or not "
+                                             f"finite")
+                    if not torch.equal(got, enh[f"{e}_hat"].permute(
+                            0, 2, 3, 1)):
+                        raise AssertionError(f"{label}: {e}_hat is not "
+                                             f"model.enhance of the base")
+                enh_ms = cuda_ms(lambda: cdc.model.enhance(*enh_args), 5)
+                print(f"{label} [{card}]: *_base bit-equal to the inner "
+                      f"codec's decode, output bit-equal to model.enhance "
+                      f"on it; enhancement {enh_ms:.3f} ms a "
+                      f"{HW_IMG}x{HW_IMG} pair; PSNR of the base against "
+                      f"the enhanced (untrained m2, information only) "
+                      f"{psnr(base[0], rec['x1_hat']):.2f} / "
+                      f"{psnr(base[1], rec['x2_hat']):.2f} dB; decode "
+                      f"{rec['dectime']:.3f} s")
+                if not takes_h:
+                    break
+    no_kernel_launched("the Together codecs")
+    del codecs
+    torch.cuda.empty_cache()
+
+    built = []
+    # create_model's default device is the card (a rehearsal on the CPU
+    # passes its own)
+    where = {} if DEVICE == "cuda" else {"device": DEVICE}
+    for name, (model_cls, codec_cls) in zoo.model_architectures.items():
+        q = min(zoo.cfgs[name])
+        cdc = zoo.create_model(name, q, **where)
+        if type(cdc) is not codec_cls or type(cdc.model) is not model_cls:
+            raise AssertionError(f"zoo {name}: built {type(cdc).__name__} "
+                                 f"over {type(cdc.model).__name__}")
+        if not all(p.device.type == torch.device(DEVICE).type
+                   for p in cdc.model.parameters()):
+            raise AssertionError(f"zoo {name}: parameters off {DEVICE}")
+        built.append(f"{name} q{q} {codec_cls.__name__}")
+        del cdc
+    torch.cuda.empty_cache()
+    print(f"zoo [{card}]: every name built on the card at its lowest "
+          f"quality as the registry's classes ({'; '.join(built)}); phase "
+          f"18 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2009,15 +2397,20 @@ def main() -> int:
     phase_ref_codecs(card, cal_model, dsic_model, plus_model, pairs)
     print(f"phases 15-16 (the priors' codecs, the reference-layout "
           f"codecs) took {time.perf_counter() - t0:.1f} s")
+    # phase 6's first eyes are phase 11's images
+    cheng_launches, cheng_held = phase_cheng(card, pairs[0])
+    torch.cuda.empty_cache()
+    phase_stage2(card, cal_model, dsic_model, plus_model, pairs)
     del pairs, plus_model, cal_model, dsic_model
     for counts in (cal_launches, bench_launches, dsic_launches,
-                   mbt_launches, plus_cal_launches):
+                   mbt_launches, plus_cal_launches, cheng_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    # kernels 4 and 5's errors over every hold: both HESIC+ eyes and
-    # mbt2018
+    # kernels 4 and 5's errors over every hold: both HESIC+ eyes,
+    # mbt2018 and Cheng2020 at N=192 and N=128
     for k in ("wavefront", "pairs"):
-        ar_post[k]["err"] = max(ar_post[k]["err"], mbt_held[k]["err"])
+        ar_post[k]["err"] = max([ar_post[k]["err"], mbt_held[k]["err"]]
+                                + [r[k]["err"] for r in cheng_held.values()])
     for mm in sorted(set(grids) - set(bench_k)):
         bench_k[mm] = hold_batch(mm)
     # the JSON line reports kernels 1-3 at the main path's shape: batch 64

@@ -141,7 +141,7 @@ class _WavefrontCodec(CompressionModel):
         """The level scan's (slot, lane) validity for a batch of `b`
         images of h_img x w_img."""
         return wavefront_valid_mask(h_img // 16, w_img // 16, b,
-                                    self.groups, self.model.M, self.device)
+                                    self.groups, self.latent_ch, self.device)
 
     def _encode_level_scan(self, starts, freqs, valid) -> bytes:
         """Pairs-encode one level scan's slot stream in one launch and
@@ -234,8 +234,9 @@ class _WavefrontCodec(CompressionModel):
 
 class JointAutoregressiveDeviceCodec(_WavefrontCodec):
     """Wavefront device codec for mbt2018
-    (models/priors.py ``JointAutoregressiveHierarchicalPriors``): the
-    level scan without a cross-eye input.  One blob codes the whole batch
+    (models/priors.py ``JointAutoregressiveHierarchicalPriors``) and
+    Cheng2020 (models/waseda.py), whose y has N channels: the level scan
+    without a cross-eye input.  One blob codes the whole batch
     of images.  Images are (B, H, W, 3) float32 with H, W multiples of
     64; latents come out as (B, hy, wy, M) float32.
 
@@ -247,6 +248,8 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
         super().__init__(model, mm, groups)
         from .wavefront import pack_weights
         self.w = pack_weights(extract_ar_weights(model))
+        # y's channels: M for mbt2018, N for Cheng2020
+        self.latent_ch = self.w.raw.ctx_kernel.shape[2]
 
     @torch.no_grad()
     def _chain(self, z_sym, y, stream, corr, teacher: bool):
@@ -292,7 +295,7 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
         (b, h_img, w_img, zh, zw), off = self._parse_header(blob)
         corr, off = self._parse_escapes(
-            blob, off, (b, h_img // 16, w_img // 16, self.model.M))
+            blob, off, (b, h_img // 16, w_img // 16, self.latent_ch))
         z_sym, off = self._parse_z(blob, off, "entropy_bottleneck", b, zh,
                                    zw)
         stream, off = self._decoder_stream(blob, off)
@@ -327,6 +330,7 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
                  cap: int = 256):
         super().__init__(model, mm, groups)
         self.cap = cap
+        self.latent_ch = model.M
         from .wavefront import pack_weights
         # packed once for the level scan: eye 2's post input is the M
         # channels of the re-encoded decoded left view
@@ -412,7 +416,7 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         start = time.perf_counter()
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
         (b, h_img, w_img, zh, zw), off = self._parse_header(blob)
-        shp = (b, h_img // 16, w_img // 16, self.model.M)
+        shp = (b, h_img // 16, w_img // 16, self.latent_ch)
         corr1, off = self._parse_escapes(blob, off, shp)
         corr2, off = self._parse_escapes(blob, off, shp)
         z1_sym, off = self._parse_z(blob, off, "entropy_bottleneck1", b, zh,

@@ -13,7 +13,8 @@ through the Gaussian tables, channel-major, given scale-table indexes.
 The input helpers move the caller's NHWC images and homographies to the
 model's device (on the card through pinned memory, without blocking the
 host).  ``deterministic_backends`` is the codecs' shared determinism
-policy.
+policy.  ``TogetherCodec`` is the codec of the stage-2 models: an inner
+codec, then the enhancement.
 """
 
 from __future__ import annotations
@@ -199,3 +200,53 @@ class CompressionModel:
         if means is not None:
             out = out + means.detach().float().cpu().numpy()
         return self._upload(out)
+
+
+class TogetherCodec(CompressionModel):
+    """Codec of a stage-2 model (models/hesic.py ``Together``: HESIC,
+    HESIC+ or DSIC with its enhancement): an inner codec of
+    ``inner_codec_cls`` over ``model.m1`` does all the coding, and the
+    enhancement ``model.enhance`` runs on both reconstructions after
+    decoding, as the reference's wrappers run it outside the codec flow.
+    The tables are the inner codec's, named under ``m1/``.  A decode
+    result keeps the inner codec's reconstructions as ``x1_hat_base`` and
+    ``x2_hat_base``; ``x1_hat``/``x2_hat`` are the enhanced ones (NHWC, of
+    the enhancement's dtype)."""
+
+    inner_codec_cls: type = None
+    enhance_with_h = True   # m2 takes (x1, x2, h), else (x1, x2)
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.inner = self.inner_codec_cls(model.m1)
+
+    def update(self, scale_table=None, force: bool = False):
+        self.inner.update(scale_table=scale_table, force=force)
+        self.tables = {f"m1/{k}": v for k, v in self.inner.tables.items()}
+        self.scale_table = self.inner.scale_table
+        return self
+
+    def compress(self, *args, **kwargs) -> dict:
+        return self.inner.compress(*args, **kwargs)
+
+    @torch.no_grad()
+    def _enhance(self, out: dict) -> dict:
+        """Apply the enhancement to a decode result, keeping the inner
+        codec's reconstructions under *_base."""
+        def nchw(t):
+            return t.permute(0, 3, 1, 2).contiguous()
+
+        x1, x2 = nchw(out["x1_hat"]), nchw(out["x2_hat"])
+        args = (x1, x2)
+        if self.enhance_with_h:
+            args += (self._homographies(out["h_matrix"], x1.shape[0])[0],)
+        enh = self.model.enhance(*args)
+        return dict(out, x1_hat=enh["x1_hat"].permute(0, 2, 3, 1),
+                    x2_hat=enh["x2_hat"].permute(0, 2, 3, 1),
+                    x1_hat_base=out["x1_hat"], x2_hat_base=out["x2_hat"])
+
+    def decompress(self, *args, **kwargs) -> dict:
+        return self._enhance(self.inner.decompress(*args, **kwargs))
+
+    def decompress_bytes(self, *args, **kwargs) -> dict:
+        return self._enhance(self.inner.decompress_bytes(*args, **kwargs))

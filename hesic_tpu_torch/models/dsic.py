@@ -23,6 +23,9 @@ branch.
 ``dense_warp`` is a shift-accumulate over the C disparities in plain
 PyTorch: one in-place ``addcmul_`` per shift.  It is no TPU kernel (the
 JAX package leaves it to XLA to fuse).
+
+Stage 2 (``DSICPlus``): DSIC and a per-eye enhancement without warp or
+cross-view input (``IndependentEnhancementNoWarp``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from torch import nn
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
 from ..layers import GDN, Conv, Deconv
 from ..layers.conv import _kaiming_
-from .hesic import GmmHyperY1, GmmHyperY2, HyperEncoder
+from .hesic import (Enhancement, GmmHyperY1, GmmHyperY2, HyperEncoder,
+                    Together)
 
 
 class Conv3D(nn.Module):
@@ -410,3 +414,33 @@ class DSIC(nn.Module):
                 "y2_hat": y2_hat,
                 "likelihoods": {"y1": y1_lik, "y2": y2_lik, "z1": z1_lik,
                                 "z2": z2_lik}}
+
+
+class IndependentEnhancementNoWarp(nn.Module):
+    """DSIC+'s stage 2: each eye enhanced on its own (``EnhancementSelf``:
+    models/hesic.py ``Enhancement`` without the cross-view input)."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        self.EnhancementSelf_0 = Enhancement(False, generator)
+        self.EnhancementSelf_1 = Enhancement(False, generator)
+
+    def forward(self, x1_hat, x2_hat):
+        return {"x1_hat": self.EnhancementSelf_0(x1_hat),
+                "x2_hat": self.EnhancementSelf_1(x2_hat)}
+
+
+class DSICPlus(Together):
+    """DSIC and its stage-2 enhancement, N=128, M=192, F=21, C=32, K=5 by
+    default.  ``m1`` takes an existing DSIC to enhance instead of a new
+    one."""
+
+    def __init__(self, N: int = 128, M: int = 192, F: int = 21, C: int = 32,
+                 K: int = 5, dtype=None, device="cuda", seed: int = 0,
+                 m1=None):
+        super().__init__()
+        m1 = m1 if m1 is not None else DSIC(N, M, F, C, K, dtype, device,
+                                            seed)
+        self._attach(m1, IndependentEnhancementNoWarp(
+            torch.Generator().manual_seed(seed)))
+        self.F, self.C, self.K = m1.F, m1.C, m1.K

@@ -8,7 +8,8 @@ left decoder's taps the right decoder, through the global contexts of
 the rounded left latent.  Header: u16 H, W, then per eye u16 len(z), u16
 minmax, the nonzero-channel bitmap and the z string; body: y1 then y2,
 range-coded channel-major.  No writer byte: a container decodes exactly
-only on the device that wrote it.
+only on the device that wrote it.  ``DSICPlusCodec`` is DSIC+'s: this
+codec, then the per-eye enhancement.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import time
 import torch
 
 from ..codecs.host_rans import RangeDecoder, RangeEncoder
+from .base import TogetherCodec
 from .hesic_codec import (ContainerCodec, _nhwc, read_files, read_header,
                           write_files, write_header)
 
@@ -100,3 +102,11 @@ class DSICCodec(ContainerCodec):
         out["dectime"] = time.perf_counter() - start
         out["coder_s"] = c1 + c2
         return out
+
+
+class DSICPlusCodec(TogetherCodec):
+    """DSICPlus's codec: DSICCodec codes the pair, the per-eye
+    enhancement (no homography) runs after decoding."""
+
+    inner_codec_cls = DSICCodec
+    enhance_with_h = False

@@ -16,7 +16,10 @@ latents are cast to float32.
 GMM weight channels are laid out k*M + m.
 
 ``forward`` is the training (and likelihood) forward of the JAX package's
-``HESIC.__call__``; ``aux_loss`` is the bottlenecks' quantile loss.  The
+``HESIC.__call__``; ``aux_loss`` is the bottlenecks' quantile loss.
+Stage 2 (``HESICTogether``: ``IndependentEnhancement`` over HESIC's
+reconstructions) is at the end, with the enhancement nets that HESIC+'s
+and DSIC+'s stage 2 share.  The
 model is built with gradients off (the codecs run it under ``no_grad``);
 ``training.make_optimizer`` turns them on for what it trains.
 """
@@ -29,7 +32,7 @@ from torch import nn
 
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
 from ..geometry import warp_perspective_train
-from ..layers import GDN, Conv, Deconv
+from ..layers import GDN, Conv, Deconv, ResidualBlock, conv3x3
 from ..ops import quantize
 
 
@@ -343,3 +346,113 @@ class HESIC(nn.Module):
         `h`, re-encoded and rounded (eval quantization, no means)."""
         warped = warp_perspective_train(x1_hat, h, self.dtype)
         return quantize(self.encoder1(warped), "dequantize")
+
+
+# ---- stage 2: the cross-view enhancement ----
+
+class EnhancementBlock(nn.Module):
+    """Three residual blocks of 32 channels and a skip."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"ResidualBlock_{i}",
+                            ResidualBlock(32, 32, generator))
+
+    def forward(self, x):
+        out = x
+        for i in range(3):
+            out = getattr(self, f"ResidualBlock_{i}")(out)
+        return out + x
+
+
+class Enhancement(nn.Module):
+    """Cross-view quality enhancement of one reconstruction: the other
+    view, warped onto it, is concatenated on the channels, then a 3x3 conv
+    to 32, three EnhancementBlocks, a 3x3 conv to 3 and the skip.  With
+    ``cross=False`` (DSIC+'s EnhancementSelf) the first conv takes the
+    reconstruction alone."""
+
+    def __init__(self, cross: bool = True, generator=None):
+        super().__init__()
+        self.Conv_0 = conv3x3(6 if cross else 3, 32, generator=generator)
+        for i in range(3):
+            self.add_module(f"EnhancementBlock_{i}",
+                            EnhancementBlock(generator))
+        self.Conv_1 = conv3x3(32, 3, generator=generator)
+
+    def forward(self, x, x_other_warp=None):
+        out = x if x_other_warp is None else torch.cat([x, x_other_warp],
+                                                       dim=1)
+        out = self.Conv_0(out)
+        for i in range(3):
+            out = getattr(self, f"EnhancementBlock_{i}")(out)
+        return self.Conv_1(out) + x
+
+
+class IndependentEnhancement(nn.Module):
+    """Stage 2's cross-enhancement of both reconstructions: each view is
+    enhanced with the other warped onto it (x1 by H, x2 by H^-1).  As in
+    the JAX package, whose callers pass no dtype: the warps compute in
+    float32 and the convs in the dtype of their input (the concatenation
+    promotes a bf16 reconstruction to the warp's float32)."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        self.Enhancement_0 = Enhancement(True, generator)
+        self.Enhancement_1 = Enhancement(True, generator)
+
+    def forward(self, x1_hat, x2_hat, h):
+        x1_hat_warp = warp_perspective_train(x1_hat, h)
+        x2_hat_warp = warp_perspective_train(x2_hat, torch.linalg.inv(h))
+        return {"x1_hat": self.Enhancement_0(x1_hat, x2_hat_warp),
+                "x2_hat": self.Enhancement_1(x2_hat, x1_hat_warp)}
+
+
+class Together(nn.Module):
+    """A stereo model ``m1`` and its stage-2 enhancement ``m2``, end to
+    end: the enhancement runs on m1's reconstructions, and the codec
+    applies it after decoding (``enhance``).  ``m2``'s parameters are
+    drawn from ``torch.Generator().manual_seed(seed)`` on the CPU and
+    moved to m1's device, with gradients off."""
+
+    entropy_bottlenecks = ("m1/entropy_bottleneck1", "m1/entropy_bottleneck2")
+    single_image = False
+
+    def _attach(self, m1, m2) -> None:
+        self.m1, self.m2 = m1, m2
+        m2.to(next(m1.parameters()).device)
+        m2.requires_grad_(False)
+        self.N, self.M = m1.N, m1.M
+        self.uses_homography = m1.uses_homography
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.m1.aux_loss()
+
+    def enhance(self, *args):
+        """Stage 2 on decoded reconstructions (NCHW; H where m1 takes
+        one) -> {"x1_hat", "x2_hat"}."""
+        return self.m2(*args)
+
+    def forward(self, x1, x2, *h, training: bool = False, generator=None):
+        """m1's forward, then the enhancement of its reconstructions ->
+        {"x1_hat", "x2_hat", "likelihoods"}.  Training noise is m1's."""
+        out1 = self.m1(x1, x2, *h, training=training, generator=generator)
+        out2 = self.m2(out1["x1_hat"], out1["x2_hat"], *h)
+        return {"x1_hat": out2["x1_hat"], "x2_hat": out2["x2_hat"],
+                "likelihoods": out1["likelihoods"]}
+
+
+class HESICTogether(Together):
+    """HESIC and the cross-view enhancement, N=128, M=192, K=5 by
+    default.  ``m1`` takes an existing HESIC to enhance instead of a new
+    one (its widths then hold)."""
+
+    def __init__(self, N: int = 128, M: int = 192, K: int = 5,
+                 device="cuda", seed: int = 0, m1=None):
+        super().__init__()
+        m1 = m1 if m1 is not None else HESIC(N, M, K, device=device,
+                                             seed=seed)
+        self._attach(m1, IndependentEnhancement(
+            torch.Generator().manual_seed(seed)))
+        self.K = m1.K

@@ -30,6 +30,8 @@ policy (``deterministic_backends``, set when the codec is built), with
 contiguous inputs to every conditioning program.  Warps are the full
 bilinear gather of geometry/homography.py (the JAX codec's
 ``warp_perspective``), not the fast codec's banded warp.
+``HESICTogetherCodec`` is HESICTogether's: this codec, then the
+cross-view enhancement (models/base.py ``TogetherCodec``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from ..codecs.host_rans import RangeDecoder, RangeEncoder
 from ..entropy_models import gmm_pmf
 from ..geometry import homography
-from .base import CompressionModel, deterministic_backends
+from .base import CompressionModel, TogetherCodec, deterministic_backends
 
 # the largest (h, w, channels, K, S) float32 PMF tensor _gmm_cdf_rows
 # evaluates at once: 512x512 at M 192, K 5 and minmax 64 is ~0.5 GB
@@ -307,3 +309,10 @@ class HESICCodec(ContainerCodec):
         out["dectime"] = time.perf_counter() - start
         out["coder_s"] = c1 + c2
         return out
+
+
+class HESICTogetherCodec(TogetherCodec):
+    """HESICTogether's codec: HESICCodec codes the pair, the cross-view
+    enhancement runs after decoding."""
+
+    inner_codec_cls = HESICCodec

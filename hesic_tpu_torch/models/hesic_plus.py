@@ -21,8 +21,8 @@ default.
 
 The host codec, ``HESICPlusCodec``, is in models/hesic_plus_codec.py,
 the reference-layout codec, ``HESICPlusRefCodec``, in
-models/hesic_plus_refcodec.py.  Not carried over yet:
-``HESICPlusTogether``.
+models/hesic_plus_refcodec.py.  ``HESICPlusTogether`` is HESIC+ with
+HESIC's stage-2 enhancement (models/hesic.py ``IndependentEnhancement``).
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from ..entropy_models import EntropyBottleneck, GaussianConditional
 from ..geometry import warp_perspective_train
 from ..layers import Conv, Deconv, MaskedConv2d
 from ..ops import quantize
-from .hesic import StereoDecoder, StereoDecoder2, StereoEncoder, StereoEncoder2
+from .hesic import (IndependentEnhancement, StereoDecoder, StereoDecoder2,
+                    StereoEncoder, StereoEncoder2, Together)
 
 
 def stack_names(prefix: str, n: int = 3) -> list:
@@ -189,3 +190,16 @@ class HESICPlus(nn.Module):
                 "y2_hat": y2_hat,
                 "likelihoods": {"y1": y1_lik, "y2": y2_lik, "z1": z1_lik,
                                 "z2": z2_lik}}
+
+
+class HESICPlusTogether(Together):
+    """HESIC+ and the cross-view enhancement, N=128, M=192 by default;
+    ``dtype`` is HESIC+'s (the enhancement runs in its input's dtype).
+    ``m1`` takes an existing HESIC+ to enhance instead of a new one."""
+
+    def __init__(self, N: int = 128, M: int = 192, dtype=None,
+                 device="cuda", seed: int = 0, m1=None):
+        super().__init__()
+        m1 = m1 if m1 is not None else HESICPlus(N, M, dtype, device, seed)
+        self._attach(m1, IndependentEnhancement(
+            torch.Generator().manual_seed(seed)))

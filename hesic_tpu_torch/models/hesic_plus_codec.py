@@ -18,6 +18,8 @@ Container: writer byte | the JAX layout: u16 H, W | u16 len(z1) | z1 |
 u16 len(z2) | z2 | u32 len(y1) | y1 | u32 len(y2) | y2 | 9 x f32
 homography.  The writer byte names the device whose transforms wrote it
 (6 the card, 5 the CPU); the decoder refuses any other writer.
+``HESICPlusTogetherCodec`` is HESICPlusTogether's: this codec, then the
+cross-view enhancement (models/base.py ``TogetherCodec``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from ..geometry import homography
 from .autoregressive import ar_compress, ar_decompress
-from .base import CompressionModel, deterministic_backends
+from .base import CompressionModel, TogetherCodec, deterministic_backends
 
 # Byte 0 of a container.  The JAX package's container has no writer byte;
 # the port's two writers take ids no other container of the port uses.
@@ -188,3 +190,11 @@ class HESICPlusCodec(CompressionModel):
             torch.cuda.synchronize(x2_hat.device)
         out["dectime"] = time.perf_counter() - start
         return out
+
+
+class HESICPlusTogetherCodec(TogetherCodec):
+    """HESICPlusTogether's codec: HESICPlusCodec codes the pair, the
+    cross-view enhancement runs after decoding (the container is
+    HESICPlusCodec's, so ``decompress`` takes what it takes)."""
+
+    inner_codec_cls = HESICPlusCodec

@@ -44,7 +44,10 @@ product ``base = pre @ w0[0:P] + post @ w0[P+2M:] + b0`` (twin
 ``hoisted_base_plain``) once per pass for every pixel, then per level
 ``base + ctx @ w0[P:P+2M]``.  It works on each level's compacted rows
 (``level_rows``) and tiles its four stage products by ``stage_plan``.
-The weights are packed for it once (``pack_weights``, kept by the codec).
+The weights are packed for it once (``pack_weights``, kept by the codec),
+with the hidden widths H1, H2 padded with zeros to multiples of 16, which
+the stage products need (Cheng2020 at N=128 has H1 426, H2 341); the
+twin runs the real widths.
 """
 
 from __future__ import annotations
@@ -219,30 +222,69 @@ def ar_wavefront_plain(weights, pre, post, y_true, corr_mask, corr_val,
     return starts, freqs, y_hat, resid_img
 
 
+# the kernel's stage products take K in whole k-groups of 16: the MLP's
+# hidden widths are padded up to a multiple of it
+WIDTH_QUANTUM = 16
+
+
 class PackedArWeights(NamedTuple):
     """An eye's ArWeights in the kernel's layout, built once
-    (``pack_weights``): the context taps stacked, and w0 split into the
-    rows the hoisted product reads and the rows the level scan reads."""
+    (``pack_weights``): the context taps stacked, w0 split into the rows
+    the hoisted product reads and the rows the level scan reads, and the
+    hidden widths H1, H2 padded with zeros to multiples of
+    WIDTH_QUANTUM."""
 
     raw: ArWeights         # the weights as the plain twin takes them
     q_dim: int             # width of the post input (0: none)
     tapk: torch.Tensor     # (12M, 2M): tap_kernel(raw)
-    w0_pp: torch.Tensor    # (P + Q, H1): w0's pre rows, then its post rows
-    w0_ctx: torch.Tensor   # (2M, H1): w0[P:P+2M]
+    w0_pp: torch.Tensor    # (P + Q, H1p): w0's pre rows, then its post rows
+    w0_ctx: torch.Tensor   # (2M, H1p): w0[P:P+2M]
+    b0: torch.Tensor       # (H1p,)
+    w1: torch.Tensor       # (H1p, H2p)
+    b1: torch.Tensor       # (H2p,)
+    w2: torch.Tensor       # (H2p, 2M)
+
+
+def padded_width(n: int) -> int:
+    """`n` rounded up to a multiple of WIDTH_QUANTUM."""
+    return -(-n // WIDTH_QUANTUM) * WIDTH_QUANTUM
+
+
+def _pad_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """`t` in the leading corner of a zero float32 tensor of `shape`
+    (`t` itself, contiguous, when it has that shape already)."""
+    if tuple(t.shape) == tuple(shape):
+        return t.float().contiguous()
+    out = torch.zeros(shape, dtype=torch.float32, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 def pack_weights(weights: ArWeights, q_dim: int = 0) -> PackedArWeights:
-    """Pack `weights` for an eye whose post input is `q_dim` wide."""
+    """Pack `weights` for an eye whose post input is `q_dim` wide.
+
+    H1 and H2 are padded to multiples of WIDTH_QUANTUM: w0's columns and
+    b0, w1's rows and columns and b1, and w2's rows with zeros.  The
+    padding is exact: a padded hidden unit is leaky_relu(0) = 0, so it
+    adds exact zeros to the next layer and the real units keep their
+    values.  Widths that are multiples already pack unchanged."""
     m = weights.ctx_kernel.shape[2]
     w0 = weights.ep_kernels[0].float()
     p_dim = w0.shape[0] - 2 * m - q_dim
     if p_dim < 0:
         raise ValueError(f"w0 has {w0.shape[0]} rows, fewer than 2M + Q = "
                          f"{2 * m + q_dim}")
+    h1, h2 = weights.ep_kernels[1].shape
+    h1p, h2p = padded_width(h1), padded_width(h2)
+    w0p = _pad_to(w0, (w0.shape[0], h1p))
     return PackedArWeights(
         weights, q_dim, tap_kernel(weights).contiguous(),
-        torch.cat([w0[:p_dim], w0[p_dim + 2 * m:]], 0).contiguous(),
-        w0[p_dim:p_dim + 2 * m].contiguous())
+        torch.cat([w0p[:p_dim], w0p[p_dim + 2 * m:]], 0).contiguous(),
+        w0p[p_dim:p_dim + 2 * m].contiguous(),
+        _pad_to(weights.ep_biases[0], (h1p,)),
+        _pad_to(weights.ep_kernels[1], (h1p, h2p)),
+        _pad_to(weights.ep_biases[1], (h2p,)),
+        _pad_to(weights.ep_kernels[2], (h2p, 2 * m)))
 
 
 def raw_weights(weights) -> ArWeights:
@@ -253,12 +295,12 @@ def raw_weights(weights) -> ArWeights:
 def hoisted_base_plain(packed: PackedArWeights, pre, post) -> torch.Tensor:
     """Plain twin of the hoisted product: the part of the first MLP layer
     that does not depend on the scan, pre @ w0[0:P] + post @ w0[P+2M:] +
-    b0 for every pixel, (B, hy, wy, H1).  The level scan adds
-    ctx @ w0[P:P+2M] to it (the split form of cat(pre, ctx, post) @ w0 +
-    b0)."""
+    b0 for every pixel, (B, hy, wy, H1p), its padded columns exactly 0.
+    The level scan adds ctx @ w0[P:P+2M] to it (the split form of
+    cat(pre, ctx, post) @ w0 + b0)."""
     feat = pre.float() if post is None else torch.cat(
         [pre.float(), post.float()], -1)
-    return feat @ packed.w0_pp + packed.raw.ep_biases[0]
+    return feat @ packed.w0_pp + packed.b0
 
 
 def level_rows(hy: int, wy: int, b: int, s: int):
@@ -296,11 +338,12 @@ def stage_shapes(m: int, h1: int, h2: int) -> dict:
 
 def stage_plan(m: int, h1: int, h2: int) -> dict:
     """The level stages' tiles, fixed by the layer widths alone (never by
-    the direction, so encode and decode sum in one order).  At M=192
-    (H1 640, H2 512) and a full level of 121 rows (B=11, 32x32 latents)
-    every launch has >= 96 blocks: ctx 12 column tiles x 4 chunks of 3
-    taps, layer 0 20 x 3, layer 1 32 x 2, layer 2 48 x 1, times 2 row
-    tiles.  Layer 2 is one chunk: it writes g itself."""
+    the direction, so encode and decode sum in one order); h1, h2 are
+    the packed (padded) widths.  At M=192 (H1 640, H2 512) and a full
+    level of 121 rows (B=11, 32x32 latents) every launch has >= 96
+    blocks: ctx 12 column tiles x 4 chunks of 3 taps, layer 0 20 x 3,
+    layer 1 32 x 2, layer 2 48 x 1, times 2 row tiles.  Layer 2 is one
+    chunk: it writes g itself."""
     def part(k, n):    # k / n rounded up to whole k-groups of float4s
         return -(-k // (16 * n)) * 16
 
@@ -346,9 +389,8 @@ def _plan_arg(*plans):
 def _check_packed(pk: PackedArWeights, dev):
     raw = pk.raw
     ts = {"tapk": pk.tapk, "w0_pp": pk.w0_pp, "w0_ctx": pk.w0_ctx,
-          "ctx_bias": raw.ctx_bias, "b0": raw.ep_biases[0],
-          "w1": raw.ep_kernels[1], "b1": raw.ep_biases[1],
-          "w2": raw.ep_kernels[2], "b2": raw.ep_biases[2]}
+          "ctx_bias": raw.ctx_bias, "b0": pk.b0, "w1": pk.w1, "b1": pk.b1,
+          "w2": pk.w2, "b2": raw.ep_biases[2]}
     for name, t in ts.items():
         build.check_cuda_tensor(t, name, torch.float32)
         if t.device != dev or t.data_ptr() % 16:
@@ -365,7 +407,7 @@ def hoisted_base_cuda(pk: PackedArWeights, pre, post) -> torch.Tensor:
                        device=pre.device)
     rc = _lib().hesic_ar_hoist(
         pre.data_ptr(), 0 if post is None else post.data_ptr(),
-        pk.w0_pp.data_ptr(), pk.raw.ep_biases[0].data_ptr(),
+        pk.w0_pp.data_ptr(), pk.b0.data_ptr(),
         base.data_ptr(), b * hy * wy, p_dim, pk.q_dim, h1,
         _plan_arg((HOIST_PLAN.bn, HOIST_PLAN.kt)),
         torch.cuda.current_stream(pre.device).cuda_stream)
@@ -389,7 +431,7 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
                          f"channels, got {q}")
     m, q = _check_args(pk.raw, pre, post, mm, groups)
     b, hy, wy, p_dim = pre.shape
-    h1, h2 = pk.raw.ep_kernels[1].shape
+    h1, h2 = pk.w1.shape        # the padded widths
     dev = pre.device
     n_levels, _, _, p_max = schedule(hy, wy)
     lanes = b * p_max * (m // groups)
@@ -446,16 +488,16 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
         base.data_ptr(), y_true.data_ptr(), cmask.data_ptr(),
         cval.data_ptr(), words.data_ptr(), x_st.data_ptr(), p_st.data_ptr(),
         pk.tapk.data_ptr(), raw.ctx_bias.data_ptr(), pk.w0_ctx.data_ptr(),
-        raw.ep_kernels[1].data_ptr(), raw.ep_biases[1].data_ptr(),
-        raw.ep_kernels[2].data_ptr(), raw.ep_biases[2].data_ptr(),
+        pk.w1.data_ptr(), pk.b1.data_ptr(), pk.w2.data_ptr(),
+        raw.ep_biases[2].data_ptr(),
         *[t.data_ptr() for t in parts], g.data_ptr(), starts.data_ptr(),
         freqs.data_ptr(), y_hat.data_ptr(), resid.data_ptr(),
         b, hy, wy, m, h1, h2, groups, mm, cap, p_max, 1 if teacher else 0,
         _plan_arg(*plan.values()),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, M, H1 "
-                       "and H2 multiples of 16, a stage plan that fits "
-                       "shared memory")
+    build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, M a "
+                       "multiple of 16, a stage plan that fits shared "
+                       "memory")
     build.count_launch(_NAME)
     return starts, freqs, y_hat, resid
 
