@@ -227,8 +227,29 @@ and prints no result):
      Then zoo.create_model builds every name at its lowest quality on
      the card (its default device), as the registry's classes.  Phase 18
      launches none of the five kernels;
- 19. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8, 10, 11, 12 and 17's round trips and phases 9-12's timed
+ 19. trains from image folders and keeps what was trained: writes stereo
+     folders (8 train and 2 test pairs of 512x512 smooth images, the
+     right eye the left warped by bench.py's real H) and a single-image
+     folder with the port's PNG writer (the single folder must read back
+     as written); trains the homography net one epoch
+     (training.train_homography, batch 4); trains HESIC N=128/M=192/K=5
+     in bf16 one epoch through training.train (batch 4, 256x256 crops,
+     the homography net's H), then runs it again for 2 epochs: it must
+     print its resume line, and the state it loaded (every parameter and
+     Adam tensor) must equal the file bit for bit and the file the first
+     run's final weights; zoo.create_model(checkpoint=model_latest.pkl)
+     round-trips the 2 test pairs exactly through HESICFastCodec (kernels
+     1-3 launched); hesic-together --stage2 one epoch in f32: every m1
+     tensor bit-unchanged, m2 moved; the reference's tiny trained HESIC
+     (tests/fixtures/ref_hsic_tiny.pth.tar) converted by `python -m
+     hesic_tpu_torch.utils.convert_torch`, loaded by
+     create_model(checkpoint=) and by pretrained=True from a temporary
+     zoo cache (equal weights), round-trips one test pair exactly through
+     HESICFastCodec and HESICCodec.  Prints ms a training step, the
+     epoch's data loading and steps, checkpoint seconds, peak memory,
+     bpp_real and the phase's seconds beside the card;
+ 20. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8, 10, 11, 12, 17 and 19's round trips and phases 9-12's timed
      loops; kernels 1-3's times and bounds at batch 64 on the widest
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
@@ -2319,6 +2340,296 @@ def phase_stage2(card: str, hesic, dsic, plus, pairs) -> None:
           f"18 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 19: training from image folders and the checkpoints it keeps.
+# Stereo folders of TRAIN_PAIRS / TEST_PAIRS pairs at HW_IMG (phase 5's
+# smooth images, the right eye the left warped by bench.py's real H), one
+# homography-net epoch and one HESIC epoch at bench.py's calibration batch
+# and crop (CAL_B, CAL_HW), the reference's tiny HESIC fixture converted
+TRAIN_PAIRS, TEST_PAIRS = 8, 2
+REF_FIXTURE = os.path.join("tests", "fixtures", "ref_hsic_tiny.pth.tar")
+
+
+def write_folders(root: str):
+    """Phase 19's image folders under `root`, written by the port's PNG
+    writer (filter 0): stereo/{train,test}/{left,right} and single/
+    {train,test}.  Returns (stereo root, single root, the left views as
+    uint8 (n, HW_IMG, HW_IMG, 3), the right views)."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.datasets.image_io import write_png
+    from hesic_tpu_torch.geometry.homography import warp_perspective
+    from hesic_tpu_torch.training.recipe import smooth_pairs
+
+    n = TRAIN_PAIRS + TEST_PAIRS
+    x1, _ = smooth_pairs(np.random.RandomState(19), n, HW_IMG)
+    h = torch.from_numpy(bench.rotated_homography())[None].expand(n, 3, 3)
+    x2 = warp_perspective(torch.from_numpy(x1).permute(0, 3, 1, 2), h)
+    x2 = x2.permute(0, 2, 3, 1).numpy()
+    u1, u2 = (np.round(np.clip(a, 0, 1) * 255).astype(np.uint8)
+              for a in (x1, x2))
+    stereo, single = (os.path.join(root, d) for d in ("stereo", "single"))
+    for split, idx in (("train", range(TRAIN_PAIRS)),
+                       ("test", range(TRAIN_PAIRS, n))):
+        for eye, imgs in (("left", u1), ("right", u2)):
+            os.makedirs(os.path.join(stereo, split, eye))
+            for i in idx:
+                write_png(os.path.join(stereo, split, eye, f"{i:03d}.png"),
+                          imgs[i])
+        os.makedirs(os.path.join(single, split))
+        for i in idx:
+            write_png(os.path.join(single, split, f"{i:03d}.png"), u1[i])
+    return stereo, single, u1, u2
+
+
+def checked_load(train_mod, seen: list):
+    """A load_checkpoint for the CLI that also holds the state it loaded
+    against the file: every model tensor and every Adam tensor bit-equal
+    to the payload's.  Appends (the count of tensors held, the file's
+    parameters) to `seen`."""
+    import numpy as np
+    orig = train_mod.load_checkpoint
+
+    def load(path, model, optimizer):
+        payload = orig(path, model, optimizer)
+        held = 0
+        for k, v in model.state_dict().items():
+            if not np.array_equal(v.cpu().numpy(), payload["params"][k]):
+                raise AssertionError(f"resume: {k} differs from the file")
+            held += 1
+        names = {id(p): n for n, p in model.named_parameters()}
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                saved = payload["opt_state"][g["name"]][names[id(p)]]
+                for key, v in optimizer.state[p].items():
+                    if not np.array_equal(v.cpu().numpy(), saved[key]):
+                        raise AssertionError(f"resume: Adam {key} of "
+                                             f"{names[id(p)]} differs")
+                    held += 1
+        seen.append((held, payload["params"]))
+        return payload
+
+    return load
+
+
+def phase_train_cli(card: str) -> dict:
+    """Phase 19: train from image folders and keep what was trained.
+    Writes the folders, trains the homography net one epoch (batch
+    CAL_B), HESIC N=128/M=192/K=5 one epoch in bf16 with that net's H
+    (train.main at batch CAL_B, CAL_HW crops), then resumes it for a
+    second epoch: the CLI must print its resume line, and the state it
+    loaded must equal the file bit for bit.  The trained model_latest.pkl
+    goes through zoo.create_model(checkpoint=) and HESICFastCodec on the
+    2 test pairs at HW_IMG (real H): exact round trip, kernels 1-3
+    launched.  Stage 2 (hesic-together --stage2, f32) one epoch: every m1
+    tensor bit-unchanged, m2 moved.  The reference's tiny HESIC is
+    converted by `python -m hesic_tpu_torch.utils.convert_torch`, loaded
+    by create_model(checkpoint=) and by pretrained=True from a temporary
+    zoo cache (equal weights), and round-trips exactly through
+    HESICFastCodec and HESICCodec on one test pair.  Returns the fast
+    round trips' launches."""
+    import io
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench, zoo
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.datasets import ImageFolder
+    from hesic_tpu_torch.models.hesic_codec import HESICCodec
+    from hesic_tpu_torch.training import train, train_homography
+
+    t_phase = time.perf_counter()
+    hm = bench.rotated_homography()
+    launches = {}
+    # the entry points' default device is the card (a rehearsal on the
+    # CPU passes its own)
+    where = {} if DEVICE == "cuda" else {"device": DEVICE}
+    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+
+    def fast_trip(label, cdc, a, b):
+        build.launch_counts.clear()
+        out = cdc.compress_fast(a, b, np.tile(hm[None], (len(a), 1, 1)))
+        rec = cdc.decompress_fast(out["blobs"])
+        got = dict(build.launch_counts)
+        check_fast_round_trip(label, cdc, a, b, hm, out, rec)
+        for name in ("gmm_freq", "grid_rans_encode", "grid_rans_decode"):
+            if got.get(name, 0) <= 0:
+                raise AssertionError(f"{label}: never launched {name}")
+            launches[name] = launches.get(name, 0) + got[name]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stereo, single, u1, u2 = write_folders(tmp)
+        single_ds = ImageFolder(single, "train")
+        for i in range(len(single_ds)):
+            if not np.array_equal(np.round(single_ds[i]["x"] * 255), u1[i]):
+                raise AssertionError(f"single folder image {i} does not "
+                                     f"read back as written")
+        folders_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        homo_dir = os.path.join(tmp, "homo")
+        train_homography.main(["--dataset", stereo, "--epochs", "1",
+                               "--batch-size", str(CAL_B),
+                               "--checkpoint-dir", homo_dir] + dev_args)
+        homo_s = time.perf_counter() - t0
+        homo = os.path.join(homo_dir, "homo_best.pkl")
+
+        ckpt = os.path.join(tmp, "hesic")
+        args = ["--model", "hesic", "--bf16", "--homography-net", homo,
+                "--dataset", stereo, "--batch-size", str(CAL_B),
+                "--patch-size", str(CAL_HW), "--checkpoint-dir", ckpt,
+                "--log-file", os.path.join(tmp, "train_log.txt")] + dev_args
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train.main(args + ["--epochs", "1"])
+        first_s = time.perf_counter() - t0
+        if first["codec"].model.N != N or first["codec"].model.M != M:
+            raise AssertionError("the CLI's HESIC is not at full width")
+        trained = {k: v.detach().cpu().numpy().copy()
+                   for k, v in first["codec"].model.state_dict().items()}
+        ep0 = first["epochs"][0]
+        del first
+        torch.cuda.empty_cache()
+        seen = []
+        orig_load = train.load_checkpoint
+        train.load_checkpoint = checked_load(train, seen)
+        out = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                again = train.main(args + ["--epochs", "2"])
+            again_s = time.perf_counter() - t0
+        finally:
+            train.load_checkpoint = orig_load
+        text = out.getvalue()
+        print(text, end="")
+        resume = os.path.join(ckpt, "checkpoint_best_loss.pkl")
+        if f"resumed from {resume} (epoch 1)" not in text or len(seen) != 1:
+            raise AssertionError("the second run did not resume from "
+                                 "epoch 1")
+        # the file the second run loaded held the first run's final state
+        for k, v in trained.items():
+            if not np.array_equal(seen[0][1][k], v):
+                raise AssertionError(f"resume: the file's {k} is not the "
+                                     f"first run's")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ep1 = again["epochs"][0]
+        del again, trained
+        torch.cuda.empty_cache()
+        print(f"train CLI [{card}]: HESIC N{N}/M{M}/K{K} bf16, batch "
+              f"{CAL_B}, {CAL_HW}x{CAL_HW} crops of {TRAIN_PAIRS} "
+              f"{HW_IMG}x{HW_IMG} pairs, the homography net's H: resumed "
+              f"epoch 1 with {seen[0][0]} tensors bit-equal to the file "
+              f"and the file's weights the first run's; "
+              f"{1e3 * ep1['step_s'] / ep1['steps']:.1f} ms a training step "
+              f"(homography net included) over epoch 1's {ep1['steps']} "
+              f"steps ({1e3 * ep0['step_s'] / ep0['steps']:.1f} over epoch "
+              f"0's, the process's first at this shape); epoch 1's loop "
+              f"{ep1['data_s'] + ep1['step_s']:.3f} s = data loading "
+              f"{ep1['data_s']:.3f} s + steps {ep1['step_s']:.3f} s; "
+              f"validation {ep1['val_s']:.3f} s, checkpoints "
+              f"{ep1['save_s']:.3f} s; first run {first_s:.1f} s, resumed "
+              f"run {again_s:.1f} s; peak memory {peak:.2f} GiB; folders "
+              f"{folders_s:.1f} s, homography net epoch {homo_s:.1f} s")
+        del seen
+
+        # the trained checkpoint through the zoo and the fast codec
+        test1 = u1[TRAIN_PAIRS:].astype(np.float32) / 255
+        test2 = u2[TRAIN_PAIRS:].astype(np.float32) / 255
+        cdc = zoo.create_model("hesic", checkpoint=os.path.join(
+            ckpt, "model_latest.pkl"), dtype=torch.bfloat16,
+            **where).update()
+        out = fast_trip("trained checkpoint", cdc, test1, test2)
+        print(f"trained checkpoint [{card}]: create_model(checkpoint=) -> "
+              f"HESICFastCodec on the {TEST_PAIRS} test pairs "
+              f"({HW_IMG}x{HW_IMG}, real H): bpp_real {out['bpp_real']:.6f}, "
+              f"mm {out['blob'][1]}/{out['blob'][2]}; decoded latents equal "
+              f"the encoder's")
+        del cdc
+        torch.cuda.empty_cache()
+
+        # stage 2 from the CLI: m1 frozen, m2 trained
+        before = zoo.create_model("hesic-together", seed=0, **where).model
+        m1_before = {k: v.detach().clone()
+                     for k, v in before.m1.state_dict().items()}
+        m2_before = {k: v.detach().clone()
+                     for k, v in before.m2.state_dict().items()}
+        del before
+        t0 = time.perf_counter()
+        st2 = train.main(["--model", "hesic-together", "--stage2",
+                          "--homography-net", homo, "--dataset", stereo,
+                          "--batch-size", str(CAL_B), "--patch-size",
+                          str(CAL_HW), "--epochs", "1", "--checkpoint-dir",
+                          os.path.join(tmp, "stage2"), "--log-file",
+                          os.path.join(tmp, "stage2_log.txt")] + dev_args)
+        st2_s = time.perf_counter() - t0
+        model = st2["codec"].model
+        for k, v in model.m1.state_dict().items():
+            if not torch.equal(v, m1_before[k]):
+                raise AssertionError(f"stage 2 moved m1.{k}")
+        moved = sum(not torch.equal(v, m2_before[k])
+                    for k, v in model.m2.state_dict().items())
+        if moved == 0:
+            raise AssertionError("stage 2 left m2 unchanged")
+        e = st2["epochs"][0]
+        print(f"stage 2 CLI [{card}]: hesic-together f32, batch {CAL_B}, "
+              f"{CAL_HW}x{CAL_HW}: {len(m1_before)} m1 tensors bit-"
+              f"unchanged, {moved} of {len(m2_before)} m2 tensors moved; "
+              f"{1e3 * e['step_s'] / e['steps']:.1f} ms a step, run "
+              f"{st2_s:.1f} s")
+        del st2, model, m1_before, m2_before
+        torch.cuda.empty_cache()
+
+        # the reference's trained tiny HESIC, converted and loaded twice
+        conv = os.path.join(tmp, "ref_hesic.pkl")
+        subprocess.run([sys.executable, "-m",
+                        "hesic_tpu_torch.utils.convert_torch", REF_FIXTURE,
+                        "--arch", "hesic", "-o", conv], check=True,
+                       stdout=subprocess.DEVNULL, timeout=300)
+        ref = zoo.create_model("hesic", checkpoint=conv, **where).update()
+        zoo_dir = os.path.join(tmp, "zoo")
+        os.makedirs(zoo_dir)
+        shutil.copy(REF_FIXTURE, os.path.join(zoo_dir,
+                                              "hesic-q1-mse.pth.tar"))
+        old = os.environ.get("HESIC_ZOO_DIR")
+        os.environ["HESIC_ZOO_DIR"] = zoo_dir
+        try:
+            pre = zoo.create_model("hesic", pretrained=True, **where)
+        finally:
+            if old is None:
+                del os.environ["HESIC_ZOO_DIR"]
+            else:
+                os.environ["HESIC_ZOO_DIR"] = old
+        for k, v in ref.model.state_dict().items():
+            if not torch.equal(v, pre.model.state_dict()[k]):
+                raise AssertionError(f"pretrained {k} differs from the "
+                                     f"converted checkpoint's")
+        a, b = test1[:1], test2[:1]
+        out = fast_trip("converted reference", ref, a, b)
+        ref_codec = HESICCodec(ref.model).update()
+        enc = ref_codec.compress(a, b, hm[None], "ref", tmp)
+        dec = ref_codec.decompress("ref", tmp)
+        for key in ("y1_hat", "y2_hat"):
+            if not torch.equal(dec[key], enc[key]):
+                raise AssertionError(f"converted reference, HESICCodec: "
+                                     f"decoded {key} differs")
+        print(f"converted reference [{card}]: {REF_FIXTURE} (N"
+              f"{ref.model.N}/M{ref.model.M}/K{ref.model.K}) through "
+              f"convert_torch, create_model(checkpoint=) and "
+              f"pretrained=True (equal weights): exact round trips on one "
+              f"{HW_IMG}x{HW_IMG} test pair (real H): HESICFastCodec "
+              f"bpp_real {out['bpp_real']:.6f}, HESICCodec bpp_real "
+              f"{enc['bpp_real']:.6f}")
+    print(f"phase 19 [{card}]: took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2402,8 +2713,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_stage2(card, cal_model, dsic_model, plus_model, pairs)
     del pairs, plus_model, cal_model, dsic_model
+    torch.cuda.empty_cache()
+    cli_launches = phase_train_cli(card)
     for counts in (cal_launches, bench_launches, dsic_launches,
-                   mbt_launches, plus_cal_launches, cheng_launches):
+                   mbt_launches, plus_cal_launches, cheng_launches,
+                   cli_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # kernels 4 and 5's errors over every hold: both HESIC+ eyes,

@@ -246,8 +246,11 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
 
     def __init__(self, model, mm: int = 16, groups: int = 8):
         super().__init__(model, mm, groups)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
         from .wavefront import pack_weights
-        self.w = pack_weights(extract_ar_weights(model))
+        self.w = pack_weights(extract_ar_weights(self.model))
         # y's channels: M for mbt2018, N for Cheng2020
         self.latent_ch = self.w.raw.ctx_kernel.shape[2]
 
@@ -331,13 +334,17 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         super().__init__(model, mm, groups)
         self.cap = cap
         self.latent_ch = model.M
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
         from .wavefront import pack_weights
-        # packed once for the level scan: eye 2's post input is the M
-        # channels of the re-encoded decoded left view
+        # packed for the level scan: eye 2's post input is the M channels
+        # of the re-encoded decoded left view
+        m = self.model
         self.w1 = pack_weights(extract_ar_weights(
-            model, "context_prediction1", "entropy_parameters1"))
+            m, "context_prediction1", "entropy_parameters1"))
         self.w2 = pack_weights(extract_ar_weights(
-            model, "context_prediction2", "entropy_parameters2"), model.M)
+            m, "context_prediction2", "entropy_parameters2"), m.M)
 
     # ---- device programs ----
 

@@ -15,6 +15,15 @@ model's device (on the card through pinned memory, without blocking the
 host).  ``deterministic_backends`` is the codecs' shared determinism
 policy.  ``TogetherCodec`` is the codec of the stage-2 models: an inner
 codec, then the enhancement.
+
+Persistence (``state_dict``, ``save``, ``load_state_dict``, ``load``) is
+one pickle with the JAX file's top-level keys (``module_class``,
+``config``, ``params``, ``tables``, ``scale_table``) plus ``"layout":
+"torch"``: ``params`` maps the model's dotted state_dict names to numpy
+arrays.  ``load_state_dict`` also takes a file the JAX package wrote (a
+nested flax tree, no ``layout``) through ``hesic_from_jax``, and reads
+through ``utils.persist.read_pickle``, which admits numpy and nothing
+else (loading a JAX file imports no JAX).
 """
 
 from __future__ import annotations
@@ -29,6 +38,10 @@ from ..entropy_models import (CdfTables, compress_with_indexes,
                               decode_streams_batch, decompress_with_indexes,
                               gaussian_tables, get_scale_table,
                               tables_from_pmf)
+from ..utils.persist import load_params, params_of, read_pickle, \
+    write_pickle
+
+_TABLE_KEYS = ("quantized_cdf", "cdf_length", "offset")
 
 
 def deterministic_backends():
@@ -38,6 +51,14 @@ def deterministic_backends():
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _load_weights(model, state: dict) -> None:
+    cls = state.get("module_class")
+    if cls is not None and cls != type(model).__name__:
+        raise ValueError(f"checkpoint of a {cls}, not a "
+                         f"{type(model).__name__}")
+    load_params(model, state)
 
 
 class CompressionModel:
@@ -128,6 +149,50 @@ class CompressionModel:
     def eb_medians(self, name: str) -> np.ndarray:
         """(C,) float32 medians of the named bottleneck (set by update)."""
         return self._medians[name]
+
+    # ---- persistence ----
+
+    def config(self) -> dict:
+        """The model's widths among N, M, K, F, C."""
+        return {f: getattr(self.model, f) for f in ("N", "M", "K", "F", "C")
+                if hasattr(self.model, f)}
+
+    def state_dict(self) -> dict:
+        return {"module_class": type(self.model).__name__,
+                "config": self.config(), "layout": "torch",
+                "params": params_of(self.model),
+                "tables": {k: {f: getattr(v, f) for f in _TABLE_KEYS}
+                           for k, v in self.tables.items()},
+                "scale_table": self.scale_table}
+
+    def save(self, path: str) -> None:
+        write_pickle(path, self.state_dict())
+
+    def load_state_dict(self, state: dict):
+        """Load weights (on the model's device, in place), tables and the
+        scale table from a ``state_dict`` of the port or the JAX
+        package."""
+        _load_weights(self.model, state)
+        self._set_tables(state.get("tables"), state.get("scale_table"))
+        return self
+
+    def _set_tables(self, tables, scale_table) -> None:
+        self.tables = {k: CdfTables(*(np.asarray(v[f], np.int32)
+                                      for f in _TABLE_KEYS))
+                       for k, v in (tables or {}).items()}
+        self.scale_table = (None if scale_table is None
+                            else np.asarray(scale_table))
+        self._medians = {
+            name: getattr(self.model, name).medians().detach().cpu()
+            .numpy().copy() for name in self.model.entropy_bottlenecks}
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
+        """Rebuild what a codec derives from the weights (nothing here)."""
+
+    @classmethod
+    def load(cls, model: torch.nn.Module, path: str) -> "CompressionModel":
+        return cls(model).load_state_dict(read_pickle(path))
 
     def eb_encode_symbols(self, name: str, symbols: np.ndarray) -> list:
         """(B, zh, zw, C) int symbols -> one z string per item."""
@@ -222,6 +287,19 @@ class TogetherCodec(CompressionModel):
 
     def update(self, scale_table=None, force: bool = False):
         self.inner.update(scale_table=scale_table, force=force)
+        self.tables = {f"m1/{k}": v for k, v in self.inner.tables.items()}
+        self.scale_table = self.inner.scale_table
+        return self
+
+    def load_state_dict(self, state: dict):
+        """Load the whole model (m1 and m2), then a new inner codec over
+        m1 with the tables named under ``m1/``."""
+        _load_weights(self.model, state)
+        self.inner = self.inner_codec_cls(self.model.m1)
+        self.inner._set_tables(
+            {k[len("m1/"):]: v
+             for k, v in (state.get("tables") or {}).items()},
+            state.get("scale_table"))
         self.tables = {f"m1/{k}": v for k, v in self.inner.tables.items()}
         self.scale_table = self.inner.scale_table
         return self

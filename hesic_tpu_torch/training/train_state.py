@@ -15,7 +15,11 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
+
+from ..utils.persist import load_params, params_of, read_pickle, \
+    write_pickle
 
 
 def is_aux_path(name: str) -> bool:
@@ -60,3 +64,53 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn):
         return {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
 
     return step
+
+
+def _names(model: torch.nn.Module) -> Dict[int, str]:
+    return {id(p): name for name, p in model.named_parameters()}
+
+
+def save_checkpoint(model: torch.nn.Module, optimizer, path: str,
+                    step: int, **extra) -> None:
+    """Write the model's weights, the optimizer's state per group and
+    parameter name, the step count and `extra` (epoch, loss, ...)."""
+    names = _names(model)
+    opt_state = {}
+    for group in optimizer.param_groups:
+        per = opt_state.setdefault(group.get("name", "main"), {})
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st:
+                per[names[id(p)]] = {k: v.detach().cpu().numpy().copy()
+                                     for k, v in st.items()}
+    write_pickle(path, {"params": params_of(model), "layout": "torch",
+                        "opt_state": opt_state, "step": int(step), **extra})
+
+
+def load_checkpoint(path: str, model: torch.nn.Module = None,
+                    optimizer=None) -> dict:
+    """Read a ``save_checkpoint`` file; load its weights into `model` and
+    its Adam state into `optimizer` (built over the same parameter
+    names) when given.  Returns the payload (step, epoch, loss, ...).
+    The next step then takes the step the saved state would have."""
+    payload = read_pickle(path)
+    if model is not None:
+        load_params(model, payload)
+    if optimizer is not None:
+        names = _names(model)
+        saved = payload.get("opt_state") or {}
+        for group in optimizer.param_groups:
+            per = saved.get(group.get("name", "main"), {})
+            for p in group["params"]:
+                st = per.get(names[id(p)])
+                if st is None:
+                    optimizer.state.pop(p, None)
+                    continue
+                # Adam keeps `step` as a float32 CPU tensor unless it runs
+                # fused or capturable; the moments live beside p
+                on_host = not (group.get("fused") or group.get("capturable"))
+                optimizer.state[p] = {
+                    k: torch.from_numpy(np.array(v)).to(
+                        "cpu" if k == "step" and on_host else p.device)
+                    for k, v in st.items()}
+    return payload

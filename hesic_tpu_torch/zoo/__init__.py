@@ -5,13 +5,17 @@ same ``cfgs`` (CompressAI's zoo/image.py for the single-image models, the
 published configuration for the stereo ones), mapped to the port's
 classes.  ``create_model`` builds the model at a quality point from a
 seed, on the card unless the caller passes another device, and returns
-its codec (tables not yet built: call ``update()``).  Pretrained and
-checkpoint loading are not carried over yet (ROADMAP A item 2): asking
-for them raises.
+its codec (tables not yet built: call ``update()``).  ``checkpoint=``
+loads a codec file (the port's or the JAX package's,
+``CompressionModel.save``); ``pretrained=True`` loads
+``{name}-q{quality}-{metric}.pkl`` from ``zoo_cache_dir()``, or converts a
+reference ``.pth.tar`` beside it (``utils.convert_torch``) and caches the
+result there.  Nothing is fetched.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 from typing import Optional
 
@@ -29,6 +33,7 @@ from ..models.priors import (FactorizedPrior,
                              JointAutoregressiveHierarchicalPriors,
                              MeanScaleHyperprior, ScaleHyperprior)
 from ..models.waseda import Cheng2020Anchor, Cheng2020Attention
+from ..utils.persist import read_pickle, write_pickle
 
 model_architectures = {
     "bmshj2018-factorized": (FactorizedPrior, FactorizedPriorCodec),
@@ -78,10 +83,6 @@ _WITH_HOMOGRAPHY = {"hesic", "hesic-together", "hesic-plus",
 
 models = model_architectures  # reference-compatible alias
 
-_NOT_YET = ("not carried over to the port yet (ROADMAP A item 2: "
-            "checkpoints and convert_torch)")
-
-
 def zoo_cache_dir() -> str:
     """The local pretrained-checkpoint cache ($HESIC_ZOO_DIR, else the
     port's own directory under ~/.cache)."""
@@ -89,6 +90,36 @@ def zoo_cache_dir() -> str:
         "HESIC_ZOO_DIR",
         os.path.join(os.path.expanduser("~"), ".cache", "hesic_tpu_torch",
                      "zoo"))
+
+
+def config_for(module_cls, config) -> dict:
+    """The entries of a checkpoint's config that `module_cls` takes (a
+    reference HESIC+ checkpoint names K, which HESIC+ does not take)."""
+    params = inspect.signature(module_cls).parameters
+    return {k: v for k, v in (config or {}).items() if k in params}
+
+
+def _pretrained_state(name: str, quality: int, metric: str = "mse") -> dict:
+    """The state of a pretrained checkpoint: ``{stem}.pkl`` (the codec
+    format) from the zoo cache, else a reference ``{stem}.pth.tar``
+    beside it, converted at the checkpoint's widths and cached as
+    ``{stem}.pkl``; stem is ``{name}-q{quality}-{metric}``."""
+    from ..utils.convert_torch import build_for, read_reference
+    d = zoo_cache_dir()
+    stem = f"{name}-q{quality}-{metric}"
+    pkl = os.path.join(d, stem + ".pkl")
+    if os.path.exists(pkl):
+        return read_pickle(pkl)
+    pth = os.path.join(d, stem + ".pth.tar")
+    if not os.path.exists(pth):
+        raise FileNotFoundError(
+            f"no pretrained checkpoint for {name} q{quality} ({metric}): "
+            f"expected {pkl} or {pth}. Put the reference torch checkpoint "
+            f"at that path, or convert one with `python -m "
+            f"hesic_tpu_torch.utils.convert_torch`.")
+    state = build_for(name, read_reference(pth), quality).state_dict()
+    write_pickle(pkl, state)
+    return state
 
 
 def is_stereo(name: str) -> bool:
@@ -102,20 +133,31 @@ def uses_homography(name: str) -> bool:
 def create_model(name: str, quality: int = 1, seed: int = 0,
                  device="cuda", pretrained: bool = False,
                  checkpoint: Optional[str] = None, **overrides):
-    """The codec of model `name` at `quality`, its weights drawn from
-    `seed` on `device`; `overrides` replace constructor arguments (N, M,
-    dtype, ...)."""
+    """The codec of model `name` at `quality` on `device`, its weights
+    drawn from `seed`, or loaded from a pretrained checkpoint (then its
+    tables built) or a codec file; `overrides` replace constructor
+    arguments (N, M, dtype, ...) after the file's config."""
     if name not in model_architectures:
         raise ValueError(f'Invalid architecture name "{name}" '
                          f"(choose from {sorted(model_architectures)})")
     if quality not in cfgs[name]:
         raise ValueError(f'Invalid quality "{quality}" for "{name}" '
                          f"(valid: {sorted(cfgs[name])})")
-    if pretrained:
-        raise NotImplementedError(f"pretrained=True is {_NOT_YET}")
-    if checkpoint is not None:
-        raise NotImplementedError(f"checkpoint= is {_NOT_YET}")
     module_cls, codec_cls = model_architectures[name]
     kwargs = dict(cfgs[name][quality], device=device, seed=seed)
+    state = None
+    if pretrained:
+        state = _pretrained_state(name, quality,
+                                  overrides.pop("metric", "mse"))
+    elif checkpoint is not None:
+        state = read_pickle(checkpoint)
+    if state is not None:
+        kwargs.update(config_for(module_cls, state.get("config")))
     kwargs.update(overrides)
-    return codec_cls(module_cls(**kwargs))
+    codec = codec_cls(module_cls(**kwargs))
+    if state is None:
+        return codec
+    codec.load_state_dict(state)
+    if pretrained and not codec.tables:
+        codec.update()
+    return codec

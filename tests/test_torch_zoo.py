@@ -3,8 +3,10 @@
 stereo and homography flags, the same errors for a bad name or quality,
 and every name built on the CPU at its lowest quality (widths cut by
 overrides) as the registry's model and codec classes, which carry the JAX
-classes' names.  ``pretrained=True`` and ``checkpoint=`` raise
-NotImplementedError naming ROADMAP A item 2, never a silent fallback.
+classes' names.  ``pretrained=True`` with nothing cached and
+``checkpoint=`` of a missing file raise FileNotFoundError, never a
+silent fallback to seeded weights (tests/test_torch_checkpoints.py loads
+real files).
 """
 
 import inspect
@@ -81,8 +83,10 @@ def test_bad_name_and_quality_raise_as_jax():
 @pytest.mark.parametrize("kwargs", [dict(pretrained=True),
                                     dict(checkpoint="model.pkl")],
                          ids=["pretrained", "checkpoint"])
-def test_pretrained_and_checkpoint_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
+def test_pretrained_and_checkpoint_raise(kwargs, monkeypatch, tmp_path):
+    monkeypatch.setenv("HESIC_ZOO_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError):
         zoo.create_model("mbt2018", 1, device="cpu", **kwargs)
 
 
