@@ -248,8 +248,33 @@ and prints no result):
      HESICFastCodec and HESICCodec.  Prints ms a training step, the
      epoch's data loading and steps, checkpoint seconds, peak memory,
      bpp_real and the phase's seconds beside the card;
- 20. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8, 10, 11, 12, 17 and 19's round trips and phases 9-12's timed
+ 20. evaluates and codes what was trained through the CLIs, each by its
+     main(argv) with --device cuda, on phase 19's folders and files and
+     on phase 11's calibrated mbt2018 and phase 12's calibrated HESIC+
+     (saved by CompressionModel.save before they are freed):
+     utils.eval_model of HESIC with phase 19's checkpoint and homography
+     net on the 2 test pairs, the real coder (HESICFastCodec's
+     reference-layout container) and --entropy-estimation, and the same
+     pair through that container must decode to the encoder's latents;
+     eval_model --device-codec of HESIC+ on those pairs and of mbt2018 on
+     2 of phase 11's images written as an image folder, each device
+     codec's own round trip exact (kernels 4 and 5); utils.codec_cli
+     encode and decode of one 512x512 PNG with mbt2018 (writer byte 17;
+     the decoded PNG equal to the decoder's x_hat rounded);
+     utils.update_model on phase 19's checkpoint (the file it writes
+     loads and codes a test pair to the container bytes of the
+     checkpoint rebuilt in the process); StereoImageFolder(classical_h=
+     True) on 2 block-textured 512x512 pairs whose right eye is the left
+     warped by bench.py's real H (the estimate's mean transfer error
+     below 1 px; a hypothesis batch of repeated points scores -1 on the
+     card without raising), and those pairs through HESICFastCodec under
+     the estimates (exact round trip, kernels 1-3);
+     utils.eval_homography with phase 19's net (MACE, forward ms,
+     PyTorch's FLOP count); utils.bench_codecs jpeg -j 2 on 2 images
+     (PSNR and MS-SSIM finite).  Prints each row's numbers and the
+     phase's seconds beside the card;
+ 21. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8, 10, 11, 12, 17, 19 and 20's round trips and phases 9-12's timed
      loops; kernels 1-3's times and bounds at batch 64 on the widest
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
@@ -261,11 +286,14 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 B, M, K, N = 8, 192, 5, 128
@@ -621,12 +649,13 @@ def wide_codec(model, x1, x2, mm: int):
 
 def check_fast_round_trip(label: str, cdc, a, b, hm, out, rec):
     """Raise unless the fast codec's decode `rec` of `out` (pairs a, b
-    under homography hm) gives the encoder's own quantized latents and
-    finite reconstructions of the input's shape.  Returns the encoder's
-    (y1_hat, y2_hat), NHWC float."""
+    under homography hm, (3, 3) or one per pair) gives the encoder's own
+    quantized latents and finite reconstructions of the input's shape.
+    Returns the encoder's (y1_hat, y2_hat), NHWC float."""
     import numpy as np
     import torch
-    h = torch.from_numpy(np.tile(hm[None], (len(a), 1, 1))).to(DEVICE)
+    h = torch.from_numpy(np.array(np.broadcast_to(
+        hm, (len(a), 3, 3)))).to(DEVICE)
     enc = cdc.transforms_enc(cdc._to_device(a), cdc._to_device(b), h,
                              out["blob"][3])
     want = [enc[i].permute(0, 2, 3, 1).float() for i in (0, 1)]
@@ -1592,7 +1621,8 @@ def device_round_trips(label: str, cases: dict, eyes: int) -> tuple:
         print(f"{label} [{case}, mm {cdc.mm}]: bpp_real "
               f"{out['bpp_real']:.6f}, escapes {out['escapes']}, encode "
               f"{out['enctime'] * 1e3:.1f} ms, decode "
-              f"{rec['dectime'] * 1e3:.1f} ms wall for {AR_B}; decoded "
+              f"{rec['dectime'] * 1e3:.1f} ms wall for {len(args[0])}; "
+              f"decoded "
               f"latents equal the encoder's")
     return launches, runs
 
@@ -1939,8 +1969,6 @@ def phase_ref_codecs(card: str, hesic, dsic, plus, pairs) -> None:
     be finite and of the input's shape, and decoding with the H passed
     equal decoding with the header's.  Launches none of the five
     kernels."""
-    import tempfile
-
     import numpy as np
     import torch
     from hesic_tpu_torch import bench
@@ -2232,8 +2260,6 @@ def phase_stage2(card: str, hesic, dsic, plus, pairs) -> None:
     its lowest quality on the card: each model's parameters must be on
     the card and its codec the registry's class.  Launches none of the
     five kernels."""
-    import tempfile
-
     import numpy as np
     import torch
     from hesic_tpu_torch import bench, zoo
@@ -2412,7 +2438,7 @@ def checked_load(train_mod, seen: list):
     return load
 
 
-def phase_train_cli(card: str) -> dict:
+def phase_train_cli(card: str, tmp: str) -> tuple:
     """Phase 19: train from image folders and keep what was trained.
     Writes the folders, trains the homography net one epoch (batch
     CAL_B), HESIC N=128/M=192/K=5 one epoch in bf16 with that net's H
@@ -2426,12 +2452,12 @@ def phase_train_cli(card: str) -> dict:
     converted by `python -m hesic_tpu_torch.utils.convert_torch`, loaded
     by create_model(checkpoint=) and by pretrained=True from a temporary
     zoo cache (equal weights), and round-trips exactly through
-    HESICFastCodec and HESICCodec on one test pair.  Returns the fast
-    round trips' launches."""
+    HESICFastCodec and HESICCodec on one test pair.  Everything is
+    written under `tmp`, which phase 20 reads.  Returns (the fast round
+    trips' launches, what phase 20 takes: the folders, the homography
+    net's and the trained HESIC's files, the test pairs as uint8)."""
     import io
-    import shutil
     import subprocess
-    import tempfile
 
     import numpy as np
     import torch
@@ -2461,171 +2487,449 @@ def phase_train_cli(card: str) -> dict:
             launches[name] = launches.get(name, 0) + got[name]
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    stereo, single, u1, u2 = write_folders(tmp)
+    single_ds = ImageFolder(single, "train")
+    for i in range(len(single_ds)):
+        if not np.array_equal(np.round(single_ds[i]["x"] * 255), u1[i]):
+            raise AssertionError(f"single folder image {i} does not "
+                                 f"read back as written")
+    folders_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    homo_dir = os.path.join(tmp, "homo")
+    train_homography.main(["--dataset", stereo, "--epochs", "1",
+                           "--batch-size", str(CAL_B),
+                           "--checkpoint-dir", homo_dir] + dev_args)
+    homo_s = time.perf_counter() - t0
+    homo = os.path.join(homo_dir, "homo_best.pkl")
+
+    ckpt = os.path.join(tmp, "hesic")
+    args = ["--model", "hesic", "--bf16", "--homography-net", homo,
+            "--dataset", stereo, "--batch-size", str(CAL_B),
+            "--patch-size", str(CAL_HW), "--checkpoint-dir", ckpt,
+            "--log-file", os.path.join(tmp, "train_log.txt")] + dev_args
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = train.main(args + ["--epochs", "1"])
+    first_s = time.perf_counter() - t0
+    if first["codec"].model.N != N or first["codec"].model.M != M:
+        raise AssertionError("the CLI's HESIC is not at full width")
+    trained = {k: v.detach().cpu().numpy().copy()
+               for k, v in first["codec"].model.state_dict().items()}
+    ep0 = first["epochs"][0]
+    del first
+    torch.cuda.empty_cache()
+    seen = []
+    orig_load = train.load_checkpoint
+    train.load_checkpoint = checked_load(train, seen)
+    out = io.StringIO()
+    try:
         t0 = time.perf_counter()
-        stereo, single, u1, u2 = write_folders(tmp)
-        single_ds = ImageFolder(single, "train")
-        for i in range(len(single_ds)):
-            if not np.array_equal(np.round(single_ds[i]["x"] * 255), u1[i]):
-                raise AssertionError(f"single folder image {i} does not "
-                                     f"read back as written")
-        folders_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(out):
+            again = train.main(args + ["--epochs", "2"])
+        again_s = time.perf_counter() - t0
+    finally:
+        train.load_checkpoint = orig_load
+    text = out.getvalue()
+    print(text, end="")
+    resume = os.path.join(ckpt, "checkpoint_best_loss.pkl")
+    if f"resumed from {resume} (epoch 1)" not in text or len(seen) != 1:
+        raise AssertionError("the second run did not resume from "
+                             "epoch 1")
+    # the file the second run loaded held the first run's final state
+    for k, v in trained.items():
+        if not np.array_equal(seen[0][1][k], v):
+            raise AssertionError(f"resume: the file's {k} is not the "
+                                 f"first run's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ep1 = again["epochs"][0]
+    del again, trained
+    torch.cuda.empty_cache()
+    print(f"train CLI [{card}]: HESIC N{N}/M{M}/K{K} bf16, batch "
+          f"{CAL_B}, {CAL_HW}x{CAL_HW} crops of {TRAIN_PAIRS} "
+          f"{HW_IMG}x{HW_IMG} pairs, the homography net's H: resumed "
+          f"epoch 1 with {seen[0][0]} tensors bit-equal to the file "
+          f"and the file's weights the first run's; "
+          f"{1e3 * ep1['step_s'] / ep1['steps']:.1f} ms a training step "
+          f"(homography net included) over epoch 1's {ep1['steps']} "
+          f"steps ({1e3 * ep0['step_s'] / ep0['steps']:.1f} over epoch "
+          f"0's, the process's first at this shape); epoch 1's loop "
+          f"{ep1['data_s'] + ep1['step_s']:.3f} s = data loading "
+          f"{ep1['data_s']:.3f} s + steps {ep1['step_s']:.3f} s; "
+          f"validation {ep1['val_s']:.3f} s, checkpoints "
+          f"{ep1['save_s']:.3f} s; first run {first_s:.1f} s, resumed "
+          f"run {again_s:.1f} s; peak memory {peak:.2f} GiB; folders "
+          f"{folders_s:.1f} s, homography net epoch {homo_s:.1f} s")
+    del seen
 
-        t0 = time.perf_counter()
-        homo_dir = os.path.join(tmp, "homo")
-        train_homography.main(["--dataset", stereo, "--epochs", "1",
-                               "--batch-size", str(CAL_B),
-                               "--checkpoint-dir", homo_dir] + dev_args)
-        homo_s = time.perf_counter() - t0
-        homo = os.path.join(homo_dir, "homo_best.pkl")
+    # the trained checkpoint through the zoo and the fast codec
+    test1 = u1[TRAIN_PAIRS:].astype(np.float32) / 255
+    test2 = u2[TRAIN_PAIRS:].astype(np.float32) / 255
+    cdc = zoo.create_model("hesic", checkpoint=os.path.join(
+        ckpt, "model_latest.pkl"), dtype=torch.bfloat16,
+        **where).update()
+    out = fast_trip("trained checkpoint", cdc, test1, test2)
+    print(f"trained checkpoint [{card}]: create_model(checkpoint=) -> "
+          f"HESICFastCodec on the {TEST_PAIRS} test pairs "
+          f"({HW_IMG}x{HW_IMG}, real H): bpp_real {out['bpp_real']:.6f}, "
+          f"mm {out['blob'][1]}/{out['blob'][2]}; decoded latents equal "
+          f"the encoder's")
+    del cdc
+    torch.cuda.empty_cache()
 
-        ckpt = os.path.join(tmp, "hesic")
-        args = ["--model", "hesic", "--bf16", "--homography-net", homo,
-                "--dataset", stereo, "--batch-size", str(CAL_B),
-                "--patch-size", str(CAL_HW), "--checkpoint-dir", ckpt,
-                "--log-file", os.path.join(tmp, "train_log.txt")] + dev_args
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        first = train.main(args + ["--epochs", "1"])
-        first_s = time.perf_counter() - t0
-        if first["codec"].model.N != N or first["codec"].model.M != M:
-            raise AssertionError("the CLI's HESIC is not at full width")
-        trained = {k: v.detach().cpu().numpy().copy()
-                   for k, v in first["codec"].model.state_dict().items()}
-        ep0 = first["epochs"][0]
-        del first
-        torch.cuda.empty_cache()
-        seen = []
-        orig_load = train.load_checkpoint
-        train.load_checkpoint = checked_load(train, seen)
-        out = io.StringIO()
-        try:
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                again = train.main(args + ["--epochs", "2"])
-            again_s = time.perf_counter() - t0
-        finally:
-            train.load_checkpoint = orig_load
-        text = out.getvalue()
-        print(text, end="")
-        resume = os.path.join(ckpt, "checkpoint_best_loss.pkl")
-        if f"resumed from {resume} (epoch 1)" not in text or len(seen) != 1:
-            raise AssertionError("the second run did not resume from "
-                                 "epoch 1")
-        # the file the second run loaded held the first run's final state
-        for k, v in trained.items():
-            if not np.array_equal(seen[0][1][k], v):
-                raise AssertionError(f"resume: the file's {k} is not the "
-                                     f"first run's")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ep1 = again["epochs"][0]
-        del again, trained
-        torch.cuda.empty_cache()
-        print(f"train CLI [{card}]: HESIC N{N}/M{M}/K{K} bf16, batch "
-              f"{CAL_B}, {CAL_HW}x{CAL_HW} crops of {TRAIN_PAIRS} "
-              f"{HW_IMG}x{HW_IMG} pairs, the homography net's H: resumed "
-              f"epoch 1 with {seen[0][0]} tensors bit-equal to the file "
-              f"and the file's weights the first run's; "
-              f"{1e3 * ep1['step_s'] / ep1['steps']:.1f} ms a training step "
-              f"(homography net included) over epoch 1's {ep1['steps']} "
-              f"steps ({1e3 * ep0['step_s'] / ep0['steps']:.1f} over epoch "
-              f"0's, the process's first at this shape); epoch 1's loop "
-              f"{ep1['data_s'] + ep1['step_s']:.3f} s = data loading "
-              f"{ep1['data_s']:.3f} s + steps {ep1['step_s']:.3f} s; "
-              f"validation {ep1['val_s']:.3f} s, checkpoints "
-              f"{ep1['save_s']:.3f} s; first run {first_s:.1f} s, resumed "
-              f"run {again_s:.1f} s; peak memory {peak:.2f} GiB; folders "
-              f"{folders_s:.1f} s, homography net epoch {homo_s:.1f} s")
-        del seen
+    # stage 2 from the CLI: m1 frozen, m2 trained
+    before = zoo.create_model("hesic-together", seed=0, **where).model
+    m1_before = {k: v.detach().clone()
+                 for k, v in before.m1.state_dict().items()}
+    m2_before = {k: v.detach().clone()
+                 for k, v in before.m2.state_dict().items()}
+    del before
+    t0 = time.perf_counter()
+    st2 = train.main(["--model", "hesic-together", "--stage2",
+                      "--homography-net", homo, "--dataset", stereo,
+                      "--batch-size", str(CAL_B), "--patch-size",
+                      str(CAL_HW), "--epochs", "1", "--checkpoint-dir",
+                      os.path.join(tmp, "stage2"), "--log-file",
+                      os.path.join(tmp, "stage2_log.txt")] + dev_args)
+    st2_s = time.perf_counter() - t0
+    model = st2["codec"].model
+    for k, v in model.m1.state_dict().items():
+        if not torch.equal(v, m1_before[k]):
+            raise AssertionError(f"stage 2 moved m1.{k}")
+    moved = sum(not torch.equal(v, m2_before[k])
+                for k, v in model.m2.state_dict().items())
+    if moved == 0:
+        raise AssertionError("stage 2 left m2 unchanged")
+    e = st2["epochs"][0]
+    print(f"stage 2 CLI [{card}]: hesic-together f32, batch {CAL_B}, "
+          f"{CAL_HW}x{CAL_HW}: {len(m1_before)} m1 tensors bit-"
+          f"unchanged, {moved} of {len(m2_before)} m2 tensors moved; "
+          f"{1e3 * e['step_s'] / e['steps']:.1f} ms a step, run "
+          f"{st2_s:.1f} s")
+    del st2, model, m1_before, m2_before
+    torch.cuda.empty_cache()
 
-        # the trained checkpoint through the zoo and the fast codec
-        test1 = u1[TRAIN_PAIRS:].astype(np.float32) / 255
-        test2 = u2[TRAIN_PAIRS:].astype(np.float32) / 255
-        cdc = zoo.create_model("hesic", checkpoint=os.path.join(
-            ckpt, "model_latest.pkl"), dtype=torch.bfloat16,
-            **where).update()
-        out = fast_trip("trained checkpoint", cdc, test1, test2)
-        print(f"trained checkpoint [{card}]: create_model(checkpoint=) -> "
-              f"HESICFastCodec on the {TEST_PAIRS} test pairs "
-              f"({HW_IMG}x{HW_IMG}, real H): bpp_real {out['bpp_real']:.6f}, "
-              f"mm {out['blob'][1]}/{out['blob'][2]}; decoded latents equal "
-              f"the encoder's")
-        del cdc
-        torch.cuda.empty_cache()
-
-        # stage 2 from the CLI: m1 frozen, m2 trained
-        before = zoo.create_model("hesic-together", seed=0, **where).model
-        m1_before = {k: v.detach().clone()
-                     for k, v in before.m1.state_dict().items()}
-        m2_before = {k: v.detach().clone()
-                     for k, v in before.m2.state_dict().items()}
-        del before
-        t0 = time.perf_counter()
-        st2 = train.main(["--model", "hesic-together", "--stage2",
-                          "--homography-net", homo, "--dataset", stereo,
-                          "--batch-size", str(CAL_B), "--patch-size",
-                          str(CAL_HW), "--epochs", "1", "--checkpoint-dir",
-                          os.path.join(tmp, "stage2"), "--log-file",
-                          os.path.join(tmp, "stage2_log.txt")] + dev_args)
-        st2_s = time.perf_counter() - t0
-        model = st2["codec"].model
-        for k, v in model.m1.state_dict().items():
-            if not torch.equal(v, m1_before[k]):
-                raise AssertionError(f"stage 2 moved m1.{k}")
-        moved = sum(not torch.equal(v, m2_before[k])
-                    for k, v in model.m2.state_dict().items())
-        if moved == 0:
-            raise AssertionError("stage 2 left m2 unchanged")
-        e = st2["epochs"][0]
-        print(f"stage 2 CLI [{card}]: hesic-together f32, batch {CAL_B}, "
-              f"{CAL_HW}x{CAL_HW}: {len(m1_before)} m1 tensors bit-"
-              f"unchanged, {moved} of {len(m2_before)} m2 tensors moved; "
-              f"{1e3 * e['step_s'] / e['steps']:.1f} ms a step, run "
-              f"{st2_s:.1f} s")
-        del st2, model, m1_before, m2_before
-        torch.cuda.empty_cache()
-
-        # the reference's trained tiny HESIC, converted and loaded twice
-        conv = os.path.join(tmp, "ref_hesic.pkl")
-        subprocess.run([sys.executable, "-m",
-                        "hesic_tpu_torch.utils.convert_torch", REF_FIXTURE,
-                        "--arch", "hesic", "-o", conv], check=True,
-                       stdout=subprocess.DEVNULL, timeout=300)
-        ref = zoo.create_model("hesic", checkpoint=conv, **where).update()
-        zoo_dir = os.path.join(tmp, "zoo")
-        os.makedirs(zoo_dir)
-        shutil.copy(REF_FIXTURE, os.path.join(zoo_dir,
-                                              "hesic-q1-mse.pth.tar"))
-        old = os.environ.get("HESIC_ZOO_DIR")
-        os.environ["HESIC_ZOO_DIR"] = zoo_dir
-        try:
-            pre = zoo.create_model("hesic", pretrained=True, **where)
-        finally:
-            if old is None:
-                del os.environ["HESIC_ZOO_DIR"]
-            else:
-                os.environ["HESIC_ZOO_DIR"] = old
-        for k, v in ref.model.state_dict().items():
-            if not torch.equal(v, pre.model.state_dict()[k]):
-                raise AssertionError(f"pretrained {k} differs from the "
-                                     f"converted checkpoint's")
-        a, b = test1[:1], test2[:1]
-        out = fast_trip("converted reference", ref, a, b)
-        ref_codec = HESICCodec(ref.model).update()
-        enc = ref_codec.compress(a, b, hm[None], "ref", tmp)
-        dec = ref_codec.decompress("ref", tmp)
-        for key in ("y1_hat", "y2_hat"):
-            if not torch.equal(dec[key], enc[key]):
-                raise AssertionError(f"converted reference, HESICCodec: "
-                                     f"decoded {key} differs")
-        print(f"converted reference [{card}]: {REF_FIXTURE} (N"
-              f"{ref.model.N}/M{ref.model.M}/K{ref.model.K}) through "
-              f"convert_torch, create_model(checkpoint=) and "
-              f"pretrained=True (equal weights): exact round trips on one "
-              f"{HW_IMG}x{HW_IMG} test pair (real H): HESICFastCodec "
-              f"bpp_real {out['bpp_real']:.6f}, HESICCodec bpp_real "
-              f"{enc['bpp_real']:.6f}")
+    # the reference's trained tiny HESIC, converted and loaded twice
+    conv = os.path.join(tmp, "ref_hesic.pkl")
+    subprocess.run([sys.executable, "-m",
+                    "hesic_tpu_torch.utils.convert_torch", REF_FIXTURE,
+                    "--arch", "hesic", "-o", conv], check=True,
+                   stdout=subprocess.DEVNULL, timeout=300)
+    ref = zoo.create_model("hesic", checkpoint=conv, **where).update()
+    zoo_dir = os.path.join(tmp, "zoo")
+    os.makedirs(zoo_dir)
+    shutil.copy(REF_FIXTURE, os.path.join(zoo_dir,
+                                          "hesic-q1-mse.pth.tar"))
+    old = os.environ.get("HESIC_ZOO_DIR")
+    os.environ["HESIC_ZOO_DIR"] = zoo_dir
+    try:
+        pre = zoo.create_model("hesic", pretrained=True, **where)
+    finally:
+        if old is None:
+            del os.environ["HESIC_ZOO_DIR"]
+        else:
+            os.environ["HESIC_ZOO_DIR"] = old
+    for k, v in ref.model.state_dict().items():
+        if not torch.equal(v, pre.model.state_dict()[k]):
+            raise AssertionError(f"pretrained {k} differs from the "
+                                 f"converted checkpoint's")
+    a, b = test1[:1], test2[:1]
+    out = fast_trip("converted reference", ref, a, b)
+    ref_codec = HESICCodec(ref.model).update()
+    enc = ref_codec.compress(a, b, hm[None], "ref", tmp)
+    dec = ref_codec.decompress("ref", tmp)
+    for key in ("y1_hat", "y2_hat"):
+        if not torch.equal(dec[key], enc[key]):
+            raise AssertionError(f"converted reference, HESICCodec: "
+                                 f"decoded {key} differs")
+    print(f"converted reference [{card}]: {REF_FIXTURE} (N"
+          f"{ref.model.N}/M{ref.model.M}/K{ref.model.K}) through "
+          f"convert_torch, create_model(checkpoint=) and "
+          f"pretrained=True (equal weights): exact round trips on one "
+          f"{HW_IMG}x{HW_IMG} test pair (real H): HESICFastCodec "
+          f"bpp_real {out['bpp_real']:.6f}, HESICCodec bpp_real "
+          f"{enc['bpp_real']:.6f}")
     print(f"phase 19 [{card}]: took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}")
+    kept = {"stereo": stereo, "single": single, "homo": homo,
+            "hesic": os.path.join(ckpt, "model_latest.pkl"),
+            "test1": u1[TRAIN_PAIRS:], "test2": u2[TRAIN_PAIRS:]}
+    return launches, kept
+
+
+# phase 20: evaluating and coding what was trained, through the CLIs.
+# Textured pairs for the classical homography estimate: the JAX feature
+# tests' block texture (tests/test_features.py), which gives Harris the
+# corners that phase 19's smooth images lack.
+TEXTURE_PAIRS = 2
+EVAL_KEYS = ("bpp", "psnr", "ms-ssim")
+
+
+def textured(seed: int, hw: int):
+    """8x8 blocks of random colour plus 5% noise, in [0, 1]."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    blocks = rng.rand(hw // 8, hw // 8, 3).astype(np.float32)
+    img = np.repeat(np.repeat(blocks, 8, 0), 8, 1)
+    img += 0.05 * rng.rand(hw, hw, 3).astype(np.float32)
+    return np.clip(img, 0.0, 1.0)
+
+
+def transfer_error(h_est, h_true, hw: int) -> float:
+    """Mean distance in pixels between the images of a 5x5 grid over the
+    middle half of the frame under two homographies."""
+    import numpy as np
+    ys, xs = np.meshgrid(np.linspace(hw * 0.25, hw * 0.75, 5),
+                         np.linspace(hw * 0.25, hw * 0.75, 5))
+    pts = np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)], axis=-1)
+
+    def proj(h):
+        q = pts @ np.asarray(h, np.float64).T
+        return q[:, :2] / q[:, 2:3]
+
+    return float(np.mean(np.linalg.norm(proj(h_est) - proj(h_true),
+                                        axis=-1)))
+
+
+def cli(fn, argv):
+    """A CLI's main(argv), its standard output dropped (phase 20 prints
+    one line a row)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(argv)
+
+
+def check_summary(label: str, res: dict) -> str:
+    """Raise unless an eval_model summary has bpp > 0 and finite PSNR and
+    MS-SSIM; returns them as text."""
+    import math
+    if not res["bpp"] > 0 or not all(math.isfinite(res[k])
+                                     for k in EVAL_KEYS):
+        raise AssertionError(f"{label}: summary {res}")
+    return ", ".join(f"{k} {res[k]:.6f}" for k in EVAL_KEYS)
+
+
+def write_images(root: str, split: str, imgs) -> str:
+    """Float images in [0, 1] as root/split/NNN.png; returns root."""
+    import numpy as np
+    from hesic_tpu_torch.datasets.image_io import write_png
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    for i, img in enumerate(imgs):
+        write_png(os.path.join(root, split, f"{i:03d}.png"),
+                  np.round(np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return root
+
+
+def phase_eval_cli(card: str, tmp: str, kept: dict, mbt_file: str, mbt_x,
+                   plus_file: str) -> dict:
+    """Phase 20 (see the module docstring).  Returns the launches of its
+    device-codec and fast-codec runs."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench, zoo
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.datasets import StereoImageFolder
+    from hesic_tpu_torch.datasets.image_io import read_png
+    from hesic_tpu_torch.geometry import features
+    from hesic_tpu_torch.geometry.homography import warp_perspective
+    from hesic_tpu_torch.models.ar_device import (
+        HESICPlusDeviceCodec, JointAutoregressiveDeviceCodec)
+    from hesic_tpu_torch.models.hesic_fast import writer_id
+    from hesic_tpu_torch.utils import (bench_codecs, codec_cli,
+                                       eval_homography, eval_model,
+                                       update_model)
+
+    t_phase = time.perf_counter()
+    dev = ["--device", DEVICE]
+    where = {"device": DEVICE}
+    hm = bench.rotated_homography()
+    launches = {}
+    test1 = kept["test1"].astype(np.float32) / 255
+    test2 = kept["test2"].astype(np.float32) / 255
+    pair = (test1[:1], test2[:1])
+
+    def add(counts, names, label):
+        for name in names:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"{label}: never launched {name}")
+            launches[name] = launches.get(name, 0) + counts[name]
+
+    # row 1: HESIC through eval_model, real coder and entropy estimate
+    t0 = time.perf_counter()
+    stereo = ["--dataset", kept["stereo"], "--workdir", tmp] + dev
+    args = ["--arch", "hesic", "--checkpoint", kept["hesic"],
+            "--homography-net", kept["homo"]] + stereo
+    build.launch_counts.clear()
+    real = cli(eval_model.main, args)["results"]
+    est = cli(eval_model.main, args + ["--entropy-estimation"])["results"]
+    no_kernel_launched("eval_model hesic")
+    cdc = zoo.create_model("hesic", checkpoint=kept["hesic"],
+                           **where).update()
+    enc = cdc.compress(*pair, hm[None], "c7", tmp)
+    dec = cdc.decompress("c7", tmp)
+    for key in ("y1_hat", "y2_hat"):
+        if not torch.equal(dec[key], enc[key]):
+            raise AssertionError(f"HESICFastCodec.compress: decoded {key} "
+                                 f"differs from the encoder's")
+    print(f"eval_model hesic [{card}]: N{N}/M{M}/K{K}, phase 19's "
+          f"checkpoint and homography net, {TEST_PAIRS} {HW_IMG}x{HW_IMG} "
+          f"pairs: real coder {check_summary('real coder', real)}, encode "
+          f"{real['encoding_time']:.3f} s, decode "
+          f"{real['decoding_time']:.3f} s a pair; entropy estimate "
+          f"{check_summary('estimate', est)} (bpp1 {est['bpp1']:.6f}, "
+          f"bpp2 {est['bpp2']:.6f}); HESICFastCodec.compress/decompress "
+          f"(the reference-layout container) decodes the encoder's "
+          f"latents ({time.perf_counter() - t0:.1f} s)")
+
+    # row 5: update_model's file codes as the checkpoint rebuilt here
+    t0 = time.perf_counter()
+    upd = cli(update_model.main, [kept["hesic"], "--arch", "hesic",
+                                  "--dir", tmp] + dev)
+    cdc.update(force=True)
+    again = zoo.create_model("hesic", checkpoint=upd, **where)
+    want = cdc.compress(*pair, hm[None], "forced", tmp)["strings"]
+    got = again.compress(*pair, hm[None], "updated", tmp)["strings"]
+    if got != want:
+        raise AssertionError("update_model: the rebuilt file codes other "
+                             "container bytes")
+    print(f"update_model [{card}]: {os.path.basename(upd)} loads and codes "
+          f"a test pair to the same {sum(map(len, got))} container bytes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del cdc, again
+    torch.cuda.empty_cache()
+
+    # rows 2 and 3: the device codecs through eval_model
+    mbt_dir = write_images(os.path.join(tmp, "mbt"), "test", mbt_x[:2])
+    for arch, ckpt, data, eyes in (
+            ("hesic-plus", plus_file, kept["stereo"], 2),
+            ("mbt2018", mbt_file, mbt_dir, 1)):
+        t0 = time.perf_counter()
+        build.launch_counts.clear()
+        res = cli(eval_model.main, [
+            "--arch", arch, "--checkpoint", ckpt, "--device-codec",
+            "--dataset", data, "--workdir", tmp] + dev)["results"]
+        counts = dict(build.launch_counts)
+        add(counts, ("pairs_rans_encode", "ar_wavefront"),
+            f"eval_model {arch}")
+        base = zoo.create_model(arch, checkpoint=ckpt, **where)
+        if eyes == 2:
+            dcdc = HESICPlusDeviceCodec(base.model).update()
+            trip_args = (*pair, np.eye(3, dtype=np.float32)[None])
+        else:
+            dcdc = JointAutoregressiveDeviceCodec(base.model).update()
+            trip_args = (mbt_x[:1],)
+        trip, _ = device_round_trips(f"eval {arch} device codec",
+                                     {"one item": (dcdc, trip_args)}, eyes)
+        add(trip, ("pairs_rans_encode", "ar_wavefront"), arch)
+        print(f"eval_model {arch} --device-codec [{card}]: "
+              f"{check_summary(arch, res)}, encode "
+              f"{res['encoding_time']:.3f} s, decode "
+              f"{res['decoding_time']:.3f} s an item; launches {counts} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del base, dcdc
+        torch.cuda.empty_cache()
+
+    # row 4: codec_cli on one PNG with the calibrated mbt2018
+    t0 = time.perf_counter()
+    src = os.path.join(mbt_dir, "test", "000.png")
+    bits = os.path.join(tmp, "mbt.bin")
+    rec_png = os.path.join(tmp, "mbt_rec.png")
+    build.launch_counts.clear()
+    cli(codec_cli.main, ["encode", src, "-o", bits, "--arch", "mbt2018",
+                         "--checkpoint", mbt_file] + dev)
+    with open(bits, "rb") as f:
+        head = f.read(5)
+    if head != b"HTPU" + bytes([writer_id(DEVICE)]):
+        raise AssertionError(f"codec_cli: header {head!r}, not the card's")
+    rec = cli(codec_cli.main, ["decode", bits, "-o", rec_png,
+                               "--checkpoint", mbt_file] + dev)
+    no_kernel_launched("codec_cli")
+    x_hat = rec["x_hat"][0].float().cpu().numpy()
+    if not np.array_equal(read_png(rec_png), np.clip(
+            x_hat * 255 + 0.5, 0, 255).astype(np.uint8)):
+        raise AssertionError("codec_cli: the decoded PNG is not x_hat")
+    bpp = os.path.getsize(bits) * 8 / HW_IMG ** 2
+    print(f"codec_cli mbt2018 [{card}]: {HW_IMG}x{HW_IMG} PNG, writer byte "
+          f"{head[4]}, {os.path.getsize(bits)} bytes ({bpp:.6f} bpp, header "
+          f"included); the decoded PNG is the decoder's x_hat rounded "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # rows 6 and 7: the classical H on textured pairs, then the fast codec
+    t0 = time.perf_counter()
+    left = np.stack([textured(20 + i, HW_IMG)
+                     for i in range(TEXTURE_PAIRS)])
+    right = warp_perspective(
+        torch.from_numpy(left).permute(0, 3, 1, 2),
+        torch.from_numpy(np.tile(hm[None], (TEXTURE_PAIRS, 1, 1))))
+    tex = os.path.join(tmp, "textured")
+    write_images(os.path.join(tex, "test"), "left", left)
+    write_images(os.path.join(tex, "test"), "right",
+                 right.permute(0, 2, 3, 1).numpy())
+    ds = StereoImageFolder(tex, "test", patch_size=HW_IMG, classical_h=True,
+                           h_device=DEVICE, rng=np.random.RandomState(0))
+    t_est = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    est_s = (time.perf_counter() - t_est) / len(ds)
+    errs = [transfer_error(it["h"], hm, HW_IMG) for it in items]
+    if not max(errs) < 1.0:
+        raise AssertionError(f"classical H: transfer errors {errs} px")
+    pts = torch.rand(8, 2, device=DEVICE) * HW_IMG
+    idx = torch.tensor([[0, 1, 2, 3], [4, 4, 4, 4], [5, 5, 6, 7]],
+                       device=DEVICE)
+    score = features.score_hypotheses(pts, pts + 1, torch.ones(
+        8, device=DEVICE), idx)[2].cpu().tolist()
+    if score[1] != -1 or score[2] != -1 or score[0] < 0:
+        raise AssertionError(f"singular hypotheses scored {score}")
+    a = np.stack([it["x1"] for it in items])
+    b = np.stack([it["x2"] for it in items])
+    h_est = np.stack([it["h"] for it in items])
+    fast = zoo.create_model("hesic", checkpoint=kept["hesic"],
+                            dtype=torch.bfloat16, **where).update()
+    build.launch_counts.clear()
+    out = fast.compress_fast(a, b, h_est)
+    dec = fast.decompress_fast(out["blobs"])
+    add(dict(build.launch_counts),
+        ("gmm_freq", "grid_rans_encode", "grid_rans_decode"), "row 7")
+    check_fast_round_trip("textured pairs", fast, a, b, h_est, out, dec)
+    print(f"classical H [{card}]: StereoImageFolder(classical_h=True) on "
+          f"{TEXTURE_PAIRS} textured {HW_IMG}x{HW_IMG} pairs (bench.py's "
+          f"real H): transfer errors {[round(e, 4) for e in errs]} px, "
+          f"{est_s:.3f} s an item with the estimate; singular hypotheses "
+          f"score -1 on the card; HESICFastCodec under the estimates: "
+          f"bpp_real {out['bpp_real']:.6f}, exact round trip "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del fast
+    torch.cuda.empty_cache()
+
+    # row 8: the homography net's evaluation
+    t0 = time.perf_counter()
+    hres = cli(eval_homography.main, [
+        kept["stereo"], "--checkpoint", kept["homo"], "--n",
+        str(TEST_PAIRS)] + dev)
+    if not (hres["flops"] > 0 and np.isfinite(hres["mace"])):
+        raise AssertionError(f"eval_homography: {hres}")
+    print(f"eval_homography [{card}]: MACE {hres['mace']:.4f} px over "
+          f"{hres['n']}, forward {hres['forward_ms']:.4f} ms, "
+          f"{hres['params']} parameters, {hres['flops']} FLOPs a forward "
+          f"(PyTorch's FlopCounterMode) ({time.perf_counter() - t0:.1f} s)")
+
+    # row 9: the traditional-codec harness in a pool of 2 processes
+    t0 = time.perf_counter()
+    res_json = os.path.join(tmp, "jpeg.json")
+    rc = cli(bench_codecs.main, [
+        "jpeg", "--dataset", os.path.join(kept["single"], "test"), "-j",
+        "2", "--output", res_json])
+    with open(res_json) as f:
+        jres = json.load(f)["results"]
+    if rc != 0 or not all(np.isfinite(jres[k]).all() and len(jres[k]) == 1
+                          for k in ("psnr-rgb", "ms-ssim-rgb", "bpp")):
+        raise AssertionError(f"bench_codecs: rc {rc}, {jres}")
+    print(f"bench_codecs jpeg -j 2: bpp {jres['bpp'][0]:.4f}, psnr-rgb "
+          f"{jres['psnr-rgb'][0]:.4f}, ms-ssim-rgb "
+          f"{jres['ms-ssim-rgb'][0]:.6f} over {TEST_PAIRS} images "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 20 [{card}]: took {time.perf_counter() - t_phase:.1f} s; "
           f"launches {launches}")
     return launches
 
@@ -2639,6 +2943,9 @@ def main() -> int:
     from hesic_tpu_torch.bench import card_line
     card = card_line()
     print(f"card: {card}")
+    # phases 19-20's folders and files, removed when the process exits
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -2701,7 +3008,14 @@ def main() -> int:
     phase_hesic_plus_host(card, plus_model, pairs, plus_random_bpp)
     print(f"phases 13-14 (the host AR codecs) took "
           f"{time.perf_counter() - t0:.1f} s")
-    del mbt_model, mbt_x
+    # phase 20 evaluates the calibrated mbt2018 and HESIC+ from files
+    from hesic_tpu_torch.models.codec import JointAutoregressiveCodec
+    from hesic_tpu_torch.models.hesic_plus_codec import HESICPlusCodec
+    mbt_file = os.path.join(work, "mbt2018.pkl")
+    plus_file = os.path.join(work, "hesic_plus.pkl")
+    JointAutoregressiveCodec(mbt_model).update().save(mbt_file)
+    HESICPlusCodec(plus_model).update().save(plus_file)
+    del mbt_model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_priors(card, pairs[0][:PRIOR_B])
@@ -2714,10 +3028,13 @@ def main() -> int:
     phase_stage2(card, cal_model, dsic_model, plus_model, pairs)
     del pairs, plus_model, cal_model, dsic_model
     torch.cuda.empty_cache()
-    cli_launches = phase_train_cli(card)
+    cli_launches, kept = phase_train_cli(card, work)
+    eval_launches = phase_eval_cli(card, work, kept, mbt_file, mbt_x,
+                                   plus_file)
+    del mbt_x
     for counts in (cal_launches, bench_launches, dsic_launches,
                    mbt_launches, plus_cal_launches, cheng_launches,
-                   cli_launches):
+                   cli_launches, eval_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # kernels 4 and 5's errors over every hold: both HESIC+ eyes,

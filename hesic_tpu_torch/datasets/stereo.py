@@ -80,16 +80,16 @@ class StereoImageFolder:
     An item is a dict: x1, x2 (H, W, 3) float32 paired random crops;
     homo_img1/2 (128, 128, 1) normalised grayscale patches; homo_full1
     (256, 256, 1) the whole normalised left view; corners (4, 2) float32
-    patch corners in 256-space; name (with need_file_name)."""
+    patch corners in 256-space; name (with need_file_name); with
+    classical_h, h (3, 3) float32 the crops' classical estimate
+    (geometry/features.py, run on `h_device`), the identity where it
+    fails, as the reference degraded its tuple on a SURF failure."""
 
     def __init__(self, root: str, split: str = "train",
                  patch_size=(256, 256), need_file_name: bool = False,
                  classical_h: bool = False,
-                 rng: Optional[np.random.RandomState] = None):
-        if classical_h:
-            raise NotImplementedError(
-                "classical_h (geometry/features.py) is not ported yet: "
-                "ROADMAP A, the next item after parallel/")
+                 rng: Optional[np.random.RandomState] = None,
+                 h_device="cuda"):
         splitdir = os.path.join(root, split)
         if not os.path.isdir(splitdir):
             raise RuntimeError(f'Invalid directory "{root}"')
@@ -101,6 +101,7 @@ class StereoImageFolder:
             patch_size = (patch_size, patch_size)
         self.patch_size = tuple(patch_size)
         self.need_file_name = need_file_name
+        self.classical_h, self.h_device = classical_h, h_device
         self.rng = rng or np.random.RandomState()
 
     def __len__(self):
@@ -119,6 +120,10 @@ class StereoImageFolder:
         item = {"x1": img1, "x2": img2, "homo_img1": full1[patch],
                 "homo_img2": _homography_full(img2)[patch],
                 "homo_full1": full1, "corners": _corners(x, y)}
+        if self.classical_h:
+            from ..geometry.features import get_h_classical
+            h = get_h_classical(img1, img2, device=self.h_device)
+            item["h"] = np.eye(3, dtype=np.float32) if h is None else h
         if self.need_file_name:
             item["name"] = os.path.basename(lpath)
         return item

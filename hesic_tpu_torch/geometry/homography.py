@@ -17,21 +17,40 @@ import torch
 from .warp import _coords
 
 
-def get_perspective_transform(src: torch.Tensor,
-                              dst: torch.Tensor) -> torch.Tensor:
-    """The homography mapping 4 src points onto 4 dst points, by a DLT
-    solve in float32: src, dst (B, 4, 2) pixel coordinates -> (B, 3, 3)
-    with H[2, 2] = 1."""
+def _dlt_system(src: torch.Tensor, dst: torch.Tensor):
+    """The 8x8 DLT system of 4 point pairs: (a (B, 8, 8), rhs (B, 8,
+    1)), float32."""
     src, dst = src.to(torch.float32), dst.to(torch.float32)
     x, y = src[..., 0], src[..., 1]                  # (B, 4)
     u, v = dst[..., 0], dst[..., 1]
     zeros, ones = torch.zeros_like(x), torch.ones_like(x)
     ax = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], -1)
     ay = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], -1)
-    a = torch.cat([ax, ay], dim=1)                   # (B, 8, 8)
-    rhs = torch.cat([u, v], dim=1)[..., None]        # (B, 8, 1)
-    h8 = torch.linalg.solve(a, rhs)[..., 0]
+    return torch.cat([ax, ay], dim=1), torch.cat([u, v], dim=1)[..., None]
+
+
+def _with_h22(h8: torch.Tensor) -> torch.Tensor:
     return torch.cat([h8, torch.ones_like(h8[:, :1])], -1).reshape(-1, 3, 3)
+
+
+def get_perspective_transform(src: torch.Tensor,
+                              dst: torch.Tensor) -> torch.Tensor:
+    """The homography mapping 4 src points onto 4 dst points, by a DLT
+    solve in float32: src, dst (B, 4, 2) pixel coordinates -> (B, 3, 3)
+    with H[2, 2] = 1.  A singular system raises."""
+    a, rhs = _dlt_system(src, dst)
+    return _with_h22(torch.linalg.solve(a, rhs)[..., 0])
+
+
+def solve_perspective_batch(src: torch.Tensor, dst: torch.Tensor):
+    """get_perspective_transform for many hypotheses at once, without an
+    error check (so without a host sync on the card): -> ((B, 3, 3), ok
+    (B,) bool), ok False where the system is singular or the solve is
+    not finite."""
+    a, rhs = _dlt_system(src, dst)
+    h8, info = torch.linalg.solve_ex(a, rhs, check_errors=False)
+    h = _with_h22(h8[..., 0])
+    return h, (info == 0) & torch.isfinite(h).flatten(1).all(-1)
 
 
 def warp_perspective(src: torch.Tensor, m: torch.Tensor,

@@ -291,9 +291,10 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
                 "enctime": time.perf_counter() - start, "escapes": n_esc}
 
     @torch.no_grad()
-    def decompress(self, strings) -> dict:
+    def decompress(self, strings, shape=None) -> dict:
         """Inverse of compress: {'x_hat' (B, H, W, 3) clipped to [0, 1],
-        'y_hat' (B, hy, wy, M), 'dectime'}."""
+        'y_hat' (B, hy, wy, M), 'dectime'}.  `shape` is the host codecs'
+        argument, taken and not used (the blob's header has the sizes)."""
         start = time.perf_counter()
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
         (b, h_img, w_img, zh, zw), off = self._parse_header(blob)

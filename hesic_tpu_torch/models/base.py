@@ -61,6 +61,16 @@ def _load_weights(model, state: dict) -> None:
     load_params(model, state)
 
 
+def _nhwc_outputs(out):
+    """A forward's dict with every 4-D tensor (B, C, H, W) as (B, H, W,
+    C), nested dicts included."""
+    if isinstance(out, dict):
+        return {k: _nhwc_outputs(v) for k, v in out.items()}
+    if torch.is_tensor(out) and out.dim() == 4:
+        return out.permute(0, 2, 3, 1)
+    return out
+
+
 class CompressionModel:
     """Pairs a model (HESIC, DSIC, HESIC+, mbt2018) with its host coder
     state."""
@@ -145,6 +155,30 @@ class CompressionModel:
             for name in gc_names:
                 self.tables[name] = gc
         return self
+
+    def forward(self, *args, training: bool = False, generator=None):
+        """The model's forward in the JAX codec API's layout: images (B,
+        H, W, 3) and homographies (B, 3, 3) (numpy or tensors) in; every
+        4-D output (x_hat, x1_hat, x2_hat, y_hat, the likelihood maps)
+        out as NHWC, the likelihoods under the model's names.  With
+        ``training=False`` the model runs in eval mode without a
+        gradient; `generator` draws the training noise."""
+        b = next(a.shape[0] for a in args if np.ndim(a) == 4)
+        args = [self._to_device(a) if np.ndim(a) == 4
+                else self._homographies(a, b)[0] for a in args]
+        was_training = self.model.training
+        self.model.train(training)
+        try:
+            with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+                out = self.model(*args, training=training,
+                                 generator=generator)
+        finally:
+            self.model.train(was_training)
+        return _nhwc_outputs(out)
+
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy bottlenecks' quantile loss (the model's)."""
+        return self.model.aux_loss()
 
     def eb_medians(self, name: str) -> np.ndarray:
         """(C,) float32 medians of the named bottleneck (set by update)."""

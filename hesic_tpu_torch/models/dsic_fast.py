@@ -20,7 +20,9 @@ reconstructions, never the coder's conditioning.  DSIC takes no
 homography: ``_homographies`` reads the default None of
 ``compress_fast`` and ``compress_fast_start`` as the identity, and the
 header's ``win``/``xwin`` bytes are what the identity picks, as in the JAX
-package.
+package.  ``compress`` / ``decompress`` / ``decompress_bytes`` are
+DSICCodec's reference-layout container (the class is a DSICCodec first,
+as the JAX one).
 """
 
 from __future__ import annotations
@@ -28,11 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dsic_codec import DSICCodec
 from .hesic_fast import HESICFastCodec, _data_center, _gmm_freq_fast
 
 
-class DSICFastCodec(HESICFastCodec):
-    """DSIC with the fused on-device coder (see HESICFastCodec)."""
+class DSICFastCodec(DSICCodec, HESICFastCodec):
+    """DSIC with the fused on-device coder (see HESICFastCodec); its
+    ``compress``/``decompress`` are DSICCodec's."""
 
     def _homographies(self, h_matrix, b: int):
         if h_matrix is None:

@@ -64,6 +64,12 @@ latents beyond the grid travel exactly as (index, value) corrections;
 constant channels are flagged in a bitmap and coded with degenerate rows;
 each rANS lane codes ``ppl`` positions; z streams use the host coder.
 
+Container API.  As the JAX class, HESICFastCodec is a HESICCodec
+(models/hesic_codec.py): ``compress(x1, x2, h_matrix, output_name,
+output_path)``, ``decompress(output_name, output_path, h_matrix)`` and
+``decompress_bytes`` write and read the reference-layout container over
+the same model and tables, byte for byte what HESICCodec writes.
+
 Not carried over from the JAX codec: the TPU link transport (packed link
 vectors, z nibble packing, sticky word budgets and link buckets, decoder
 size watermarks) and the synchronous fallback they need; of the sticky
@@ -85,7 +91,7 @@ from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
                                 rans_encode_grid_rows)
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
-from .base import CompressionModel, deterministic_backends
+from .hesic_codec import HESICCodec
 
 MM_DEFAULT = 32
 MM_BUCKETS = (4, 8, 16, 32)
@@ -246,15 +252,15 @@ def _check_shape(h_img: int, w_img: int, lanes: int, what: str):
                          f"lanes is not a valid layout")
 
 
-class HESICFastCodec(CompressionModel):
+class HESICFastCodec(HESICCodec):
     """HESIC with the fused on-device coder: ``compress_fast`` /
     ``decompress_fast`` over per-pair v3 containers, the batch container
     (``decompress_fast_batch``) and the pipelined batch encode
-    (``compress_fast_start`` / ``compress_fast_finish``)."""
+    (``compress_fast_start`` / ``compress_fast_finish``); ``compress`` /
+    ``decompress`` keep HESICCodec's reference-layout container."""
 
     def __init__(self, model, mm: int = MM_DEFAULT, codec_batch: int = 8):
-        super().__init__(model)
-        deterministic_backends()
+        super().__init__(model)    # sets the determinism policy
         self.mm = mm
         self.codec_batch = codec_batch
         # the grid widths (mm1, mm2) the last finished encode picked: the

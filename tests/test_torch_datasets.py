@@ -228,8 +228,9 @@ def test_synthetic_dataset_matches_jax(tmp_path, synthetic):
 
 
 def test_classical_h_and_missing_dirs_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tds.StereoImageFolder(str(tmp_path), classical_h=True)
+    with pytest.raises(RuntimeError):      # classical_h is ported now
+        tds.StereoImageFolder(str(tmp_path), classical_h=True,
+                              h_device="cpu")
     with pytest.raises(RuntimeError):
         tds.StereoImageFolder(str(tmp_path), "train")
     for eye, name in (("left", "a.png"), ("right", "b.png")):
