@@ -273,9 +273,26 @@ and prints no result):
      PyTorch's FLOP count); utils.bench_codecs jpeg -j 2 on 2 images
      (PSNR and MS-SSIM finite).  Prints each row's numbers and the
      phase's seconds beside the card;
- 21. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8, 10, 11, 12, 17, 19 and 20's round trips and phases 9-12's timed
-     loops; kernels 1-3's times and bounds at batch 64 on the widest
+ 21. runs hesic_tpu_torch.parallel at a world of one (an NCCL process
+     group through a file store in the script's temporary directory, a
+     (1, 1) mesh): __graft_entry__.py's dry run through the port (one
+     HESIC N=8/M=16/K=2 step of make_parallel_train_step at 64x64, then
+     sharded_codec_roundtrip of the tiny HESIC, DSIC and HESIC+ codecs,
+     each asserting its split round trip bit-exact and its container
+     equal to the one-process run's), a line each as the dry run prints
+     them; HESIC N=128/M=192/K=5 bf16 at bench.py's train point (512x512,
+     batch 8), 2 steps of make_parallel_train_step against 2 of
+     make_train_step from the same seeded weights, noise seed and
+     determinism policy: every loss and every parameter bit-equal, ms a
+     step of each printed; and phase 9's codec (the calibrated HESIC,
+     batch 64, mm 16) split by split_compress_fast: for the identity and
+     the real H its container must be byte-equal to phase 9's container
+     of the same pairs, and split_decompress_fast_batch must give the
+     one-process decode's outputs bit for bit.  Kernels 1-5 must launch
+     in the phase; prints its seconds;
+ 22. prints one JSON line with each kernel's numbers (launches: phases 5,
+     6, 8, 10, 11, 12, 17, 19, 20 and 21's round trips and phases 9-12's
+     timed loops; kernels 1-3's times and bounds at batch 64 on the widest
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
      included), then the device line {"ok": true, "device": {...}}
@@ -1422,8 +1439,8 @@ def phase_bench(model, card: str, b: int = BENCH_B,
     point on the calibrated `model` (HESIC or DSIC): batch `b`, mm 16, a
     pool of BENCH_POOL batches cycled over `n_batches`, for each
     homography of `kinds`, modes 2 and 0.  Returns the timed loops'
-    launches and the grid widths (mm1 and mm2) their containers
-    picked."""
+    launches, the grid widths (mm1 and mm2) their containers picked, and
+    {kind: the synchronous batch container of pool batch 1}."""
     import numpy as np
     import torch
     from hesic_tpu_torch import bench
@@ -1435,13 +1452,14 @@ def phase_bench(model, card: str, b: int = BENCH_B,
     pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, b, HW_IMG,
                            DEVICE)
     batches = [pool[i % BENCH_POOL] for i in range(n_batches)]
-    launches, grids = {}, set()
+    launches, grids, blobs = {}, set(), {}
     for kind in kinds:
         h = bench.homographies(kind, b)
         what = f"{kind} H"
         bench.warm_up(codec, pool, h)
         bench.check_pipelined_bytes(codec, *pool[0], h)
         blob = codec.compress_fast(*pool[1], h, batch_container=True)["blob"]
+        blobs[kind] = blob
         print(f"bench {name} [{what}]: "
               f"{check_no_wait(codec, *pool[0], h, blob)} behind a device "
               f"sleep")
@@ -1473,7 +1491,7 @@ def phase_bench(model, card: str, b: int = BENCH_B,
                   f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
                   f" GiB; launches {counts}")
             del loop
-    return launches, grids
+    return launches, grids, blobs
 
 
 def phase_dsic_path() -> tuple:
@@ -1564,8 +1582,8 @@ def phase_dsic(card: str) -> tuple:
           f"steps {first:.4f}, of the last 10 {last:.4f}; bpp (training "
           f"estimate) {bpps[0]:.4f} -> {bpps[-1]:.4f}")
     torch.cuda.empty_cache()
-    bench_launches, grids = phase_bench(model, card, DS_BENCH_B,
-                                        DS_BENCH_BATCHES, ("identity",))
+    bench_launches, grids, _ = phase_bench(model, card, DS_BENCH_B,
+                                           DS_BENCH_BATCHES, ("identity",))
     for name, n in bench_launches.items():
         launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
@@ -2934,6 +2952,141 @@ def phase_eval_cli(card: str, tmp: str, kept: dict, mbt_file: str, mbt_x,
     return launches
 
 
+PAR_TRAIN_STEPS = 2
+
+
+def parallel_train_bits(card: str, mesh) -> None:
+    """HESIC at full width in bf16 at bench.py's train point (512x512,
+    batch 8): PAR_TRAIN_STEPS steps of make_parallel_train_step on the
+    mesh against as many of make_train_step, from the same seeded
+    weights, the same noise seed and the codecs' determinism policy:
+    every loss and every parameter bit-equal."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.models.base import deterministic_backends
+    from hesic_tpu_torch.models.hesic import HESIC
+    from hesic_tpu_torch.parallel import make_parallel_train_step
+    from hesic_tpu_torch.training import (make_loss_fn, make_optimizer,
+                                          make_train_step)
+    from hesic_tpu_torch.training.recipe import train_batch
+    deterministic_backends()
+    batch = train_batch(np.random.RandomState(0), TRAIN_B, HW_IMG, DEVICE)
+    runs = {}
+    for name in ("plain", "parallel"):
+        model = HESIC(N=N, M=M, K=K, dtype=torch.bfloat16, device=DEVICE,
+                      seed=0)
+        opt = make_optimizer(model, 1e-4, 1e-3)
+        if name == "plain":
+            step = make_train_step(model, opt, make_loss_fn(1e-2))
+        else:
+            step = make_parallel_train_step(model, opt, make_loss_fn(1e-2),
+                                            mesh)
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        metrics, ms = [], []
+        for _ in range(PAR_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            metrics.append(step(batch, gen))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = (metrics, {n: p.detach().clone()
+                                for n, p in model.named_parameters()}, ms)
+        del model, opt, step
+    (m0, p0, ms0), (m1, p1, ms1) = runs["plain"], runs["parallel"]
+    for i, (a, b) in enumerate(zip(m0, m1)):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"parallel train step {i}: {k} "
+                                     f"{float(b[k])} != {float(a[k])}")
+    differ = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+    if differ:
+        raise AssertionError(f"parallel train: {len(differ)} parameters "
+                             f"differ from make_train_step's, e.g. "
+                             f"{differ[:3]}")
+    print(f"parallel train [{card}]: HESIC N{N}/M{M}/K{K} bf16 "
+          f"{HW_IMG}x{HW_IMG} batch {TRAIN_B} on mesh {tuple(mesh.shape)}: "
+          f"{PAR_TRAIN_STEPS} steps bit-equal to make_train_step (losses "
+          f"{[float(m['loss']) for m in m1]}, {len(p1)} parameters); "
+          f"ms a step (each synchronised) {[round(t, 2) for t in ms1]}, "
+          f"make_train_step's {[round(t, 2) for t in ms0]}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def parallel_codec_bytes(card: str, mesh, model, blobs: dict) -> None:
+    """Phase 9's codec (the calibrated HESIC, batch containers of
+    BENCH_B pairs, mm 16) split over the mesh's data axis: for each
+    homography, the split encode of phase 9's pool batch 1 must be byte
+    for byte phase 9's container, and the split decode must give the
+    one-process decode's outputs bit for bit."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch import bench
+    from hesic_tpu_torch.parallel import (split_compress_fast,
+                                          split_decompress_fast_batch)
+    codec = bench.make_codec(model, 16, BENCH_B)
+    pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, BENCH_B,
+                           HW_IMG, DEVICE)
+    for kind, want in blobs.items():
+        h = bench.homographies(kind, BENCH_B)
+        sync()
+        t0 = time.perf_counter()
+        out = split_compress_fast(codec, mesh, *pool[1], h)
+        rec = split_decompress_fast_batch(codec, mesh, out["blob"])
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if out["blob"] != want:
+            raise AssertionError(
+                f"split codec [{kind} H]: container of {len(out['blob'])} "
+                f"B differs from phase 9's ({len(want)} B)")
+        ref = codec.decompress_fast_batch(want)
+        for k, t in rec.items():
+            if not torch.equal(t, ref[k]):
+                raise AssertionError(f"split codec [{kind} H]: {k} differs "
+                                     f"from the one-process decode")
+        print(f"parallel codec [{card}] [{kind} H]: {BENCH_B} pairs split "
+              f"over mesh {tuple(mesh.shape)}: container {len(want)} B "
+              f"byte-equal to phase 9's, bpp_real {out['bpp_real']:.6f}, "
+              f"decode bit-equal to one process; {ms:.1f} ms encode and "
+              f"decode")
+    del codec, pool
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(card: str, model, blobs: dict, tmp: str) -> dict:
+    """Phase 21: hesic_tpu_torch.parallel on the card at a world of one
+    (NCCL through a file store in `tmp`): the dry run's lines, the
+    full-width train step bit-equal to make_train_step, phase 9's codec
+    split byte-equal to phase 9.  Returns the phase's kernel launches."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.parallel import make_mesh
+    from hesic_tpu_torch.parallel.dryrun import dry_run
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'pg_store')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1))
+        build.launch_counts.clear()
+        dry_run(mesh, mesh)
+        parallel_train_bits(card, mesh)
+        parallel_codec_bytes(card, mesh, model, blobs)
+        launches = dict(build.launch_counts)
+    finally:
+        dist.destroy_process_group()
+    for name in ("gmm_freq", "grid_rans_encode", "grid_rans_decode",
+                 "pairs_rans_encode", "ar_wavefront"):
+        if not launches.get(name):
+            raise AssertionError(f"phase 21 never launched {name}")
+    print(f"phase 21 (parallel, torch {torch.__version__}, NCCL "
+          f"{torch.cuda.nccl.version()}) took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2994,7 +3147,7 @@ def main() -> int:
     phase_train(card)
     cal_launches, cal_model = phase_calibrate(random_bpp)
     torch.cuda.empty_cache()
-    bench_launches, grids = phase_bench(cal_model, card)
+    bench_launches, grids, bench_blobs = phase_bench(cal_model, card)
     torch.cuda.empty_cache()
     dsic_launches, _, dsic_model = phase_dsic(card)
     torch.cuda.empty_cache()
@@ -3026,15 +3179,17 @@ def main() -> int:
     cheng_launches, cheng_held = phase_cheng(card, pairs[0])
     torch.cuda.empty_cache()
     phase_stage2(card, cal_model, dsic_model, plus_model, pairs)
-    del pairs, plus_model, cal_model, dsic_model
+    del pairs, plus_model, dsic_model
     torch.cuda.empty_cache()
     cli_launches, kept = phase_train_cli(card, work)
     eval_launches = phase_eval_cli(card, work, kept, mbt_file, mbt_x,
                                    plus_file)
     del mbt_x
+    par_launches = phase_parallel(card, cal_model, bench_blobs, work)
+    del cal_model
     for counts in (cal_launches, bench_launches, dsic_launches,
                    mbt_launches, plus_cal_launches, cheng_launches,
-                   cli_launches, eval_launches):
+                   cli_launches, eval_launches, par_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # kernels 4 and 5's errors over every hold: both HESIC+ eyes,

@@ -21,6 +21,20 @@ class CdfTables:
     cdf_length: np.ndarray     # (num_cdfs,) int32
     offset: np.ndarray         # (num_cdfs,) int32
 
+    @property
+    def num_cdfs(self) -> int:
+        return self.quantized_cdf.shape[0]
+
+    def state_dict(self) -> dict:
+        return {"quantized_cdf": self.quantized_cdf,
+                "cdf_length": self.cdf_length, "offset": self.offset}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "CdfTables":
+        return cls(np.asarray(d["quantized_cdf"], np.int32),
+                   np.asarray(d["cdf_length"], np.int32),
+                   np.asarray(d["offset"], np.int32))
+
 
 def tables_from_pmf(pmf, tail_mass, pmf_length, offset,
                     precision: int = 16) -> CdfTables:

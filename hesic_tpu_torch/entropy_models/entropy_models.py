@@ -11,8 +11,9 @@ package's formulation.  ``GaussianConditional`` is the single Gaussian
 over the y latents of the autoregressive families (mbt2018, HESIC+).
 
 ``gmm_pmf`` evaluates the mixture's PMF on a symbol grid, the
-reference-layout codecs' per-pixel CDF rows.  The Gaussian conditional's
-host side: the scale table
+reference-layout codecs' per-pixel CDF rows; ``gmm_pmf_edges`` the same
+PMF from S+1 shared CDF edges instead of 2S evaluations.  The Gaussian
+conditional's host side: the scale table
 (``get_scale_table``, float64 numpy), the scale-table indexes of a
 scale tensor (``build_indexes``) and the per-scale PMFs the y CDF tables
 are quantized from (``gaussian_pmf_data``, evaluated on the CPU in
@@ -131,6 +132,30 @@ def gmm_pmf(samples, scales, means, weights, K: int,
     return pmf
 
 
+def gmm_pmf_edges(samples, scales, means, weights, K: int,
+                  scale_bound: float = SCALE_BOUND) -> torch.Tensor:
+    """``gmm_pmf`` by CDF edge differences, as the JAX package's
+    ``gmm_pmf_edges``: consecutive bins share an edge, so the S+1 edges
+    s - 0.5 (and the last + 0.5) take S+1 cumulative evaluations where
+    gmm_pmf takes 2S.  The same PMF up to float32 rounding."""
+    m = scales.shape[-1] // K
+    s = torch.as_tensor(samples, dtype=torch.float32, device=scales.device)
+    edges = torch.cat([s - 0.5, s[-1:] + 0.5])    # (S+1,)
+
+    def slab(t):                                   # (..., M, K, 1)
+        t = t.float()
+        return t.reshape(*t.shape[:-1], K, m).transpose(-1, -2)[..., None]
+
+    mu, w = slab(means), slab(weights)
+    sc = torch.clamp_min(slab(scales), scale_bound)
+    cdf = standardized_cumulative((edges - mu) / sc)   # (..., M, K, S+1)
+    terms = (cdf[..., 1:] - cdf[..., :-1]) * w
+    pmf = terms[..., 0, :]
+    for k in range(1, K):
+        pmf = pmf + terms[..., k, :]
+    return pmf
+
+
 def gaussian_pmf_data(scale_table, tail_mass: float = 1e-9):
     """Per-scale PMFs over each scale's centred support [-c, c], c =
     ceil(scale * -quantile(tail_mass / 2)), for the y CDF tables: numpy
@@ -219,9 +244,11 @@ class EntropyBottleneck(nn.Module):
         """x: (B, C, H, W) -> (x_hat, likelihoods), both (B, C, H, W).
         Training adds U(-0.5, 0.5) noise drawn from `generator`; eval
         rounds about the medians.  The values are laid out (C, 1, N) with
-        N in (h, w, b) order, as the JAX package lays them out."""
+        N in (h, w, b) order, as the JAX package lays them out, and are
+        contiguous, so the noise is drawn in that order whatever h and w
+        (at 1x1 the reshape alone would give a batch-major view)."""
         b, c, h, w = x.shape
-        values = x.permute(1, 2, 3, 0).reshape(c, 1, -1)
+        values = x.permute(1, 2, 3, 0).reshape(c, 1, -1).contiguous()
         if training:
             values = quantize(values, "noise", generator=generator)
         else:

@@ -1,8 +1,10 @@
 """Generalized Divisive Normalization, NCHW (hesic_tpu/layers/gdn.py).
 
 y[i] = x[i] / sqrt(beta[i] + sum_j gamma[i, j] * x[j]^2) as a 1x1 channel
-mix; ``inverse=True`` multiplies by the sqrt (IGDN).  gamma keeps torch's
-(out, in) orientation.  Parameters live in sqrt-space (nonneg_apply).
+mix; ``inverse=True`` multiplies by the sqrt (IGDN).  ``GDN1`` is the
+simplified form, y[i] = x[i] / (beta[i] + sum_j gamma[i, j] * |x[j]|),
+with no square root.  gamma keeps torch's (out, in) orientation.
+Parameters live in sqrt-space (nonneg_apply).
 """
 
 from __future__ import annotations
@@ -32,3 +34,17 @@ class GDN(nn.Module):
         if self.inverse:
             return x * torch.sqrt(norm)
         return x * torch.rsqrt(norm)
+
+
+class GDN1(GDN):
+    """Simplified GDN: |x| in place of x^2 and no square root;
+    ``inverse=True`` multiplies by the norm instead of dividing."""
+
+    def forward(self, x):
+        d = self.dtype or x.dtype
+        beta = nonneg_apply(self.beta, self.beta_min).to(d)
+        gamma = nonneg_apply(self.gamma).to(d)
+        norm = F.conv2d(torch.abs(x).to(d), gamma[:, :, None, None], beta)
+        if not self.inverse:
+            norm = 1.0 / norm
+        return x * norm

@@ -399,6 +399,19 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         b, h_img, w_img = self._check_size(x1)
         h, h_np = self._homographies(h_matrix, b)
         y1, y2, z1_sym, z2_sym = self.transforms_enc(x1, x2, h)
+        return self._compress_latents(y1, y2, z1_sym, z2_sym, h, h_np,
+                                      (h_img, w_img), start)
+
+    @torch.no_grad()
+    def _compress_latents(self, y1, y2, z1_sym, z2_sym, h, h_np, size,
+                          start: float) -> dict:
+        """compress after the transforms: both eyes' level scans over the
+        whole batch, kernel 4 once per eye, and the blob (the split encode
+        of parallel/codec.py gathers the transforms' outputs of its ranks
+        and calls this on every rank).  `size` is (H, W) of the images;
+        `start` the perf_counter time enctime counts from."""
+        b = y1.shape[0]
+        h_img, w_img = size
         eye1, eye2, _ = self._chain(z1_sym, z2_sym, _nhwc(y1), _nhwc(y2),
                                     None, None, None, None, h, teacher=True)
         valid = self._valid(b, h_img, w_img)

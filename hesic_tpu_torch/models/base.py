@@ -41,8 +41,6 @@ from ..entropy_models import (CdfTables, compress_with_indexes,
 from ..utils.persist import load_params, params_of, read_pickle, \
     write_pickle
 
-_TABLE_KEYS = ("quantized_cdf", "cdf_length", "offset")
-
 
 def deterministic_backends():
     """The codec's determinism policy: deterministic cuDNN algorithms
@@ -195,8 +193,7 @@ class CompressionModel:
         return {"module_class": type(self.model).__name__,
                 "config": self.config(), "layout": "torch",
                 "params": params_of(self.model),
-                "tables": {k: {f: getattr(v, f) for f in _TABLE_KEYS}
-                           for k, v in self.tables.items()},
+                "tables": {k: v.state_dict() for k, v in self.tables.items()},
                 "scale_table": self.scale_table}
 
     def save(self, path: str) -> None:
@@ -211,8 +208,7 @@ class CompressionModel:
         return self
 
     def _set_tables(self, tables, scale_table) -> None:
-        self.tables = {k: CdfTables(*(np.asarray(v[f], np.int32)
-                                      for f in _TABLE_KEYS))
+        self.tables = {k: CdfTables.from_state_dict(v)
                        for k, v in (tables or {}).items()}
         self.scale_table = (None if scale_table is None
                             else np.asarray(scale_table))

@@ -398,26 +398,37 @@ class HESICFastCodec(HESICCodec):
         return (y1_hat, y2_hat, z1_sym.to(torch.int32),
                 z2_sym.to(torch.int32), dc1, dc2, sp1, sp2)
 
-    def _encode_device(self, x1, x2, h_matrix, mm=None) -> dict:
+    def _encode_device(self, x1, x2, h_matrix, mm=None, warp=None,
+                       agree_spreads=None) -> dict:
         """The encoder's device half, dispatched: transforms, cond1 and
         cond2, the two stream encodes (kernel 2 once per eye at the
         guaranteed word bound, so no lane can overflow it), the words'
         compaction, and the copies of what the host half reads.  With
         `mm` None the spreads are read first (one host sync) to pick the
         grid widths; with `mm` = (mm1, mm2) nothing waits for the device.
-        Returns the handle compress_fast_finish reads."""
+        The split encode (parallel/codec.py) passes the batch's choices
+        made from every rank's pairs: `warp` = (win, xwin), and
+        `agree_spreads`, which maps the (2,) spreads to the batch's before
+        the grids are picked.  Returns the handle compress_fast_finish
+        reads."""
         t0 = time.perf_counter()
         with record_function("enc/dispatch-transforms"):
             x1, x2 = self._to_device(x1), self._to_device(x2)
             b, _, h_img, w_img = x1.shape
             h, h_np = self._homographies(h_matrix, b)
-            win = pick_warp_win(h_np, h_img, w_img)
-            xw = pick_warp_xwin(h_np, h_img, w_img)
+            if warp is None:
+                warp = (pick_warp_win(h_np, h_img, w_img),
+                        pick_warp_xwin(h_np, h_img, w_img))
+            win, xw = warp
             (y1_hat, y2_hat, z1_sym, z2_sym, dc1, dc2, sp1,
              sp2) = self.transforms_enc(x1, x2, h, win)
         if mm is None:
             with record_function("enc/spread-sync"):
-                sp = torch.stack([sp1, sp2]).tolist()
+                sp = torch.stack([sp1, sp2])
+                if agree_spreads is not None:
+                    sp = agree_spreads(sp)
+                    sp1, sp2 = sp[0], sp[1]
+                sp = sp.tolist()
             mm = (pick_mm(sp[0], self.mm), pick_mm(sp[1], self.mm))
         mm1, mm2 = mm
         with record_function("enc/dispatch-streams"):
@@ -492,9 +503,20 @@ class HESICFastCodec(HESICCodec):
         return bytes(out)
 
     def _finish(self, handle, batch_container: bool) -> dict:
-        """The encoder's host half: wait for the handle's copies, fetch
-        the words sized from the counts, collect the outliers, code the z
-        strings and assemble the containers."""
+        """The encoder's host half: the host pieces (_host_pieces), then
+        the z strings and the containers (_containers)."""
+        pieces = self._host_pieces(handle)
+        out = self._containers(handle, pieces, batch_container)
+        out["enctime"] = time.perf_counter() - handle["t0"]
+        out["outliers"] = pieces["outlier_counts"]
+        return out
+
+    def _host_pieces(self, handle) -> dict:
+        """Wait for the handle's copies, fetch the words sized from the
+        counts and collect the outliers: the per-pair pieces of the
+        containers (z symbols, outlier records, dead bitmaps, centres,
+        each eye's words, counts and states), in pair order, and the
+        eyes' outlier counts."""
         b = len(handle["y"][0])
         ls, m = handle["lanes"], self.model.M
         with record_function("enc/fetch-block"):
@@ -528,11 +550,9 @@ class HESICFastCodec(HESICCodec):
             "centres": (dc1.reshape(b, m), dc2.reshape(b, m)),
             "streams": ((flat1, c1, st1.reshape(b, ls).astype(np.uint32)),
                         (flat2, c2, st2.reshape(b, ls).astype(np.uint32))),
+            "outlier_counts": (int(over1.sum()), int(over2.sum())),
         }
-        out = self._containers(handle, pieces, batch_container)
-        out["enctime"] = time.perf_counter() - handle["t0"]
-        out["outliers"] = (int(over1.sum()), int(over2.sum()))
-        return out
+        return pieces
 
     def _containers(self, handle, p: dict, batch_container: bool) -> dict:
         """Containers from the host pieces: one per pair (format v3), or
@@ -843,13 +863,14 @@ class HESICFastCodec(HESICCodec):
         return out
 
     @torch.no_grad()
-    def decompress_fast_batch(self, blob: bytes) -> dict:
-        """Decode a batch container (compress_fast(batch_container=True)).
-        The z strings decode in two native calls; counts, states, words,
-        z symbols, centres, bitmaps and homographies go up in one pinned
-        upload; the cap-major word buffers are rebuilt on the device.
-        Only dispatches: ``dectime`` is the dispatch time, and the caller
-        synchronises when it needs the results."""
+    def decompress_fast_batch(self, blob: bytes, pairs: slice = None) -> dict:
+        """Decode a batch container (compress_fast(batch_container=True)),
+        or only its `pairs` (a slice of the batch, as a rank of the split
+        decode takes).  The z strings decode in two native calls; counts,
+        states, words, z symbols, centres, bitmaps and homographies go up
+        in one pinned upload; the cap-major word buffers are rebuilt on
+        the device.  Only dispatches: ``dectime`` is the dispatch time,
+        and the caller synchronises when it needs the results."""
         start = time.perf_counter()
         m = self.model.M
         with record_function("dec/parse"):
@@ -889,6 +910,22 @@ class HESICFastCodec(HESICCodec):
                                 st.reshape(b, lanes)))
             _check_end(blob, off, "batch container")
             _check_shape(h_img, w_img, lanes, "batch container")
+            cen, h_np = cen.reshape(2, b, m), h_np.reshape(b, 3, 3)
+            if pairs is not None:
+                lo, hi, stride = pairs.indices(b)
+                if stride != 1 or hi <= lo:
+                    raise ValueError(f"pairs must be a non-empty contiguous "
+                                     f"slice of the {b} pairs")
+                ext1, ext2, out1, out2 = (v[lo:hi] for v in (ext1, ext2,
+                                                             out1, out2))
+                dead1, dead2 = dead1[lo:hi], dead2[lo:hi]
+                cen, h_np = cen[:, lo:hi], h_np[lo:hi]
+                sel = []
+                for flat, c, st in streams:
+                    ends = np.concatenate([[0], np.cumsum(c.sum(axis=1))])
+                    sel.append((flat[ends[lo]:ends[hi]], c[lo:hi],
+                                st[lo:hi]))
+                streams, b = sel, hi - lo
         y_shape = (h_img // 16, w_img // 16)
         z_shape = (y_shape[0] // 4, y_shape[1] // 4)
         with record_function("dec/z-rans"):
@@ -898,8 +935,7 @@ class HESICFastCodec(HESICCodec):
                                         z_shape)
         with record_function("dec/words-rebuild"):
             z1_sym, z2_sym, h, cen_t, dead_t, streams = self._upload_decode(
-                streams, (z1, z2), cen.reshape(2, b, m),
-                np.stack([dead1, dead2]), h_np.reshape(b, 3, 3))
+                streams, (z1, z2), cen, np.stack([dead1, dead2]), h_np)
             corr = (self._corr_map(out1, y_shape),
                     self._corr_map(out2, y_shape))
         with record_function("dec/dispatch"):

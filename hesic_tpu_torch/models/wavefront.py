@@ -357,6 +357,14 @@ def stage_plan(m: int, h1: int, h2: int) -> dict:
 HOIST_PLAN = StagePlan(32, 0, 192)
 
 
+def hoist_plan(k: int) -> tuple:
+    """(tile width, k-step) of the hoisted product over k = P + Q rows:
+    HOIST_PLAN's, with the k-step cut to k where k is smaller (the
+    kernel takes a k-step of at most its one chunk; at the JAX dry run's
+    HESIC+ N=8/M=16, k is 32 and 48)."""
+    return HOIST_PLAN.bn, min(HOIST_PLAN.kt, k)
+
+
 def stage_blocks(plan: dict, shapes: dict, rows: int) -> dict:
     """Blocks of each stage launch on a level of `rows` compacted rows."""
     return {name: (-(-rows // ROW_TILE)) * (-(-shapes[name][1] // p.bn))
@@ -409,7 +417,7 @@ def hoisted_base_cuda(pk: PackedArWeights, pre, post) -> torch.Tensor:
         pre.data_ptr(), 0 if post is None else post.data_ptr(),
         pk.w0_pp.data_ptr(), pk.b0.data_ptr(),
         base.data_ptr(), b * hy * wy, p_dim, pk.q_dim, h1,
-        _plan_arg((HOIST_PLAN.bn, HOIST_PLAN.kt)),
+        _plan_arg(hoist_plan(p_dim + pk.q_dim)),
         torch.cuda.current_stream(pre.device).cuda_stream)
     build.check_status(rc, "ar_wavefront hoist", "P, Q and H1 multiples "
                        "of 4, P + Q of 16")

@@ -22,10 +22,10 @@ from typing import Optional
 from ..models.codec import (FactorizedPriorCodec, JointAutoregressiveCodec,
                             MeanScaleHyperpriorCodec, ScaleHyperpriorCodec)
 from ..models.dsic import DSIC, DSICPlus
-from ..models.dsic_codec import DSICPlusCodec
+from ..models.dsic_codec import DSICCodec, DSICPlusCodec
 from ..models.dsic_fast import DSICFastCodec
 from ..models.hesic import HESIC, HESICTogether
-from ..models.hesic_codec import HESICTogetherCodec
+from ..models.hesic_codec import HESICCodec, HESICTogetherCodec
 from ..models.hesic_fast import HESICFastCodec
 from ..models.hesic_plus import HESICPlus, HESICPlusTogether
 from ..models.hesic_plus_codec import HESICPlusCodec, HESICPlusTogetherCodec
@@ -82,6 +82,12 @@ _WITH_HOMOGRAPHY = {"hesic", "hesic-together", "hesic-plus",
                     "hesic-plus-together"}
 
 models = model_architectures  # reference-compatible alias
+
+# CompressAI's (name, quality, metric) -> URL table.  The port fetches
+# nothing: pretrained checkpoints come from the zoo cache only, so the
+# table stays empty and no code reads it.
+model_urls: dict = {}
+
 
 def zoo_cache_dir() -> str:
     """The local pretrained-checkpoint cache ($HESIC_ZOO_DIR, else the
