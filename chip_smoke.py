@@ -49,6 +49,11 @@ and prints no result):
      with its twin within HOIST_TOL; times kernel 5's pass, its hoisted
      product, and one level's four products as torch.matmul (a
      yardstick);
+     Then C13's functions on the card (phase_c13_routes): the
+     interleaved coder through kernels 2 and 3 bit-equal to its twin and
+     decoding back; wavefront_encode -> wavefront_decode (kernels 5 and
+     4) bit-exact on a tiny level scan; quantize_pmf_device's rows equal
+     to the CPU's;
   5. drives the HESIC fast path: HESIC N=128/M=192/K=5 (bf16 transforms,
      seeded random weights) through HESICFastCodec.compress_fast ->
      decompress_fast on 8 smooth 512x512 pairs, with the identity and a
@@ -75,8 +80,11 @@ and prints no result):
      per level);
   7. trains HESIC N=128/M=192/K=5 at bench.py's train point (512x512,
      batch 8, lambda 1e-2, Adam 1e-4 main / 1e-3 aux), in bf16 and in
-     f32: one warm-up step, then 12 timed steps; prints ms a step, pairs/s
-     and peak memory beside the card's name and power limit; raises on a
+     f32: one warm-up step, whose FLOPs torch's FlopCounterMode counts,
+     then 12 timed steps; prints ms a step, pairs/s, FLOPs a step,
+     TFLOP/s, mfu_pct_bf16 (of bench.PEAK_TFLOPS, the H100 SXM5's dense
+     bf16 rate) and peak memory beside the card's name and power limit;
+     raises on a
      non-finite loss or gradient and unless both parameter groups moved.
      It also runs the training warp's backward under
      torch.use_deterministic_algorithms(True), which must not raise and
@@ -110,8 +118,12 @@ and prints no result):
      until the sleep ends, and passes only if a profiler audit of it
      finds no waiting CUDA call and no copy to or from pageable host
      memory.  Prints pairs/s, bpp_real, the grids, peak memory and the
-     card.  A grid the loops picked that phase 3 did not hold at batch 64
-     is held then;
+     card.  After each homography's loops, outside them and their launch
+     checks, the codec's device_flops at the windows the loops ran at:
+     FLOPs a pair, TFLOP/s and mfu_pct_bf16 at mode 2's pairs/s
+     (bench.mfu_fields, which raises on a share above 100%), and the
+     per-program counts once.  A grid the loops picked that phase 3 did
+     not hold at batch 64 is held then;
  10. drives DSIC at bench.py's DSIC point: DSIC N=128/M=192/F=21/C=32/
      K=5 (bf16 transforms, the disparity-folded 3-D branch, seeded random
      weights) through DSICFastCodec on phase 5's 8 pairs, per-pair and
@@ -127,6 +139,7 @@ and prints no result):
      at batch 32, 4 timed batches, identity H (DSIC ignores it), in
      modes 2 and 0, with phase 9's checks; then holds kernels 1-3 at batch
      32 on every grid those loops picked (bit-equal, timed, with bounds);
+     phase 9's FLOP count and MFU share come with its loops;
  11. drives mbt2018 at bench.py's ar-device point: N=192/M=192 float32
      (seeded random weights) through JointAutoregressiveDeviceCodec on 11
      smooth 512x512 images (phase 6's first eyes; mm 16, 8 groups) and
@@ -152,7 +165,12 @@ and prints no result):
      6's pairs (identity H), whose bpp_real must be below phase 6's
      random-weights one, then runs phase 11's bench loop on it (batch
      11, 4 timed batches, modes 1 and 0, the same checks; kernel 4 once
-     per eye);
+     per eye), then, outside the loops, device_flops at batch 11: FLOPs
+     a pair, TFLOP/s and mfu_pct_bf16 at mode 1's pairs/s, and the
+     per-program counts.  Then the FLOP counts' cross-check: device_flops
+     of a tiny HESIC fast codec (N16/M24/K2) and a tiny HESIC+ device
+     codec (N16/M32: kernel 5 takes M in multiples of 16), 64x64, one
+     seed, on the CPU and on the card, must be equal program by program;
  13. drives phase 11's calibrated mbt2018 through the host AR codec
      (JointAutoregressiveCodec: the transforms on the card, the
      raster-causal recursion in the native host coder, one thread an
@@ -291,8 +309,9 @@ and prints no result):
      one-process decode's outputs bit for bit.  Kernels 1-5 must launch
      in the phase; prints its seconds;
  22. prints one JSON line with each kernel's numbers (launches: phases 5,
-     6, 8, 10, 11, 12, 17, 19, 20 and 21's round trips and phases 9-12's
-     timed loops; kernels 1-3's times and bounds at batch 64 on the widest
+     6, 8, 10, 11, 12, 17, 19, 20 and 21's round trips, phases 9-12's
+     timed loops and the FLOP counts of phases 9, 10 and 12 and the
+     cross-check; kernels 1-3's times and bounds at batch 64 on the widest
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
      included), then the device line {"ok": true, "device": {...}}
@@ -1213,6 +1232,8 @@ def phase_train(card: str) -> None:
     in bf16 and in f32; one warm-up step, then TRAIN_STEPS timed."""
     import numpy as np
     import torch
+    from hesic_tpu_torch.bench import PEAK_TFLOPS, backend_flags
+    from hesic_tpu_torch.models.base import counted_flops
     from hesic_tpu_torch.models.hesic import HESIC
     from hesic_tpu_torch.training.recipe import train_batch, trainer
     for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
@@ -1222,7 +1243,9 @@ def phase_train(card: str) -> None:
                             DEVICE)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         torch.cuda.reset_peak_memory_stats()
-        losses = [step(batch, gen)["loss"]]
+        # the warm-up step under the FLOP counter (bench.py's train point)
+        metrics, flops = counted_flops(step, batch, gen)
+        losses = [metrics["loss"]]
         sync()
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
@@ -1231,10 +1254,16 @@ def phase_train(card: str) -> None:
         ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
         peak = torch.cuda.max_memory_allocated()
         check_step(name, model, opt, before, losses)
+        tflops = flops / ms / 1e9
         print(f"train {name} [{card}]: N{N}/M{M}/K{K} {HW_IMG}x{HW_IMG} "
               f"batch {TRAIN_B}: {ms:.2f} ms a step, "
               f"{TRAIN_B * 1e3 / ms:.2f} pairs/s over {TRAIN_STEPS} steps "
-              f"after a warm-up; peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"after a warm-up; {flops:.6e} FLOPs a step (torch "
+              f"FlopCounterMode: the forward's and the backward's matmuls "
+              f"and convolutions, not Adam's update), {tflops:.3f} TFLOP/s, "
+              f"mfu_pct_bf16 {100 * tflops / PEAK_TFLOPS:.3f} of "
+              f"{PEAK_TFLOPS} TFLOP/s under {backend_flags()}; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; "
               f"loss {float(losses[0]):.3f} -> {float(losses[-1]):.3f}; "
               f"both groups moved, gradients finite; "
               f"{check_warp_backward(dtype)}")
@@ -1445,10 +1474,12 @@ def phase_bench(model, card: str, b: int = BENCH_B,
     import torch
     from hesic_tpu_torch import bench
     from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.geometry import pick_warp_win, pick_warp_xwin
 
     name = type(model).__name__
     torch.cuda.reset_peak_memory_stats()
     codec = strict_sync(bench.make_codec(model, 16, b))
+    rates = {}
     pool = bench.make_pool(np.random.RandomState(1), BENCH_POOL, b, HW_IMG,
                            DEVICE)
     batches = [pool[i % BENCH_POOL] for i in range(n_batches)]
@@ -1467,8 +1498,7 @@ def phase_bench(model, card: str, b: int = BENCH_B,
             build.launch_counts.clear()
             loop = bench.timed_loop(codec, batches, h, mode)
             counts = dict(build.launch_counts)
-            for kernel, n in counts.items():
-                launches[kernel] = launches.get(kernel, 0) + n
+            add_launches(launches, counts)
             for kernel in ("grid_rans_encode", "grid_rans_decode"):
                 if counts.get(kernel) != 2 * n_batches:
                     raise AssertionError(
@@ -1478,8 +1508,9 @@ def phase_bench(model, card: str, b: int = BENCH_B,
             bench.check_exact(codec, batches, h, loop)
             outs = loop["containers"]
             grids.update(v for o in outs for v in o["blob"][1:3])
+            rates[mode] = n_batches * b / loop["seconds"]
             print(f"bench {name} [{card}] [{what}, pipeline {mode}]: "
-                  f"{n_batches * b / loop['seconds']:.2f} pairs/s "
+                  f"{rates[mode]:.2f} pairs/s "
                   f"({n_batches} batches of {b} {HW_IMG}x{HW_IMG}"
                   f" pairs in {loop['seconds'] * 1e3:.1f} ms), bpp_real "
                   f"{np.mean([o['bpp_real'] for o in outs]):.6f}, grids "
@@ -1491,6 +1522,15 @@ def phase_bench(model, card: str, b: int = BENCH_B,
                   f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
                   f" GiB; launches {counts}")
             del loop
+        # the FLOP count, outside the loops and their launch checks, at
+        # the warp windows the loops ran at
+        build.launch_counts.clear()
+        mfu = bench.mfu_fields(codec, HW_IMG, rates[2], bench.PEAK_TFLOPS,
+                               win=pick_warp_win(h, HW_IMG, HW_IMG),
+                               xwin=pick_warp_xwin(h, HW_IMG, HW_IMG))
+        add_launches(launches, build.launch_counts)
+        print_mfu(f"bench {name} [{card}] [{what}]", mfu, rates[2],
+                  kind == kinds[0])
     return launches, grids, blobs
 
 
@@ -1584,8 +1624,7 @@ def phase_dsic(card: str) -> tuple:
     torch.cuda.empty_cache()
     bench_launches, grids, _ = phase_bench(model, card, DS_BENCH_B,
                                            DS_BENCH_BATCHES, ("identity",))
-    for name, n in bench_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, bench_launches)
     torch.cuda.empty_cache()
     held = {mm: hold_batch(mm, DS_BENCH_B) for mm in sorted(grids)}
     return launches, held, model
@@ -1667,13 +1706,12 @@ def phase_device_bench(model, card: str, label: str, eyes: int) -> dict:
     bench.warm_up_device(codec, pool, h)
     batches = [bench.device_args(codec, *pool[0], h)] * AR_BENCH_BATCHES
     item = "images" if eyes == 1 else "pairs"
-    launches = {}
+    launches, rates = {}, {}
     for mode in (1, 0):
         build.launch_counts.clear()
         loop = bench.device_timed_loop(codec, batches, mode)
         counts = dict(build.launch_counts)
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        add_launches(launches, counts)
         want = {"pairs_rans_encode": eyes * AR_BENCH_BATCHES,
                 "ar_wavefront": 2 * eyes * AR_BENCH_BATCHES}
         for name, n in want.items():
@@ -1684,8 +1722,9 @@ def phase_device_bench(model, card: str, label: str, eyes: int) -> dict:
                                      f"batches, not {n}")
         bench.check_device_loop(codec, loop)
         outs = loop["containers"]
+        rates[mode] = AR_BENCH_BATCHES * AR_B / loop["seconds"]
         print(f"bench {label} [{card}] [identity H, pipeline {mode}]: "
-              f"{AR_BENCH_BATCHES * AR_B / loop['seconds']:.2f} {item}/s "
+              f"{rates[mode]:.2f} {item}/s "
               f"({AR_BENCH_BATCHES} batches of {AR_B} {HW_IMG}x{HW_IMG} "
               f"{item} in {loop['seconds'] * 1e3:.1f} ms), bpp_real "
               f"{np.mean([o['bpp_real'] for o in outs]):.6f}, escapes "
@@ -1695,7 +1734,162 @@ def phase_device_bench(model, card: str, label: str, eyes: int) -> dict:
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
               f"launches {counts}")
         del loop
+    if eyes == 2:
+        # HESIC+'s FLOP count (mbt2018's point has none, as bench.py's),
+        # outside the loops and their launch checks
+        build.launch_counts.clear()
+        mfu = bench.mfu_fields(codec, HW_IMG, rates[1], bench.PEAK_TFLOPS,
+                               batch=AR_B)
+        add_launches(launches, build.launch_counts)
+        print_mfu(f"bench {label} [{card}] [identity H]", mfu, rates[1],
+                  True)
     return launches
+
+
+def add_launches(total: dict, counts) -> None:
+    """Add `counts` ({kernel: launches}) into `total`."""
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def print_mfu(label: str, mfu: dict, rate: float, programs: bool) -> None:
+    """Print bench.mfu_fields' FLOPs a pair, TFLOP/s and MFU share at the
+    pipelined loop's `rate`, and the per-program counts if `programs`."""
+    print(f"{label}: {mfu['flops_per_pair']:.6e} FLOPs a pair "
+          f"({mfu['flops_counter']}; kernels 1-5 not counted), "
+          f"{mfu['tflops_per_sec']:.3f} TFLOP/s at the pipelined loop's "
+          f"{rate:.2f} pairs/s, mfu_pct_bf16 {mfu['mfu_pct_bf16']:.4f} of "
+          f"{mfu['peak_tflops']} TFLOP/s")
+    if programs:
+        print(f"{label}: FLOPs per program "
+              + ", ".join(f"{k} {v:.6e}"
+                          for k, v in mfu["flops_per_program"].items()))
+
+
+# the FLOP counts' cross-check: the tiny codecs of the CPU tests (HESIC
+# N16/M24/K2; HESIC+ N16 at M=32, as kernel 5 takes M in multiples of 16)
+# at 64x64, the same seed on the CPU and the card
+FLOPS_HW = 64
+
+
+def phase_flops_cross_check(card: str) -> dict:
+    """device_flops of a tiny HESIC fast codec and a tiny HESIC+ device
+    codec, built from one seed on the CPU and on the card: the counts
+    must be equal, program by program (kernels 1-5 opaque on both, so
+    FlopCounterMode sees the same matmuls and convolutions).  Returns
+    the card runs' launches."""
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
+    from hesic_tpu_torch.models.hesic import HESIC
+    from hesic_tpu_torch.models.hesic_fast import HESICFastCodec
+    from hesic_tpu_torch.models.hesic_plus import HESICPlus
+
+    def counts(device):
+        hesic = HESICFastCodec(HESIC(N=16, M=24, K=2, device=device,
+                                     seed=0), mm=8, codec_batch=2).update()
+        plus = HESICPlusDeviceCodec(HESICPlus(N=16, M=32, device=device,
+                                              seed=0), mm=8,
+                                    groups=4).update()
+        return {"HESIC fast": hesic.device_flops(FLOPS_HW, FLOPS_HW),
+                "HESIC+ device": plus.device_flops(FLOPS_HW, FLOPS_HW,
+                                                   batch=2)}
+
+    t0 = time.perf_counter()
+    cpu = counts("cpu")
+    build.launch_counts.clear()
+    dev = counts(DEVICE)
+    launches = dict(build.launch_counts)
+    for label, want in cpu.items():
+        got = dev[label]
+        if got["per_program"] != want["per_program"]:
+            raise AssertionError(
+                f"flops cross-check {label}: the card counts "
+                f"{got['per_program']}, the CPU {want['per_program']}")
+        print(f"flops cross-check {label} [{card}] at {FLOPS_HW}x"
+              f"{FLOPS_HW}: card and CPU equal program by program, "
+              + ", ".join(f"{k} {v:.0f}"
+                          for k, v in got["per_program"].items())
+              + f"; {got['flops_per_pair']:.0f} FLOPs a pair")
+    print(f"flops cross-check: {time.perf_counter() - t0:.1f} s; launches "
+          f"on the card {launches}")
+    return launches
+
+
+def phase_c13_routes() -> None:
+    """C13's functions on the card: quantize_pmf_device's rows equal to
+    the CPU's; the interleaved coder (rans_encode_interleaved through
+    kernel 2, rans_decode_interleaved through kernel 3) bit-equal to its
+    CPU twin in words, counts and states, at a ragged symbol count and at
+    a multiple of the lanes, and decoding back to the symbols;
+    wavefront_encode -> wavefront_decode (kernels 5 and 4) on a tiny level
+    scan (seeded weights, M=32, B=2, 4x4 latents, mm 8, 4 groups, with and
+    without the post input): the decode's y_hat bit-equal to the
+    teacher's, the word buffer zero past the counts.  These launches are
+    comparisons: they are not counted."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.codecs import device_rans
+    from hesic_tpu_torch.models.ar_device import (wavefront_decode,
+                                                  wavefront_encode)
+    from hesic_tpu_torch.models.autoregressive import ArWeights
+    rng = np.random.RandomState(21)
+    for n, lanes, s_dim in ((20_000, 1024, 33), (16_384, 512, 9)):
+        pmf = torch.from_numpy((rng.rand(n, s_dim) ** 4).astype(np.float32))
+        rows = device_rans.quantize_pmf_device(pmf)
+        check_equal(f"quantize_pmf_device n={n}", device_rans.
+                    quantize_pmf_device(pmf.to(DEVICE)).cpu(), rows)
+        cdf = device_rans.freq_to_cdf(rows)
+        u = torch.from_numpy(rng.randint(0, 1 << 16, (n, 1)))
+        sym = (cdf[:, 1:] <= u).sum(1).clamp_max(s_dim - 1).to(torch.int32)
+        starts, freqs = device_rans.gather_intervals(cdf, sym)
+        want = device_rans.rans_encode_interleaved(starts, freqs, lanes)
+        got = device_rans.rans_encode_interleaved(starts.to(DEVICE),
+                                                  freqs.to(DEVICE), lanes)
+        for name, g, w in zip(("words", "counts", "states"), got, want):
+            check_equal(f"interleaved encode n={n} {name}", g.cpu(), w)
+        dec = device_rans.rans_decode_interleaved(*got, cdf.to(DEVICE), n,
+                                                  lanes)
+        check_equal(f"interleaved decode n={n}", dec.cpu(), sym)
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape, scale=0.1):
+        return (torch.randn(shape, generator=gen) * scale).to(DEVICE)
+
+    b, hy, wy, m, mm, groups = 2, 4, 4, 32, 8, 4
+    mask = torch.ones(5, 5, 1, 1)
+    mask[2, 2:] = 0
+    mask[3:] = 0
+    for q in (0, m):
+        w = ArWeights(randn(5, 5, m, 2 * m) * mask.to(DEVICE),
+                      randn(2 * m, scale=0.05),
+                      (randn(4 * m + q, 64), randn(64, 64),
+                       randn(64, 2 * m)),
+                      (randn(64, scale=0.05), randn(64, scale=0.05),
+                       torch.cat([torch.full((m,), 0.5),
+                                  torch.zeros(m)]).to(DEVICE)))
+        pre, y = randn(b, hy, wy, 2 * m, scale=0.3), randn(b, hy, wy, m,
+                                                           scale=2.0)
+        post = randn(b, hy, wy, q, scale=0.3) if q else None
+        words, counts, states, y_hat, resid, n_esc = wavefront_encode(
+            w, y, pre, post, mm, groups)
+        past = (torch.arange(words.shape[1], device=DEVICE)[None, :]
+                >= counts[:, None])
+        if (words[past] != 0).any():
+            raise AssertionError("wavefront_encode: words past the counts")
+        esc = resid.abs() > mm
+        yd = wavefront_decode(w, pre, words, counts, states, post,
+                              esc.to(torch.int32), torch.where(esc, resid, 0),
+                              mm, groups)
+        if not torch.equal(yd, y_hat):
+            raise AssertionError(f"wavefront_decode (post {q}) differs from "
+                                 f"the teacher's y_hat")
+        print(f"C13 wavefront_encode -> wavefront_decode (post {q}): "
+              f"{int(counts.sum())} words, {n_esc} escapes, y_hat "
+              f"bit-equal")
+    print("C13 routes: quantize_pmf_device equal to the CPU's; the "
+          "interleaved coder through kernels 2 and 3 bit-equal to its "
+          "twin at n 20000 (1024 lanes, ragged) and 16384 (512 lanes) "
+          "and decoded back to the symbols")
 
 
 def phase_mbt(card: str) -> tuple:
@@ -1746,8 +1940,7 @@ def phase_mbt(card: str) -> tuple:
                              f"below the random weights' {random_bpp}")
     print(f"mbt2018: calibrated bpp_real {bpp:.6f} against the random "
           f"weights' {random_bpp:.6f}")
-    for name, n in cal_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, cal_launches)
     del runs
 
     def nhwc(t):
@@ -1763,8 +1956,7 @@ def phase_mbt(card: str) -> tuple:
                            nhwc(y))
     del xd, y, pre
     torch.cuda.empty_cache()
-    for name, n in phase_device_bench(model, card, "mbt2018", 1).items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, phase_device_bench(model, card, "mbt2018", 1))
     return launches, held, (model, x, bpp)
 
 
@@ -1800,8 +1992,7 @@ def phase_hesic_plus_calibrated(card: str, pairs, random_bpp: float):
           f"weights' {random_bpp:.6f} (phase 6)")
     del runs
     torch.cuda.empty_cache()
-    for name, n in phase_device_bench(model, card, "HESIC+", 2).items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, phase_device_bench(model, card, "HESIC+", 2))
     return launches, model
 
 
@@ -3137,6 +3328,9 @@ def main() -> int:
                                       for r in ar.values())
     torch.cuda.empty_cache()
 
+    phase_c13_routes()
+    torch.cuda.empty_cache()
+
     launches, random_bpp = phase_main_path()
     plus_launches, plus_random_bpp = phase_hesic_plus_path(model, codec,
                                                            pairs)
@@ -3156,6 +3350,7 @@ def main() -> int:
     plus_cal_launches, plus_model = phase_hesic_plus_calibrated(
         card, pairs, plus_random_bpp)
     torch.cuda.empty_cache()
+    flops_launches = phase_flops_cross_check(card)
     t0 = time.perf_counter()
     phase_mbt_host(card, mbt_model, mbt_x, mbt_bpp)
     phase_hesic_plus_host(card, plus_model, pairs, plus_random_bpp)
@@ -3188,10 +3383,10 @@ def main() -> int:
     par_launches = phase_parallel(card, cal_model, bench_blobs, work)
     del cal_model
     for counts in (cal_launches, bench_launches, dsic_launches,
-                   mbt_launches, plus_cal_launches, cheng_launches,
-                   cli_launches, eval_launches, par_launches):
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+                   mbt_launches, plus_cal_launches, flops_launches,
+                   cheng_launches, cli_launches, eval_launches,
+                   par_launches):
+        add_launches(launches, counts)
     # kernels 4 and 5's errors over every hold: both HESIC+ eyes,
     # mbt2018 and Cheng2020 at N=192 and N=128
     for k in ("wavefront", "pairs"):

@@ -3,14 +3,16 @@ port's counterpart of bench.py's codec points, HESIC's (``main``),
 DSIC's (``bench_dsic``, ``BENCH_MODE=dsic``), mbt2018's wavefront device
 codec (``bench_ar_device``, ``BENCH_MODE=ar-device``), HESIC+'s
 (``bench_hesic_plus_device``, ``BENCH_MODE=hesic-plus-device``) and
-mbt2018's host AR codec (``bench_ar``, ``BENCH_MODE=ar``).
+mbt2018's host AR codec (``bench_ar``, ``BENCH_MODE=ar``), and of its
+train point (``bench_train``, ``BENCH_MODE=train``).
 
 Usage (on a machine with a CUDA card):
 
     python -m hesic_tpu_torch.bench [--model hesic|dsic|mbt-device|
-        hesic-plus-device|mbt --size 512 --batch B --batches N
+        hesic-plus-device|mbt|train --size 512 --batch B --batches N
         --calib-steps 60 --mm 16 --groups 8 --bf16 0|1
-        --h identity|real --pipeline 2|1|0 --pool P]
+        --h identity|real --pipeline 2|1|0 --pool P --steps 12
+        --peak-tflops 989.4]
 
 The fast codecs.  ``--model hesic`` (the default) builds HESIC
 N=128/M=192/K=5 and codes batches of 64 over 6 timed batches; ``--model
@@ -70,8 +72,38 @@ codec's counts its y and z strings' bytes), ``batches``, ``batch``,
 outlier counts, the device codecs' grid, groups and escape counts, or
 the host codec's ``host_threads`` (the coder pool's width),
 ``cpu_count`` (``os.cpu_count()``) and seconds in the native coder, and
-``card`` (name and power limit).  No MFU field: the port has no FLOP
-count of these programs.
+``card`` (name and power limit).
+
+The MFU fields.  ``--model hesic``, ``dsic`` and ``hesic-plus-device``
+add, after the timed loop and outside it, the codec's ``device_flops``
+at the point's shapes (HESIC's at the warp windows the bench's H picks,
+as bench.py): ``flops_per_pair`` and ``flops_per_program``, PyTorch's
+count of matmuls and convolutions (``flops_counter``: torch
+FlopCounterMode, not XLA's cost analysis; kernels 1-5 are not counted,
+as XLA did not count the Pallas kernels), ``tflops_per_sec`` (flops a
+pair times pairs/s) and ``mfu_pct_bf16``, its share of ``peak_tflops``
+(``--peak-tflops``, default 989.4: the H100 SXM5's dense bf16 Tensor
+Core rate, half the data sheet's 1,979 with sparsity).  A count that
+fails raises, and so does a share above 100%.  On the CPU (a rehearsal)
+the rate and the share are null: they are the card's.  mbt2018's points
+have no MFU field, as bench.py's have none.
+
+The train point.  ``--model train`` builds HESIC N=128/M=192/K=5 (seed
+0) at ``--size`` 512 and trains it on ``--batch`` 8 smooth pairs
+(``training.recipe.train_batch(RandomState(0), ...)``, identity H) with
+``training.recipe.trainer`` (Adam 1e-4 / aux 1e-3, lambda 1e-2, noise
+seeded 7), first in float32, then with bf16 transforms: one untimed
+warm-up step, whose FLOPs FlopCounterMode counts (the forward's and the
+backward's matmuls and convolutions; Adam's elementwise update is not
+counted), then ``--steps`` 12 timed steps.  A non-finite loss raises.
+Prints bench.py's keys: ``metric`` (hesic_train_pairs_per_sec_<size>px_
+bf16), ``value`` (bf16 pairs/s), ``unit``, ``vs_baseline`` (the bf16 /
+f32 step rate), ``batch``, ``bf16`` and ``f32`` (each ``steps_per_sec``,
+``pairs_per_sec``, ``tflops_per_sec``, ``mfu_pct_bf16``,
+``flops_per_step``), ``bf16_speedup``, then ``peak_memory_gib``,
+``flops_counter``, ``flops_scope``, ``peak_tflops``, ``backends`` (the
+cuDNN and matmul flags the steps ran under: PyTorch's defaults in a
+process of its own) and ``card``.
 """
 
 from __future__ import annotations
@@ -87,9 +119,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .geometry import pick_warp_win, pick_warp_xwin
 from .models.ar_device import (HESICPlusDeviceCodec,
                                JointAutoregressiveDeviceCodec)
 from .models.autoregressive import host_threads
+from .models.base import counted_flops
 from .models.codec import JointAutoregressiveCodec
 from .models.dsic import DSIC
 from .models.dsic_fast import DSICFastCodec
@@ -97,19 +131,27 @@ from .models.hesic import HESIC
 from .models.hesic_fast import HESICFastCodec
 from .models.hesic_plus import HESICPlus
 from .models.priors import JointAutoregressiveHierarchicalPriors
-from .training.recipe import calibrate, calibrate_single, smooth_pairs
+from .training.recipe import (calibrate, calibrate_single, smooth_pairs,
+                              train_batch, trainer)
 
 # per model: (metric prefix, what a batch item is, batch, timed batches,
-# pipelined mode, pool), bench.py's points
+# pipelined mode, pool), bench.py's points; the train point times steps
 POINTS = {"hesic": ("stereo", "pairs", 64, 6, 2, 4),
           "dsic": ("dsic", "pairs", 32, 4, 2, 4),
           "mbt-device": ("mbt2018_device", "images", 11, 4, 1, 1),
           "hesic-plus-device": ("hesic_plus_device", "pairs", 11, 4, 1, 1),
-          "mbt": ("mbt2018", "images", 8, 2, 0, 1)}
+          "mbt": ("mbt2018", "images", 8, 2, 0, 1),
+          "train": ("hesic_train", "pairs", 8, 1, 0, 1)}
 # the wavefront device codecs' points
 DEVICE_POINTS = ("mbt-device", "hesic-plus-device")
 # mbt2018's points
 MBT_POINTS = ("mbt-device", "mbt")
+# the points with MFU fields (bench.py's _mfu_fields)
+MFU_POINTS = ("hesic", "dsic", "hesic-plus-device")
+FLOPS_COUNTER = "torch FlopCounterMode"
+# the H100 SXM5's dense bf16 Tensor Core TFLOP/s (NVIDIA's data sheet
+# gives 1,979 with sparsity)
+PEAK_TFLOPS = 989.4
 
 
 def parse_args(argv=None):
@@ -137,6 +179,11 @@ def parse_args(argv=None):
     p.add_argument("--pool", type=int, default=None,
                    help="distinct batches cycled (default 4, 1 for the "
                         "device codecs)")
+    p.add_argument("--steps", type=int, default=12,
+                   help="timed steps of the train point")
+    p.add_argument("--peak-tflops", type=float, default=PEAK_TFLOPS,
+                   help="the card's peak TFLOP/s the MFU share is of "
+                        "(default: the H100 SXM5's dense bf16 rate)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default), or cpu for a rehearsal")
     args = p.parse_args(argv)
@@ -155,7 +202,7 @@ def parse_args(argv=None):
         args.bf16 = 0 if mbt else 1
     if mbt and args.bf16:
         p.error("mbt2018 is float32: --bf16 must be 0")
-    if (args.model == "dsic" or mbt) and args.h != "identity":
+    if (args.model in ("dsic", "train") or mbt) and args.h != "identity":
         p.error(f"{args.model} takes no homography: --h must be identity")
     return args
 
@@ -479,10 +526,34 @@ def run_host(codec, x, n_batches: int) -> dict:
             "coder_s": sum(o["coder_s"] + o["dec_coder_s"] for o in outs)}
 
 
+def mfu_fields(codec, size: int, pairs_per_sec: float, peak: float,
+               **kw) -> dict:
+    """bench.py's _mfu_fields in the port: `codec`'s device_flops at size x
+    size (its keyword arguments `kw`), the TFLOP/s at `pairs_per_sec` and
+    its share of `peak` TFLOP/s, both null off the card.  Raises where the
+    count is not positive or the share reads above 100%."""
+    fl = codec.device_flops(size, size, **kw)
+    per_pair = fl["flops_per_pair"]
+    tflops = share = None
+    if codec.device.type == "cuda":
+        tflops = per_pair * pairs_per_sec / 1e12
+        share = 100.0 * tflops / peak
+    if not per_pair > 0 or (share is not None and not share <= 100.0):
+        raise RuntimeError(f"MFU of {type(codec).__name__}: {per_pair} "
+                           f"FLOPs a pair at {pairs_per_sec} pairs/s give "
+                           f"{share}% of {peak} TFLOP/s")
+    return {"flops_per_pair": per_pair,
+            "flops_per_program": fl["per_program"],
+            "tflops_per_sec": tflops, "mfu_pct_bf16": share,
+            "flops_counter": FLOPS_COUNTER, "peak_tflops": peak}
+
+
 def bench(model, args, calib_hw: int = 256) -> dict:
     """Calibrate `model`, build the codec and the pool, and run the bench
     point of `args` (parse_args).  Returns run()'s or run_device()'s
-    numbers."""
+    numbers, with the peak memory of the run ("peak_memory_gib", None
+    off the card) and the MFU fields (mfu_fields) of the MFU_POINTS under
+    "mfu", counted after it."""
     rng = np.random.RandomState(0)
     if args.calib_steps > 0:
         cal = calibrate_single if model.single_image else calibrate
@@ -490,17 +561,129 @@ def bench(model, args, calib_hw: int = 256) -> dict:
     if args.model == "mbt":
         codec = JointAutoregressiveCodec(model).update()
         x = make_pool(rng, 1, args.batch, args.size, codec.device)[0][0]
-        return run_host(codec, x, args.batches)
+        res = run_host(codec, x, args.batches)
+        res["peak_memory_gib"] = peak_gib(codec.device)
+        return res
     h = homographies(args.h, args.batch)
     if args.model in DEVICE_POINTS:
         codec = make_device_codec(model, args.mm, args.groups)
         pool = make_pool(rng, min(args.batches, args.pool), args.batch,
                          args.size, codec.device)
-        return run_device(codec, pool, h, args.batches, args.pipeline)
-    codec = make_codec(model, args.mm, args.batch)
-    pool = make_pool(rng, min(args.batches, args.pool), args.batch,
-                     args.size, codec.device)
-    return run(codec, pool, h, args.batches, args.pipeline)
+        res = run_device(codec, pool, h, args.batches, args.pipeline)
+        kw = {"batch": args.batch}
+        pairs_per_sec = args.batches * args.batch / res["seconds"]
+    else:
+        codec = make_codec(model, args.mm, args.batch)
+        pool = make_pool(rng, min(args.batches, args.pool), args.batch,
+                         args.size, codec.device)
+        res = run(codec, pool, h, args.batches, args.pipeline)
+        # the warp windows the loop ran at
+        kw = {"win": pick_warp_win(h, args.size, args.size),
+              "xwin": pick_warp_xwin(h, args.size, args.size)}
+        pairs_per_sec = res["pairs_per_sec"]
+    # the peak before the FLOP count, which runs the programs once more
+    res["peak_memory_gib"] = peak_gib(codec.device)
+    if args.model in MFU_POINTS:
+        res["mfu"] = mfu_fields(codec, args.size, pairs_per_sec,
+                                args.peak_tflops, **kw)
+    return res
+
+
+def peak_gib(device):
+    """torch.cuda.max_memory_allocated in GiB on the card, else None."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def train_model(args, dtype):
+    """The train point's model: HESIC N=128/M=192/K=5 with `dtype`
+    transforms (None: float32), seed 0, on args.device."""
+    return HESIC(N=128, M=192, K=5, dtype=dtype, device=args.device, seed=0)
+
+
+def bench_train(args) -> dict:
+    """bench.py's bench_train: for float32, then bf16, the model of
+    train_model stepped by training.recipe.trainer on one batch of
+    `args.batch` smooth pairs at `args.size` (identity H): one warm-up
+    step under the FLOP counter (untimed), then `args.steps` timed steps.
+    Raises on a non-finite loss.  Returns {precision: {"steps_per_sec",
+    "pairs_per_sec", "tflops_per_sec", "mfu_pct_bf16", "flops_per_step"}}
+    (the rate and the share null off the card)."""
+    cuda = args.device == "cuda"
+    results = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = train_model(args, dtype)
+        _, step, gen = trainer(model)
+        batch = train_batch(np.random.RandomState(0), args.batch, args.size,
+                            args.device)
+        losses = []
+        metrics, flops = counted_flops(step, batch, gen)
+        losses.append(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            losses.append(step(batch, gen)["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bad = [i for i, v in enumerate(losses) if not torch.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"train {name}: non-finite loss at steps "
+                               f"{bad}")
+        steps_per_sec = args.steps / seconds
+        tflops = flops * steps_per_sec / 1e12 if cuda else None
+        results[name] = {
+            "steps_per_sec": steps_per_sec,
+            "pairs_per_sec": steps_per_sec * args.batch,
+            "tflops_per_sec": tflops,
+            "mfu_pct_bf16": (100.0 * tflops / args.peak_tflops if cuda
+                             else None),
+            "flops_per_step": flops,
+        }
+        del model, step, batch
+        if cuda:
+            torch.cuda.empty_cache()
+    return results
+
+
+def backend_flags() -> dict:
+    """The cuDNN and matmul settings a run times under: the train point
+    keeps PyTorch's defaults (TF32 convolutions allowed), while a process
+    that built a codec first runs under the codecs' determinism policy
+    (models.base.deterministic_backends: TF32 off), which slows the f32
+    step several fold."""
+    return {"cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def train_line(args, results: dict) -> dict:
+    """The train point's JSON line (bench.py's keys, then the port's)."""
+    bf16, f32 = results["bf16"], results["f32"]
+    speedup = bf16["steps_per_sec"] / f32["steps_per_sec"]
+    cuda = args.device == "cuda"
+    return {
+        "metric": f"hesic_train_pairs_per_sec_{args.size}px_bf16",
+        "value": bf16["pairs_per_sec"],
+        "unit": "pairs/s/chip",
+        "vs_baseline": speedup,
+        "model": "train",
+        "batch": args.batch,
+        "bf16": bf16,
+        "f32": f32,
+        "bf16_speedup": speedup,
+        "peak_memory_gib": peak_gib(args.device),
+        "flops_counter": FLOPS_COUNTER,
+        "flops_scope": "the forward's and the backward's matmuls and "
+                       "convolutions; Adam's elementwise update is not "
+                       "counted",
+        "peak_tflops": args.peak_tflops,
+        "backends": backend_flags(),
+        "card": card_line() if cuda else None,
+    }
 
 
 def main(argv=None) -> int:
@@ -510,10 +693,12 @@ def main(argv=None) -> int:
         print("bench: no CUDA device; run with --device cpu for a "
               "rehearsal", file=sys.stderr)
         return 1
-    model = build_model(args)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    res = bench(model, args)
+    if args.model == "train":
+        print(json.dumps(train_line(args, bench_train(args))))
+        return 0
+    res = bench(build_model(args), args)
     prefix, item = POINTS[args.model][:2]
     if args.model == "mbt":
         codec_fields = {"host_threads": host_threads(args.batch),
@@ -524,6 +709,7 @@ def main(argv=None) -> int:
                         "escapes": res["escapes"]}
     else:
         codec_fields = {"mm": res["mm"], "outliers": res["outliers"]}
+    codec_fields.update(res.get("mfu", {}))
     print(json.dumps({
         "metric": f"{prefix}_{item}_per_sec_{args.size}px_encdec",
         "value": args.batches * args.batch / res["seconds"],
@@ -534,8 +720,7 @@ def main(argv=None) -> int:
         "batch": args.batch,
         "h": args.h,
         "pipeline": args.pipeline,
-        "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
-                            if cuda else None),
+        "peak_memory_gib": res["peak_memory_gib"],
         **codec_fields,
         "card": card_line() if cuda else None,
     }))

@@ -17,7 +17,10 @@ larger cap.
 
 ``rans_encode_grid_rows``/``rans_decode_grid_rows`` dispatch on the
 device of their input: a CPU tensor runs the plain twin, a CUDA tensor
-launches the kernel (csrc/grid_rans.cu) or raises.  ``rans_plan`` picks
+launches the kernel (csrc/grid_rans.cu) or raises.  ``encode_intervals_cuda``
+and ``decode_rows_cuda`` run the interleaved coder of device_rans
+(``rans_encode_interleaved``/``rans_decode_interleaved``) through the
+same kernels.  ``rans_plan`` picks
 each launch's lane groups, shared-memory ring and search from the
 layout and the card's SM count.
 """
@@ -31,7 +34,8 @@ import torch
 
 from . import build
 from .build import LANE_GROUP, SM_COUNT, SMEM_BLOCK, SMEM_SM, WARPS_SM
-from .device_rans import freq_to_cdf, rans_decode_grid, rans_encode_grid
+from .device_rans import (RANS_L, TOTAL, freq_to_cdf, rans_decode_grid,
+                          rans_encode_grid)
 
 _ENC = "grid_rans_encode"
 _DEC = "grid_rans_decode"
@@ -255,3 +259,52 @@ def rans_decode_grid_rows(freq, words, counts, states, ppl: int = 1):
     if freq.is_cuda:
         return rans_decode_grid_cuda(freq, words, counts, states, ppl)
     return rans_decode_grid_plain(freq, words, counts, states, ppl)
+
+
+def encode_intervals_cuda(starts, freqs, lanes: int):
+    """device_rans.rans_encode_interleaved on the card: kernel 2 codes the
+    (T, L) grid of the n intervals, each as symbol 1 of the row (start,
+    freq, 2^16 - start - freq), in one launch for the lanes that hold T
+    symbols and one for those that hold T - 1 (a launch codes every slot
+    of its lanes).  Same contract as the twin: (words (L, T+2) int32, zero
+    past each lane's count, counts (L,) int32, states (L,) int64)."""
+    n = starts.shape[0]
+    dev = starts.device
+    t_steps = -(-n // lanes)
+    pad = t_steps * lanes - n
+    s = torch.cat([starts.to(torch.int32),
+                   starts.new_zeros(pad, dtype=torch.int32)])
+    f = torch.cat([freqs.to(torch.int32),
+                   freqs.new_ones(pad, dtype=torch.int32)])
+    rows = torch.stack([s, f, TOTAL - s - f], 1).reshape(t_steps, lanes, 3)
+    words = torch.zeros((lanes, t_steps + 2), dtype=torch.int32, device=dev)
+    counts = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    states = torch.full((lanes,), RANS_L, dtype=torch.int64, device=dev)
+    full = n - (t_steps - 1) * lanes        # lanes that hold T symbols
+    for lo, hi, t in ((0, full, t_steps), (full, lanes, t_steps - 1)):
+        if hi == lo or t == 0:
+            continue
+        freq = rows[:t, lo:hi].permute(0, 2, 1)[None].contiguous()
+        sym = torch.ones((t, 1, hi - lo), dtype=torch.int32, device=dev)
+        w, c, st = rans_encode_grid_cuda(freq, sym, 1, t_steps + 2)
+        words[lo:hi] = w[0].t()
+        counts[lo:hi] = c[0]
+        states[lo:hi] = st[0]
+    keep = (torch.arange(t_steps + 2, device=dev)[None, :]
+            < counts[:, None])
+    return torch.where(keep, words, 0), counts, states
+
+
+def decode_rows_cuda(words, counts, states, rows, lanes: int):
+    """device_rans.rans_decode_interleaved's grid on the card: kernel 3
+    over `rows` (T*L, S+1) CDF rows, row t*L + l at slot t of lane l;
+    words (L, C), counts (L,), states (L,).  Returns the (T*L,) int32
+    symbols, every slot decoded."""
+    t_steps = rows.shape[0] // lanes
+    freq = torch.diff(rows.to(torch.int32), dim=1).reshape(
+        t_steps, lanes, -1).permute(0, 2, 1)[None].contiguous()
+    syms = rans_decode_grid_cuda(
+        freq, words.to(torch.int32).t()[None].contiguous(),
+        counts.to(torch.int32).reshape(1, lanes),
+        states.to(torch.int64).reshape(1, lanes))
+    return syms.reshape(-1)

@@ -452,10 +452,10 @@ class RangeDecoder:
 
 
 class RansDecoder:
-    """Stateful rANS decoder: ``set_stream`` once, then ``decode_stream``
-    walks the stream a chunk of symbols at a time (the autoregressive
-    decode pattern).  The native decoder keeps its own copy of the
-    bytes."""
+    """rANS decoder: ``decode_with_indexes`` decodes one whole stream
+    (stateless); ``set_stream`` once, then ``decode_stream`` walks a
+    stream a chunk of symbols at a time (the autoregressive decode
+    pattern).  The native decoder keeps its own copy of the bytes."""
 
     def __init__(self):
         self._handle = None
@@ -467,6 +467,13 @@ class RansDecoder:
         if getattr(self, "_handle", None):
             _lib().hesic_rans_decoder_free(self._handle)
             self._handle = None
+
+    def decode_with_indexes(self, encoded: bytes, indexes, cdfs, cdf_sizes,
+                            offsets) -> np.ndarray:
+        """Decode one whole stream of ``indexes.size`` symbols -> int32
+        (n,) (module-level decode_with_indexes)."""
+        return decode_with_indexes(encoded, indexes, cdfs, cdf_sizes,
+                                   offsets)
 
     def set_stream(self, encoded: bytes):
         self._close()

@@ -200,6 +200,14 @@ class EntropyBottleneck(nn.Module):
         self.quantiles = nn.Parameter(torch.tensor(
             [[-init_scale, 0.0, init_scale]]).repeat(c, 1, 1))
 
+    @property
+    def target(self) -> torch.Tensor:
+        """The logits of tail_mass/2, 1/2 and 1 - tail_mass/2: (3,) float32
+        on the quantiles' device, what ``loss`` pushes them to."""
+        t = math.log(2 / self.tail_mass - 1)
+        return torch.tensor([-t, 0.0, t], dtype=torch.float32,
+                            device=self.quantiles.device)
+
     def medians(self) -> torch.Tensor:
         """(C,) per-channel medians (the z symbol offsets)."""
         return self.quantiles[:, 0, 1]
@@ -234,10 +242,7 @@ class EntropyBottleneck(nn.Module):
         """Auxiliary loss pushing the quantiles to the tail-mass targets;
         its gradient reaches the quantiles only."""
         logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
-        # the logits of tail_mass/2, 1/2 and 1 - tail_mass/2
-        t = math.log(2 / self.tail_mass - 1)
-        target = torch.tensor([-t, 0.0, t], device=logits.device)
-        return torch.sum(torch.abs(logits - target))
+        return torch.sum(torch.abs(logits - self.target))
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator=None):

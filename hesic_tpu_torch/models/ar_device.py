@@ -2,8 +2,10 @@
 
 Counterpart of hesic_tpu/models/ar_device.py: the integer bookkeeping of
 the wavefront schedule (``TAPS``, ``schedule``, ``wavefront_valid_mask``),
-the container's backend byte, ``JointAutoregressiveDeviceCodec``
-(mbt2018) and ``HESICPlusDeviceCodec``.
+the container's backend byte, the coder's ``PROB_BITS``,
+``wavefront_encode``/``wavefront_decode`` (one eye's level scan and its
+stream, outside a codec), ``JointAutoregressiveDeviceCodec`` (mbt2018)
+and ``HESICPlusDeviceCodec`` with its FLOP count (``device_flops``).
 
 The raster recursion runs as a wavefront over levels s = 3i + j: every
 mask-A tap of the 5x5 context kernel lands at a strictly smaller level
@@ -27,9 +29,8 @@ both launch.  Only integers cross between the directions.
 
 Not carried over from the JAX codec: the TPU link devices
 (``DENSE_LINK_THRESHOLD``, ``compact_stream``, ``upload_words_auto``,
-``pow2_bucket``: words cross with ``.cpu()``), ``device_flops`` (XLA cost
-analysis) and the ``HESIC_NO_PALLAS`` switch (the tensor's device selects
-the backend).
+``pow2_bucket``: words cross with ``.cpu()``) and the ``HESIC_NO_PALLAS``
+switch (the tensor's device selects the backend).
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ import time
 import numpy as np
 import torch
 
-from ..codecs.device_rans import pack_stream_dense, unpack_stream
+from ..codecs.device_rans import PROB_BITS, pack_stream, unpack_stream
 from ..geometry import warp_perspective
 from .autoregressive import extract_ar_weights
-from .base import CompressionModel, deterministic_backends
+from .base import CompressionModel, counted_flops, deterministic_backends
 
 # mask-A taps of the 5x5 context kernel: two rows above (all columns)
 # plus the two left neighbours in the centre row
@@ -108,6 +109,55 @@ def check_wavefront_backend(blob: bytes, device) -> int:
     return 1
 
 
+def wavefront_encode(weights, y, pre, post=None, mm: int = 16,
+                     groups: int = 8):
+    """One eye's teacher pass (kernel 5) and the reverse rANS encode of its
+    intervals (kernel 4), as the JAX package's function, in the port's
+    layout.
+
+    weights: the eye's ArWeights or PackedArWeights (what a codec keeps);
+    y (B, hy, wy, M) float32 latents, pre (B, hy, wy, P) and post (B, hy,
+    wy, Q) or None float32, NHWC, on one device.  Returns (words (L, T+2)
+    int32 [u16 values in emission order, zero past each lane's count],
+    counts (L,) int32, states (L,) int64 [u32 values], y_hat (B, hy, wy,
+    M) float32, resid (B, hy, wy, M) int32, the escape count as an int),
+    T = the scan's slots, L its lanes: the JAX package's word buffer
+    (its lax.scan coder's), on the device of `pre`.  The escape count
+    reads the device (one host sync)."""
+    from ..codecs.pairs_rans import rans_encode_pairs
+    from .wavefront import ar_wavefront
+    b, hy, wy, m = y.shape
+    starts, freqs, y_hat, resid = ar_wavefront(
+        weights, pre, post, y, None, None, None, None, None, True, mm,
+        groups)
+    valid = wavefront_valid_mask(hy, wy, b, groups, m, pre.device)
+    cap = starts.shape[0] + 2
+    words, counts, states = rans_encode_pairs(starts, freqs, valid, cap)
+    keep = torch.arange(cap, device=pre.device)[None, :] < counts[:, None]
+    return (torch.where(keep, words, 0), counts, states, y_hat, resid,
+            int((resid.abs() > mm).sum()))
+
+
+def wavefront_decode(weights, pre, words, counts, states, post=None,
+                     corr_mask=None, corr_val=None, mm: int = 16,
+                     groups: int = 8, m: int = None):
+    """One eye's decode pass (kernel 5) of wavefront_encode's stream, as
+    the JAX package's function, in the port's layout: pre (B, hy, wy, P)
+    and post (B, hy, wy, Q) or None float32 NHWC; words (L, C) u16
+    values, counts (L,), states (L,) u32 values; corr_mask/corr_val (B,
+    hy, wy, M) int32 escape corrections or None.  `m` is the JAX
+    signature's latent width; the scan reads M from the weights, and
+    another `m` raises.  Returns y_hat (B, hy, wy, M) float32."""
+    from .wavefront import ar_wavefront, raw_weights
+    width = raw_weights(weights).ctx_kernel.shape[2]
+    if m is not None and m != width:
+        raise ValueError(f"m={m}, but the weights code M={width} channels")
+    return ar_wavefront(
+        weights, pre, post, None, corr_mask, corr_val,
+        words.to(torch.int32), counts.to(torch.int32),
+        states.to(torch.int64), False, mm, groups)[2]
+
+
 class _WavefrontCodec(CompressionModel):
     """What the two wavefront codecs share: the determinism policy, the
     grid (``mm``) and channel groups, z symbols and strings, one kernel 4
@@ -157,10 +207,8 @@ class _WavefrontCodec(CompressionModel):
         if cmax > cap:
             raise RuntimeError(f"pairs encoder counted {cmax} words in a "
                                f"lane of {cap} slots")
-        w = words[:, :cmax].cpu().numpy()
-        keep = np.arange(cmax)[None, :] < c[:, None]
-        return pack_stream_dense(w[keep], c,
-                                 states.cpu().numpy().astype(np.uint32))
+        return pack_stream(words[:, :cmax].cpu().numpy(), c,
+                           states.cpu().numpy().astype(np.uint32))
 
     def _decoder_stream(self, blob: bytes, off: int):
         """One packed stream -> ((words, counts, states) on the codec
@@ -387,6 +435,44 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
                             mm, groups)
         return eye1, eye2, x1_hat
 
+    def _dec_out(self, x1_hat, y2_hat, h):
+        """The decoder's output synthesis after the chain: x2_hat (B, 3, H,
+        W) from the decoded left view x1_hat (B, 3, H, W) and the right
+        latents y2_hat (B, hy, wy, M)."""
+        x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
+        return self.model.synthesis2(y2_hat.permute(0, 3, 1, 2), x1w)
+
+    def device_flops(self, h_img: int, w_img: int, batch: int = 4) -> dict:
+        """PyTorch's count of matmuls and convolutions (FlopCounterMode) in
+        one encode and decode round trip of `batch` h_img x w_img pairs,
+        the JAX package's programs: ``enc_transforms``
+        (``transforms_enc``), ``chain`` (``_chain``, run once as a
+        teacher pass; encode and decode each run it) and ``dec_out``
+        (``_dec_out``), each once under torch.no_grad() on seeded images
+        at the identity H, on the codec's device.  flops_total =
+        enc_transforms + 2 chain + dec_out.  Returns {"flops_total",
+        "flops_per_pair", "per_program"}.  Kernel 5 (one operator the
+        counter does not look into, on either device) is not counted, as
+        XLA did not count the Pallas level scan: the count is the same on
+        the CPU and the card.  On the card it launches kernel 5 twice."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        x1, x2 = (self._to_device(torch.rand(
+            (batch, h_img, w_img, 3), generator=gen, device=self.device))
+            for _ in range(2))
+        h, _ = self._homographies(np.eye(3, dtype=np.float32)[None], batch)
+        per = {}
+        with torch.no_grad():
+            (y1, y2, z1_sym, z2_sym), per["enc_transforms"] = counted_flops(
+                self.transforms_enc, x1, x2, h)
+            (_, eye2, x1_hat), per["chain"] = counted_flops(
+                self._chain, z1_sym, z2_sym, _nhwc(y1), _nhwc(y2), None,
+                None, None, None, h, True)
+            _, per["dec_out"] = counted_flops(self._dec_out, x1_hat,
+                                              eye2[2], h)
+        total = per["enc_transforms"] + 2 * per["chain"] + per["dec_out"]
+        return {"flops_total": total, "flops_per_pair": total / batch,
+                "per_program": per}
+
     # ---- container ----
 
     @torch.no_grad()
@@ -451,8 +537,7 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         s2, off = self._decoder_stream(blob, off)
         eye1, eye2, x1_hat = self._chain(z1_sym, z2_sym, None, None, s1, s2,
                                          corr1, corr2, h, teacher=False)
-        x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
-        x2_hat = self.model.synthesis2(eye2[2].permute(0, 3, 1, 2), x1w)
+        x2_hat = self._dec_out(x1_hat, eye2[2], h)
         out = {"x1_hat": _nhwc(x1_hat), "x2_hat": _nhwc(x2_hat),
                "y1_hat": eye1[2], "y2_hat": eye2[2]}
         if out["x2_hat"].is_cuda:

@@ -13,8 +13,9 @@ through the Gaussian tables, channel-major, given scale-table indexes.
 The input helpers move the caller's NHWC images and homographies to the
 model's device (on the card through pinned memory, without blocking the
 host).  ``deterministic_backends`` is the codecs' shared determinism
-policy.  ``TogetherCodec`` is the codec of the stage-2 models: an inner
-codec, then the enhancement.
+policy.  ``counted_flops`` runs a program under PyTorch's FLOP counter
+(the codecs' ``device_flops``).  ``TogetherCodec`` is the codec of the
+stage-2 models: an inner codec, then the enhancement.
 
 Persistence (``state_dict``, ``save``, ``load_state_dict``, ``load``) is
 one pickle with the JAX file's top-level keys (``module_class``,
@@ -49,6 +50,19 @@ def deterministic_backends():
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def counted_flops(fn, *args, **kwargs) -> tuple:
+    """(fn(*args, **kwargs), the FLOPs torch.utils.flop_counter.
+    FlopCounterMode counted in it): PyTorch's count of matmuls and
+    convolutions (and their backward), 2 a multiply-add, whatever the
+    dtype.  Elementwise work, gathers and the CUDA kernels are not
+    counted; kernel 5 runs as an operator the counter does not look into
+    on either device (models/wavefront.py)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        out = fn(*args, **kwargs)
+    return out, float(counter.get_total_flops())
 
 
 def _load_weights(model, state: dict) -> None:

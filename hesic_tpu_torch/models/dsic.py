@@ -416,14 +416,22 @@ class DSIC(nn.Module):
                                 "z2": z2_lik}}
 
 
+class EnhancementSelf(Enhancement):
+    """Single-view enhancement (DSIC+'s): models/hesic.py ``Enhancement``
+    without the cross-view input, its first conv 3 -> 32, forward on one
+    reconstruction."""
+
+    def __init__(self, generator=None):
+        super().__init__(False, generator)
+
+
 class IndependentEnhancementNoWarp(nn.Module):
-    """DSIC+'s stage 2: each eye enhanced on its own (``EnhancementSelf``:
-    models/hesic.py ``Enhancement`` without the cross-view input)."""
+    """DSIC+'s stage 2: each eye enhanced on its own (EnhancementSelf)."""
 
     def __init__(self, generator=None):
         super().__init__()
-        self.EnhancementSelf_0 = Enhancement(False, generator)
-        self.EnhancementSelf_1 = Enhancement(False, generator)
+        self.EnhancementSelf_0 = EnhancementSelf(generator)
+        self.EnhancementSelf_1 = EnhancementSelf(generator)
 
     def forward(self, x1_hat, x2_hat):
         return {"x1_hat": self.EnhancementSelf_0(x1_hat),

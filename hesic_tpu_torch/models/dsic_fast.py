@@ -22,7 +22,8 @@ homography: ``_homographies`` reads the default None of
 header's ``win``/``xwin`` bytes are what the identity picks, as in the JAX
 package.  ``compress`` / ``decompress`` / ``decompress_bytes`` are
 DSICCodec's reference-layout container (the class is a DSICCodec first,
-as the JAX one).
+as the JAX one).  ``device_flops`` is HESICFastCodec's, over these
+programs (``synth_out``'s aux input is the float left latent).
 """
 
 from __future__ import annotations

@@ -70,6 +70,13 @@ output_path)``, ``decompress(output_name, output_path, h_matrix)`` and
 ``decompress_bytes`` write and read the reference-layout container over
 the same model and tables, byte for byte what HESICCodec writes.
 
+FLOP count.  ``device_flops`` is PyTorch's count of matmuls and
+convolutions (FlopCounterMode, not XLA's cost analysis) of one round
+trip's programs under the JAX package's names and sum.  The rANS and PMF
+kernels (1-3) are opaque to it, as the Pallas kernels were to XLA, and
+so are their plain twins, which do no matmul or convolution: the count
+is the same on the CPU and the card.
+
 Not carried over from the JAX codec: the TPU link transport (packed link
 vectors, z nibble packing, sticky word budgets and link buckets, decoder
 size watermarks) and the synchronous fallback they need; of the sticky
@@ -91,6 +98,7 @@ from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
                                 rans_encode_grid_rows)
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
+from .base import counted_flops
 from .hesic_codec import HESICCodec
 
 MM_DEFAULT = 32
@@ -318,6 +326,62 @@ class HESICFastCodec(HESICCodec):
         merged = tuple(torch.cat([o[i] for o in outs]) if len(outs) > 1
                        else outs[0][i] for i in range(len(outs[0])))
         return merged if len(merged) > 1 else merged[0]
+
+    # ---- cost accounting ----
+
+    def device_flops(self, h_img: int, w_img: int, cap: int = 32,
+                     win: int = 64, xwin=None) -> dict:
+        """PyTorch's count of matmuls and convolutions (FlopCounterMode) in
+        one encode and decode round trip of `codec_batch` h_img x w_img
+        pairs.  Runs each program once under torch.no_grad() on seeded
+        images of those shapes, on the codec's device, each program's
+        inputs the previous ones' outputs: ``transforms_enc``, ``cond1``
+        and ``cond2`` (the conditioning at the canonical batch and the
+        grid cap), ``encode_stream`` and ``decode_stream`` (kernels 2 and
+        3: 0.0, as the kernels are opaque), ``synth_out``
+        (``_synthesize``).  flops_total = transforms_enc + 2 cond1 + 2
+        cond2 + 2 encode_stream + 2 decode_stream + synth_out, as the JAX
+        package sums it.  Returns {"flops_total", "flops_per_pair",
+        "per_program"}.
+
+        `cap`, `win` and `xwin` are the JAX signature's.  The port's warp
+        is a gather, which the counter does not count, so `win` and
+        `xwin` do not move the count (the JAX package's warp is a
+        matmul); `cap` is a word budget of kernel 2, which the count does
+        not see.  On the card it launches kernel 1 twice and kernels 2
+        and 3 once each.  The codec's tables, grids and determinism
+        policy are left as they were."""
+        b, mm = self.codec_batch, self.mm
+        hy, wy = h_img // 16, w_img // 16
+        ppl = auto_ppl(hy * wy)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        x1, x2 = (self._to_device(torch.rand(
+            (b, h_img, w_img, 3), generator=gen, device=self.device))
+            for _ in range(2))
+        h, _ = self._homographies(np.eye(3, dtype=np.float32)[None], b)
+        per = {}
+
+        def count(name, fn, *args):
+            out, per[name] = counted_flops(fn, *args)
+            return out
+
+        with torch.no_grad():
+            y1, y2, z1, z2, dc1, dc2, _, _ = count(
+                "transforms_enc", self.transforms_enc, x1, x2, h, win)
+            freq1 = count("cond1", self._cond1_fn, z1, dc1, mm)
+            freq2, aux = count("cond2", self._cond2_fn, y1, z2, h, dc2, mm,
+                               win)
+            words, counts, states, _, dead = count(
+                "encode_stream", _encode_stream, freq1, y1, mm, dc1, ppl,
+                default_cap(self.model.M, ppl))
+            count("decode_stream", _decode_stream, freq1, words, counts,
+                  states, mm, hy, wy, dc1, ppl, dead)
+            count("synth_out", self._synthesize, aux, y2, h, win)
+        total = (per["transforms_enc"] + 2 * per["cond1"] + 2 * per["cond2"]
+                 + 2 * per["encode_stream"] + 2 * per["decode_stream"]
+                 + per["synth_out"])
+        return {"flops_total": total, "flops_per_pair": total / b,
+                "per_program": per}
 
     # ---- side streams (the card only) ----
 

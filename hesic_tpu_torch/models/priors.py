@@ -88,6 +88,11 @@ class _ListStacks(nn.Module):
     def hyper_synthesis(self, z_hat):
         return self._stack("h_s", z_hat)
 
+    def eb_medians(self) -> dict:
+        """{"entropy_bottleneck": its (C,) medians}, the JAX modules'
+        method."""
+        return {"entropy_bottleneck": self.entropy_bottleneck.medians()}
+
     def aux_loss(self) -> torch.Tensor:
         return self.entropy_bottleneck.loss()
 

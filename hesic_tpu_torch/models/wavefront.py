@@ -37,7 +37,13 @@ equal parameters their frequency rows are bit-equal (both strict IEEE).
 Encode and decode must therefore run the same backend: the containers
 carry a backend byte (models/ar_device.py).  ``ar_wavefront`` dispatches
 on the device of ``pre``: a CPU tensor runs the twin, a CUDA tensor
-launches the kernel (codecs/csrc/wavefront.cu) or raises.
+launches the kernel (codecs/csrc/wavefront.cu) or raises.  It does so
+through one registered operator, ``hesic_tpu_torch::ar_wavefront``
+(``torch.library.custom_op``), so that PyTorch's FLOP counter
+(``torch.utils.flop_counter.FlopCounterMode``, the codecs'
+``device_flops``) sees a pass as one opaque call on either device, as
+XLA's cost analysis saw the Pallas kernel: the twin's products are not
+counted on the CPU, the kernel's cannot be counted on the card.
 
 The kernel computes the first MLP layer in split form: the hoisted
 product ``base = pre @ w0[0:P] + post @ w0[P+2M:] + b0`` (twin
@@ -53,7 +59,7 @@ twin runs the real widths.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -510,10 +516,33 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
     return starts, freqs, y_hat, resid
 
 
-def ar_wavefront(weights, pre, post, y_true, corr_mask, corr_val, words,
-                 counts, states, teacher: bool, mm: int, groups: int):
-    """One eye pass: the kernel for CUDA tensors, the plain twin on the
-    CPU."""
+def _flat_weights(weights) -> tuple:
+    """(the raw weights' tensors, the packed ones or [], q_dim) of an
+    ArWeights or a PackedArWeights: the operator's weight arguments."""
+    raw = raw_weights(weights)
+    flat = [raw.ctx_kernel, raw.ctx_bias, *raw.ep_kernels, *raw.ep_biases]
+    if isinstance(weights, PackedArWeights):
+        return flat, list(weights[2:]), weights.q_dim
+    return flat, [], 0
+
+
+def _weights_from_flat(raw: list, packed: list, q_dim: int):
+    """Inverse of _flat_weights."""
+    n = (len(raw) - 2) // 2
+    w = ArWeights(raw[0], raw[1], tuple(raw[2:2 + n]), tuple(raw[2 + n:]))
+    return PackedArWeights(w, q_dim, *packed) if packed else w
+
+
+@torch.library.custom_op("hesic_tpu_torch::ar_wavefront", mutates_args=())
+def _ar_wavefront_op(
+        raw: list[torch.Tensor], packed: list[torch.Tensor], q_dim: int,
+        pre: torch.Tensor, post: Optional[torch.Tensor],
+        y_true: Optional[torch.Tensor], corr_mask: Optional[torch.Tensor],
+        corr_val: Optional[torch.Tensor], words: Optional[torch.Tensor],
+        counts: Optional[torch.Tensor], states: Optional[torch.Tensor],
+        teacher: bool, mm: int, groups: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    weights = _weights_from_flat(raw, packed, q_dim)
     if pre.is_cuda:
         return ar_wavefront_cuda(weights, pre, post, y_true, corr_mask,
                                  corr_val, words, counts, states, teacher,
@@ -521,3 +550,13 @@ def ar_wavefront(weights, pre, post, y_true, corr_mask, corr_val, words,
     return ar_wavefront_plain(raw_weights(weights), pre, post, y_true,
                               corr_mask, corr_val, words, counts, states,
                               teacher, mm, groups)
+
+
+def ar_wavefront(weights, pre, post, y_true, corr_mask, corr_val, words,
+                 counts, states, teacher: bool, mm: int, groups: int):
+    """One eye pass: the kernel for CUDA tensors, the plain twin on the
+    CPU, as the one operator hesic_tpu_torch::ar_wavefront (opaque to
+    the FLOP counter)."""
+    return torch.ops.hesic_tpu_torch.ar_wavefront(
+        *_flat_weights(weights), pre, post, y_true, corr_mask, corr_val,
+        words, counts, states, teacher, mm, groups)
