@@ -9,6 +9,8 @@ mixture over the y latents.  Likelihoods are float32 (erfc near the
 1e-9 bound underflows in bf16); softplus is ``logaddexp(x, 0)``, the JAX
 package's formulation.  ``GaussianConditional`` is the single Gaussian
 over the y latents of the autoregressive families (mbt2018, HESIC+).
+The bottleneck's and the mixture's forwards run in a ``likelihoods``
+span (utils/tracing.py) while a profiler records.
 
 ``gmm_pmf`` evaluates the mixture's PMF on a symbol grid, the
 reference-layout codecs' per-pixel CDF rows; ``gmm_pmf_edges`` the same
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 
 from ..ops import lower_bound, quantize
+from ..utils.tracing import span
 
 LIKELIHOOD_BOUND = 1e-9    # every likelihood's floor, through lower_bound
 SCALE_BOUND = 0.11         # the Gaussians' smallest scale
@@ -253,13 +256,15 @@ class EntropyBottleneck(nn.Module):
         contiguous, so the noise is drawn in that order whatever h and w
         (at 1x1 the reshape alone would give a batch-major view)."""
         b, c, h, w = x.shape
-        values = x.permute(1, 2, 3, 0).reshape(c, 1, -1).contiguous()
-        if training:
-            values = quantize(values, "noise", generator=generator)
-        else:
-            values = quantize(values, "dequantize",
-                              means=self.quantiles[:, :, 1:2])
-        likelihood = lower_bound(self._likelihood(values), LIKELIHOOD_BOUND)
+        with span("likelihoods"):
+            values = x.permute(1, 2, 3, 0).reshape(c, 1, -1).contiguous()
+            if training:
+                values = quantize(values, "noise", generator=generator)
+            else:
+                values = quantize(values, "dequantize",
+                                  means=self.quantiles[:, :, 1:2])
+            likelihood = lower_bound(self._likelihood(values),
+                                     LIKELIHOOD_BOUND)
 
         def nchw(t):
             return t.reshape(c, h, w, b).permute(3, 0, 1, 2)
@@ -351,10 +356,11 @@ class GaussianMixtureConditional(nn.Module):
     def forward(self, inputs, scales, means, weights, training: bool = False,
                 generator=None):
         """inputs (B, M, h, w) -> (outputs, likelihoods), both that shape."""
-        if training:
-            outputs = quantize(inputs, "noise", generator=generator)
-        else:
-            outputs = quantize(inputs, "dequantize")
-        return outputs, lower_bound(
-            self._likelihood(outputs, scales, means, weights),
-            LIKELIHOOD_BOUND)
+        with span("likelihoods"):
+            if training:
+                outputs = quantize(inputs, "noise", generator=generator)
+            else:
+                outputs = quantize(inputs, "dequantize")
+            return outputs, lower_bound(
+                self._likelihood(outputs, scales, means, weights),
+                LIKELIHOOD_BOUND)

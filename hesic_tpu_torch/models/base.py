@@ -41,6 +41,7 @@ from ..entropy_models import (CdfTables, compress_with_indexes,
                               tables_from_pmf)
 from ..utils.persist import load_params, params_of, read_pickle, \
     write_pickle
+from ..utils.tracing import count
 
 
 def deterministic_backends():
@@ -107,8 +108,10 @@ class CompressionModel:
         it).  The pinned buffer may be dropped at once: PyTorch's caching
         host allocator records an event for the non-blocking copy out of
         it and does not hand the block out again before that event has
-        passed."""
+        passed.  Traced as ``count/h2d_bytes`` (on the CPU, the bytes the
+        card would take)."""
         a = np.asarray(a)
+        count("h2d_bytes", a.nbytes)
         if not a.flags.writeable:
             a = a.copy(order="K")
         host = torch.from_numpy(a)

@@ -24,6 +24,11 @@ branch.
 PyTorch: one in-place ``addcmul_`` per shift.  It is no TPU kernel (the
 JAX package leaves it to XLA to fuse).
 
+Tracing (utils/tracing.py, entered only while a profiler records): each
+``Conv3D`` and ``GroupNorm`` forward runs in a ``dsic/3-D branch`` or
+``dsic/GroupNorm`` span, each ``dense_warp`` in ``dsic/dense_warp`` and
+each ``upsample_bilinear_ac`` in ``dsic/upsampling``.
+
 Stage 2 (``DSICPlus``): DSIC and a per-eye enhancement without warp or
 cross-view input (``IndependentEnhancementNoWarp``).
 """
@@ -37,6 +42,7 @@ from torch import nn
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
 from ..layers import GDN, Conv, Deconv
 from ..layers.conv import _kaiming_
+from ..utils.tracing import span
 from .hesic import (Enhancement, GmmHyperY1, GmmHyperY2, HyperEncoder,
                     Together)
 
@@ -74,14 +80,16 @@ class Conv3D(nn.Module):
         return band.reshape(depth * o, depth * i, k, k)
 
     def forward(self, x):
-        d = self.dtype or x.dtype
-        if x.dim() == 5:
-            out = F.conv3d(x.to(d), self.weight.to(d), padding=self.padding)
-            return out + self.bias.to(d)[None, :, None, None, None]
-        depth = x.shape[1] // self.weight.shape[1]
-        out = F.conv2d(x.to(d), self.band_weight(depth).to(d),
-                       padding=self.padding)
-        return out + self.bias.repeat(depth).to(d)[None, :, None, None]
+        with span("dsic/3-D branch"):
+            d = self.dtype or x.dtype
+            if x.dim() == 5:
+                out = F.conv3d(x.to(d), self.weight.to(d),
+                               padding=self.padding)
+                return out + self.bias.to(d)[None, :, None, None, None]
+            depth = x.shape[1] // self.weight.shape[1]
+            out = F.conv2d(x.to(d), self.band_weight(depth).to(d),
+                           padding=self.padding)
+            return out + self.bias.repeat(depth).to(d)[None, :, None, None]
 
 
 class GroupNorm(nn.Module):
@@ -102,18 +110,19 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        b, c = x.shape[:2]
-        g = self.num_groups
-        folds = c // self.weight.shape[0]
-        x32 = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
-            b, g, c // g, -1)
-        mean = x32.mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp_min((x32 * x32).mean(dim=(2, 3), keepdim=True)
-                              - mean * mean, 0.0)
-        scale = self.weight.repeat(folds).reshape(1, g, c // g, 1)
-        bias = self.bias.repeat(folds).reshape(1, g, c // g, 1)
-        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
-        return y.reshape(x.shape).to(self.dtype or x.dtype)
+        with span("dsic/GroupNorm"):
+            b, c = x.shape[:2]
+            g = self.num_groups
+            folds = c // self.weight.shape[0]
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+                b, g, c // g, -1)
+            mean = x32.mean(dim=(2, 3), keepdim=True)
+            var = torch.clamp_min((x32 * x32).mean(dim=(2, 3), keepdim=True)
+                                  - mean * mean, 0.0)
+            scale = self.weight.repeat(folds).reshape(1, g, c // g, 1)
+            bias = self.bias.repeat(folds).reshape(1, g, c // g, 1)
+            y = (x32 - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+            return y.reshape(x.shape).to(self.dtype or x.dtype)
 
 
 def _interp_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -137,10 +146,11 @@ def upsample_bilinear_ac(x: torch.Tensor, scale: int) -> torch.Tensor:
     interpolation matrices cast to the input's dtype, rows then columns,
     two products.  Serves the folded (B, C*F0, h, w) layout and the 5-D
     (B, F0, C, h, w) one alike."""
-    hy, wy = x.shape[-2:]
-    mh = _interp_matrix(hy, hy * scale, x.device).to(x.dtype)
-    mw = _interp_matrix(wy, wy * scale, x.device).to(x.dtype)
-    return torch.matmul(torch.matmul(mh, x), mw.t())
+    with span("dsic/upsampling"):
+        hy, wy = x.shape[-2:]
+        mh = _interp_matrix(hy, hy * scale, x.device).to(x.dtype)
+        mw = _interp_matrix(wy, wy * scale, x.device).to(x.dtype)
+        return torch.matmul(torch.matmul(mh, x), mw.t())
 
 
 def dense_warp(h1: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
@@ -149,13 +159,14 @@ def dense_warp(h1: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     weights over C rightward shifts; out[..., w] = sum_d cost[:, d, :, w]
     * h1[..., w + d], zero beyond the right edge, summed d = 0..C-1 in the
     features' dtype."""
-    h1 = h1.detach()
-    c, w = cost.shape[1], h1.shape[-1]
-    h1p = F.pad(h1, (0, c - 1))
-    out = torch.zeros_like(h1)
-    for d in range(c):
-        out.addcmul_(cost[:, d:d + 1], h1p[..., d:d + w])
-    return out
+    with span("dsic/dense_warp"):
+        h1 = h1.detach()
+        c, w = cost.shape[1], h1.shape[-1]
+        h1p = F.pad(h1, (0, c - 1))
+        out = torch.zeros_like(h1)
+        for d in range(c):
+            out.addcmul_(cost[:, d:d + 1], h1p[..., d:d + w])
+        return out
 
 
 class Encoder1WithTaps(nn.Module):

@@ -35,10 +35,22 @@ the grid travel as escapes, so every container stays exact.
 runs on the current stream, in issue order, so a pipelined container is
 the synchronous one of the same batch and grids, byte for byte.
 ``decompress_fast_batch`` only dispatches; ``decompress_fast``
-synchronises before it returns.  The host stages run inside
-``torch.profiler.record_function`` ranges named as the JAX package's
-``_tick`` labels (``enc/z-rans+unpack``, ``enc/container``,
-``dec/z-rans``, ``dec/words-rebuild``, ...).
+synchronises before it returns.
+
+Tracing (utils/tracing.py; entered only while a profiler records).  Each
+public call is a span ``codec/<method>`` holding ``count/batch`` (the
+encode's sequence number, carried in its handle, or the decode's) and
+``count/device_allocs``; inside it, a span at every stage:
+``enc/transforms``, ``enc/wait-spreads``, ``enc/cond1``, ``enc/cond2``,
+``enc/rans``, ``enc/compact``, ``enc/fetch``, ``enc/wait-copies``,
+``enc/words-d2h``, ``enc/wait-words``, ``enc/outliers`` (around
+``enc/wait-outliers``), ``enc/z-rans``, ``enc/container``; ``dec/parse``,
+``dec/outliers-parse``, ``dec/z-rans``, ``dec/stage``, ``dec/upload``,
+``dec/expand-words``, ``dec/corr-map``, ``dec/cond1``, ``dec/rans``,
+``dec/cond2``, ``dec/synthesis``, ``dec/wait``.  A ``wait`` stage is the
+host blocked on the device.  Counters: ``count/h2d_bytes`` (``_upload``),
+``count/d2h_bytes`` (``_fetch``, ``_fetch_words``), ``count/latents`` and
+``count/escapes`` (``_host_pieces``).
 
 Bit-exactness invariant: everything that parameterizes the coder (GMM
 heads -> frequency rows, including the decoded-left re-encoding chain)
@@ -90,7 +102,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..codecs.device_rans import (pack_counts, pack_stream_dense,
                                   unpack_counts, unpack_stream_dense)
@@ -98,6 +109,7 @@ from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
                                 rans_encode_grid_rows)
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
+from ..utils.tracing import call, count, span
 from .base import counted_flops
 from .hesic_codec import HESICCodec
 
@@ -275,6 +287,10 @@ class HESICFastCodec(HESICCodec):
         # pipelined encode's one piece of sticky state
         self._next_mm = None
         self._side_streams = None
+        # encodes and decodes begun: the next one's sequence number, which
+        # its trace's count/batch carries
+        self._encodes = 0
+        self._decodes = 0
 
     # ---- shared conditioning programs (identical on both sides) ----
 
@@ -402,6 +418,7 @@ class HESICFastCodec(HESICCodec):
         pinned buffers on the copy stream.  Returns {"ready": the compute
         event, "copied": the copies' event, "host": {name: host tensor}};
         on the CPU the tensors themselves, and no events."""
+        count("d2h_bytes", sum(t.nbytes for t in dev.values()))
         if self.device.type != "cuda":
             return {"ready": None, "copied": None, "host": dict(dev)}
         ready = torch.cuda.Event()
@@ -424,20 +441,26 @@ class HESICFastCodec(HESICCodec):
         compacted vector) as numpy u16, copied on the finish stream after
         the handle's compute event."""
         words = handle["words"]
+        count("d2h_bytes", 2 * sum(totals))
         if self.device.type != "cuda":
-            return [w[:n].numpy().view(np.uint16)
-                    for w, n in zip(words, totals)]
-        stream = self._streams()[1]
-        host = [torch.empty(n, dtype=torch.int16, pin_memory=True)
-                for n in totals]
-        with torch.cuda.stream(stream):
-            stream.wait_event(handle["ready"])
-            for dst, w, n in zip(host, words, totals):
-                w.record_stream(stream)
-                dst.copy_(w[:n], non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        done.synchronize()
+            with span("enc/words-d2h"):
+                out = [w[:n].numpy().view(np.uint16)
+                       for w, n in zip(words, totals)]
+            with span("enc/wait-words"):     # nothing to wait for here
+                return out
+        with span("enc/words-d2h"):
+            stream = self._streams()[1]
+            host = [torch.empty(n, dtype=torch.int16, pin_memory=True)
+                    for n in totals]
+            with torch.cuda.stream(stream):
+                stream.wait_event(handle["ready"])
+                for dst, w, n in zip(host, words, totals):
+                    w.record_stream(stream)
+                    dst.copy_(w[:n], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+        with span("enc/wait-words"):
+            done.synchronize()
         return [dst.numpy().view(np.uint16) for dst in host]
 
     # ---- encoder side ----
@@ -474,9 +497,11 @@ class HESICFastCodec(HESICCodec):
         made from every rank's pairs: `warp` = (win, xwin), and
         `agree_spreads`, which maps the (2,) spreads to the batch's before
         the grids are picked.  Returns the handle compress_fast_finish
-        reads."""
+        reads (its "seq": the encode's sequence number)."""
         t0 = time.perf_counter()
-        with record_function("enc/dispatch-transforms"):
+        seq = self._encodes
+        self._encodes += 1
+        with span("enc/transforms"):
             x1, x2 = self._to_device(x1), self._to_device(x2)
             b, _, h_img, w_img = x1.shape
             h, h_np = self._homographies(h_matrix, b)
@@ -487,7 +512,7 @@ class HESICFastCodec(HESICCodec):
             (y1_hat, y2_hat, z1_sym, z2_sym, dc1, dc2, sp1,
              sp2) = self.transforms_enc(x1, x2, h, win)
         if mm is None:
-            with record_function("enc/spread-sync"):
+            with span("enc/wait-spreads"):
                 sp = torch.stack([sp1, sp2])
                 if agree_spreads is not None:
                     sp = agree_spreads(sp)
@@ -495,23 +520,28 @@ class HESICFastCodec(HESICCodec):
                 sp = sp.tolist()
             mm = (pick_mm(sp[0], self.mm), pick_mm(sp[1], self.mm))
         mm1, mm2 = mm
-        with record_function("enc/dispatch-streams"):
+        with span("enc/cond1"):
             freq1 = self._cond1(z1_sym, dc1, mm1)
+        with span("enc/cond2"):
             freq2, _ = self._cond2(y1_hat, z2_sym, h, dc2, mm2, win)
+        with span("enc/rans"):
             hy, wy = y1_hat.shape[2], y1_hat.shape[3]
             ppl = auto_ppl(hy * wy)
             cap = default_cap(self.model.M, ppl)
             s1 = _encode_stream(freq1, y1_hat, mm1, dc1, ppl, cap)
             s2 = _encode_stream(freq2, y2_hat, mm2, dc2, ppl, cap)
+        with span("enc/compact"):
+            words = (compact_words(s1[0], s1[1]),
+                     compact_words(s2[0], s2[1]))
+        with span("enc/fetch"):
             meta = torch.cat([t.reshape(-1).to(torch.int64) for t in (
                 s1[1], s2[1], s1[2], s2[2], dc1, dc2, sp1, sp2, s1[3],
                 s2[3], s1[4], s2[4])])
             z = torch.cat([t.permute(0, 2, 3, 1).reshape(-1)
                            for t in (z1_sym, z2_sym)])
-            words = (compact_words(s1[0], s1[1]),
-                     compact_words(s2[0], s2[1]))
             fetched = self._fetch({"meta": meta, "z": z})
-        return {"mode": "async", "t0": t0, "mm": (mm1, mm2), "win": win,
+        return {"mode": "async", "seq": seq, "t0": t0, "mm": (mm1, mm2),
+                "win": win,
                 "xwin": xw, "h_np": h_np, "shape": (h_img, w_img),
                 "lanes": s1[1].shape[1], "cap": cap,
                 "z_shape": tuple(z1_sym.permute(0, 2, 3, 1).shape),
@@ -530,9 +560,13 @@ class HESICFastCodec(HESICCodec):
         y = y_hat.permute(0, 2, 3, 1).reshape(b, -1)
         cen = center[:, None, None, :].expand(
             b, y_hat.shape[2], y_hat.shape[3], -1).reshape(b, -1)
-        pair, local = torch.nonzero(torch.abs(y - cen) > mm, as_tuple=True)
-        vals = y[pair, local]
-        pair, local, vals = (t.cpu().numpy() for t in (pair, local, vals))
+        # nonzero waits for the device to size its output, .cpu() to copy
+        with span("enc/wait-outliers"):
+            pair, local = torch.nonzero(torch.abs(y - cen) > mm,
+                                        as_tuple=True)
+            vals = y[pair, local]
+            pair, local, vals = (t.cpu().numpy() for t in (pair, local,
+                                                            vals))
         if pair.size != total:
             raise RuntimeError(
                 f"outlier collection found {pair.size} latents beyond the "
@@ -583,7 +617,7 @@ class HESICFastCodec(HESICCodec):
         eyes' outlier counts."""
         b = len(handle["y"][0])
         ls, m = handle["lanes"], self.model.M
-        with record_function("enc/fetch-block"):
+        with span("enc/wait-copies"):
             if handle["copied"] is not None:
                 handle["copied"].synchronize()
             meta = handle["host"]["meta"].numpy()
@@ -600,11 +634,12 @@ class HESICFastCodec(HESICCodec):
         # the next pipelined batch's grids, from this batch's spreads
         self._next_mm = (pick_mm(int(sp1[0]), self.mm),
                          pick_mm(int(sp2[0]), self.mm))
-        with record_function("enc/words-d2h"):
-            flat1, flat2 = self._fetch_words(
-                handle, [int(c1.sum()), int(c2.sum())])
-        with record_function("enc/outliers"):
+        flat1, flat2 = self._fetch_words(handle, [int(c1.sum()),
+                                                  int(c2.sum())])
+        with span("enc/outliers"):
             out1, out2 = self._outliers(handle, over1, over2)
+        count("latents", 2 * handle["y"][0].numel())
+        count("escapes", over1.sum() + over2.sum())
         zn = z.size // 2
         pieces = {
             "z": (z[:zn].reshape(handle["z_shape"]),
@@ -621,11 +656,11 @@ class HESICFastCodec(HESICCodec):
     def _containers(self, handle, p: dict, batch_container: bool) -> dict:
         """Containers from the host pieces: one per pair (format v3), or
         one for the batch (the JAX package's batch layout)."""
-        with record_function("enc/z-rans+unpack"):
+        with span("enc/z-rans"):
             z_strs = list(zip(
                 self.eb_encode_symbols("entropy_bottleneck1", p["z"][0]),
                 self.eb_encode_symbols("entropy_bottleneck2", p["z"][1])))
-        with record_function("enc/container"):
+        with span("enc/container"):
             b = len(z_strs)
             h_img, w_img = handle["shape"]
             mm1, mm2 = handle["mm"]
@@ -686,20 +721,22 @@ class HESICFastCodec(HESICCodec):
         container with batch_container=True, 'blob', 'bpp_real',
         'enctime', 'outliers': (eye1, eye2) latent counts beyond the
         grids}."""
-        return self._finish(self._encode_device(x1, x2, h_matrix),
-                            batch_container)
+        with call("codec/compress_fast", self._encodes, self.device):
+            return self._finish(self._encode_device(x1, x2, h_matrix),
+                                batch_container)
 
     @torch.no_grad()
     def compress_fast_start(self, x1, x2, h_matrix=None) -> dict:
         """Dispatch-only half of a pipelined batch encode, at the grid
         widths the last finished encode picked; nothing waits for the
         device.  The first call (no grids picked yet) runs the synchronous
-        batch encode and returns {"mode": "sync", "out": ...}."""
-        if self._next_mm is None:
-            return {"mode": "sync",
-                    "out": self.compress_fast(x1, x2, h_matrix,
-                                              batch_container=True)}
-        return self._encode_device(x1, x2, h_matrix, self._next_mm)
+        batch encode and returns {"mode": "sync", "seq", "out"}."""
+        with call("codec/compress_fast_start", self._encodes, self.device):
+            if self._next_mm is None:
+                handle = self._encode_device(x1, x2, h_matrix)
+                return {"mode": "sync", "seq": handle["seq"],
+                        "out": self._finish(handle, True)}
+            return self._encode_device(x1, x2, h_matrix, self._next_mm)
 
     @torch.no_grad()
     def compress_fast_finish(self, handle) -> dict:
@@ -707,11 +744,12 @@ class HESICFastCodec(HESICCodec):
         that batch's copies only, and records the grids its spreads pick
         for the next start.  ``fallback`` is always False: the port's
         pipelined encode has nothing to fall back from."""
-        if handle["mode"] == "sync":
-            return handle["out"]
-        out = self._finish(handle, True)
-        out["fallback"] = False
-        return out
+        with call("codec/compress_fast_finish", handle["seq"], self.device):
+            if handle["mode"] == "sync":
+                return handle["out"]
+            out = self._finish(handle, True)
+            out["fallback"] = False
+            return out
 
     # ---- decoder side ----
 
@@ -728,7 +766,8 @@ class HESICFastCodec(HESICCodec):
         idx = np.concatenate([i * per + idx.astype(np.int64)
                               for i, (idx, _) in enumerate(outliers)])
         vals = np.concatenate([val.astype(np.int64) for _, val in outliers])
-        up = self._upload(np.concatenate([idx, vals]))
+        with span("dec/upload"):
+            up = self._upload(np.concatenate([idx, vals]))
         n = idx.size
         mask = torch.zeros(b * per, dtype=torch.bool, device=self.device)
         mask[up[:n]] = True
@@ -762,15 +801,20 @@ class HESICFastCodec(HESICCodec):
         hy, wy = key[4] // 16, key[5] // 16
         (w1, c1, st1), (w2, c2, st2) = streams
         ppl = (hy * wy) // c1.shape[1]
-        freq1 = self._cond1(z1_sym, cen[0], mm1)
-        y1 = _decode_stream(freq1, w1, c1, st1, mm1, hy, wy, cen[0], ppl,
-                            dead[0])
-        y1 = self._apply_corr(y1, corr[0])
-        freq2, aux = self._cond2(y1, z2_sym, h, cen[1], mm2, win)
-        y2 = _decode_stream(freq2, w2, c2, st2, mm2, hy, wy, cen[1], ppl,
-                            dead[1])
-        y2 = self._apply_corr(y2, corr[1])
-        x1_hat, x2_hat = self._synthesize(aux, y2, h, win)
+        with span("dec/cond1"):
+            freq1 = self._cond1(z1_sym, cen[0], mm1)
+        with span("dec/rans"):
+            y1 = _decode_stream(freq1, w1, c1, st1, mm1, hy, wy, cen[0],
+                                ppl, dead[0])
+            y1 = self._apply_corr(y1, corr[0])
+        with span("dec/cond2"):
+            freq2, aux = self._cond2(y1, z2_sym, h, cen[1], mm2, win)
+        with span("dec/rans"):
+            y2 = _decode_stream(freq2, w2, c2, st2, mm2, hy, wy, cen[1],
+                                ppl, dead[1])
+            y2 = self._apply_corr(y2, corr[1])
+        with span("dec/synthesis"):
+            x1_hat, x2_hat = self._synthesize(aux, y2, h, win)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).contiguous()
@@ -855,26 +899,31 @@ class HESICFastCodec(HESICCodec):
         rebuilt on the device (expand_words).  Returns (z1_sym, z2_sym,
         h, centres, bitmaps, per eye (words, counts, states))."""
         b, lanes = streams[0][1].shape
-        parts = [streams[0][1], streams[1][1], streams[0][2].view(np.int32),
-                 streams[1][2].view(np.int32), z[0], z[1], cen, dead,
-                 h_np.view(np.int32)]
-        for flat, _, _ in streams:
-            even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
-            even[: flat.size] = flat
-            parts.append(even.view(np.int32))
-        sizes = [p.size for p in parts]
-        buf = self._upload(np.concatenate(
-            [p.astype(np.int32, copy=False).reshape(-1) for p in parts]))
-        (c1, c2, st1, st2, z1d, z2d, cen_d, dead_d, h_d, w1,
-         w2) = torch.split(buf, sizes)
-        counts = [c.reshape(b, lanes) for c in (c1, c2)]
-        states = [(s.to(torch.int64) & 0xFFFFFFFF).reshape(b, lanes)
-                  for s in (st1, st2)]
-        words = []
-        for w, (flat, c, _), cd in zip((w1, w2), streams, counts):
-            dense = w.view(torch.int16)[: flat.size].to(torch.int32)
-            words.append(expand_words(dense & 0xFFFF, cd,
-                                      max(int(c.max()), 1)))
+        with span("dec/stage"):
+            parts = [streams[0][1], streams[1][1],
+                     streams[0][2].view(np.int32),
+                     streams[1][2].view(np.int32), z[0], z[1], cen, dead,
+                     h_np.view(np.int32)]
+            for flat, _, _ in streams:
+                even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
+                even[: flat.size] = flat
+                parts.append(even.view(np.int32))
+            sizes = [p.size for p in parts]
+            packed = np.concatenate(
+                [p.astype(np.int32, copy=False).reshape(-1) for p in parts])
+        with span("dec/upload"):
+            buf = self._upload(packed)
+        with span("dec/expand-words"):
+            (c1, c2, st1, st2, z1d, z2d, cen_d, dead_d, h_d, w1,
+             w2) = torch.split(buf, sizes)
+            counts = [c.reshape(b, lanes) for c in (c1, c2)]
+            states = [(s.to(torch.int64) & 0xFFFFFFFF).reshape(b, lanes)
+                      for s in (st1, st2)]
+            words = []
+            for w, (flat, c, _), cd in zip((w1, w2), streams, counts):
+                dense = w.view(torch.int16)[: flat.size].to(torch.int32)
+                words.append(expand_words(dense & 0xFFFF, cd,
+                                          max(int(c.max()), 1)))
         z1_sym, z2_sym = (t.reshape(zz.shape).permute(0, 3, 1, 2)
                           .contiguous() for t, zz in zip((z1d, z2d), z))
         m = cen.shape[-1]
@@ -887,10 +936,16 @@ class HESICFastCodec(HESICCodec):
         """Decompress one per-pair container (bytes) or a batch of them
         (list of bytes) that share grid widths, warp windows and image
         size; synchronises before it returns."""
+        with call("codec/decompress_fast", self._decodes, self.device):
+            self._decodes += 1
+            return self._decompress_fast(blobs)
+
+    def _decompress_fast(self, blobs) -> dict:
+        """decompress_fast inside its span."""
         start = time.perf_counter()
         if isinstance(blobs, (bytes, bytearray)):
             blobs = [bytes(blobs)]
-        with record_function("dec/parse"):
+        with span("dec/parse"):
             parsed = [self._parse_pair(blob) for blob in blobs]
         key = parsed[0]["key"]
         for p in parsed[1:]:
@@ -901,28 +956,30 @@ class HESICFastCodec(HESICCodec):
                     f"{p['key']}")
         y_shape = (key[4] // 16, key[5] // 16)
         z_shape = (y_shape[0] // 4, y_shape[1] // 4)
-        with record_function("dec/z-rans"):
+        with span("dec/z-rans"):
             z = [np.concatenate([self.eb_decode_streams(
                 name, blob, [p["ext"][e]], z_shape)
                 for blob, p in zip(blobs, parsed)])
                 for e, name in enumerate(("entropy_bottleneck1",
                                           "entropy_bottleneck2"))]
-        with record_function("dec/words-rebuild"):
+        with span("dec/stage"):
             streams = [(np.concatenate([p["streams"][e][0] for p in parsed]),
                         np.stack([p["streams"][e][1] for p in parsed]),
                         np.stack([p["streams"][e][2] for p in parsed]))
                        for e in range(2)]
-            z1_sym, z2_sym, h, cen, dead, streams = self._upload_decode(
-                streams, z, np.stack([p["centres"] for p in parsed], 1),
-                np.stack([p["dead"] for p in parsed], 1),
-                np.stack([p["h"] for p in parsed]))
+            cen = np.stack([p["centres"] for p in parsed], 1)
+            dead = np.stack([p["dead"] for p in parsed], 1)
+            h_np = np.stack([p["h"] for p in parsed])
+        z1_sym, z2_sym, h, cen, dead, streams = self._upload_decode(
+            streams, z, cen, dead, h_np)
+        with span("dec/corr-map"):
             corr = tuple(self._corr_map([p["outliers"][e] for p in parsed],
                                         y_shape) for e in range(2))
-        with record_function("dec/dispatch"):
-            out = self._decode_device(z1_sym, z2_sym, h, cen, dead, streams,
-                                      corr, key)
-        if out["x2_hat"].is_cuda:
-            torch.cuda.synchronize(out["x2_hat"].device)
+        out = self._decode_device(z1_sym, z2_sym, h, cen, dead, streams,
+                                  corr, key)
+        with span("dec/wait"):
+            if out["x2_hat"].is_cuda:
+                torch.cuda.synchronize(out["x2_hat"].device)
         out["dectime"] = time.perf_counter() - start
         return out
 
@@ -935,9 +992,15 @@ class HESICFastCodec(HESICCodec):
         in one pinned upload; the cap-major word buffers are rebuilt on
         the device.  Only dispatches: ``dectime`` is the dispatch time,
         and the caller synchronises when it needs the results."""
+        with call("codec/decompress_fast_batch", self._decodes, self.device):
+            self._decodes += 1
+            return self._decompress_fast_batch(blob, pairs)
+
+    def _decompress_fast_batch(self, blob: bytes, pairs: slice) -> dict:
+        """decompress_fast_batch inside its span."""
         start = time.perf_counter()
         m = self.model.M
-        with record_function("dec/parse"):
+        with span("dec/parse"):
             off = _check_format(blob, self.device)
             mm1, mm2, win = blob[off], blob[off + 1], blob[off + 2]
             xwin = blob[off + 3] * 16 or None
@@ -954,9 +1017,9 @@ class HESICFastCodec(HESICCodec):
                     off += 4
                     ext.append((off, off + int(length)))
                     off += int(length)
-        with record_function("dec/outliers-parse"):
+        with span("dec/outliers-parse"):
             out1, out2, off = self._parse_outliers_batch(blob, off, b)
-        with record_function("dec/parse"):
+        with span("dec/parse"):
             dead1, dead2, off = self._parse_dead_bitmaps(blob, off, b)
             cen = np.frombuffer(blob, np.int8, 2 * b * m, off)
             off += 2 * b * m
@@ -992,19 +1055,18 @@ class HESICFastCodec(HESICCodec):
                 streams, b = sel, hi - lo
         y_shape = (h_img // 16, w_img // 16)
         z_shape = (y_shape[0] // 4, y_shape[1] // 4)
-        with record_function("dec/z-rans"):
+        with span("dec/z-rans"):
             z1 = self.eb_decode_streams("entropy_bottleneck1", blob, ext1,
                                         z_shape)
             z2 = self.eb_decode_streams("entropy_bottleneck2", blob, ext2,
                                         z_shape)
-        with record_function("dec/words-rebuild"):
-            z1_sym, z2_sym, h, cen_t, dead_t, streams = self._upload_decode(
-                streams, (z1, z2), cen, np.stack([dead1, dead2]), h_np)
+        z1_sym, z2_sym, h, cen_t, dead_t, streams = self._upload_decode(
+            streams, (z1, z2), cen, np.stack([dead1, dead2]), h_np)
+        with span("dec/corr-map"):
             corr = (self._corr_map(out1, y_shape),
                     self._corr_map(out2, y_shape))
-        with record_function("dec/dispatch"):
-            out = self._decode_device(
-                z1_sym, z2_sym, h, cen_t, dead_t, streams, corr,
-                (mm1, mm2, win, xwin, h_img, w_img))
+        out = self._decode_device(
+            z1_sym, z2_sym, h, cen_t, dead_t, streams, corr,
+            (mm1, mm2, win, xwin, h_img, w_img))
         out["dectime"] = time.perf_counter() - start
         return out

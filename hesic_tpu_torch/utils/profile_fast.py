@@ -32,8 +32,8 @@ activities).  Prints the card, the encode and decode wall times, traced
 and untraced (tracing adds host time to every launch), the device time
 by kernel group (the port's kernels 1-5, cuDNN convolutions, other
 PyTorch kernels), the device's busy and idle shares of the traced wall
-time, the codec's host ranges (HESIC's ``enc/...`` and ``dec/...``
-ranges), and the ten longest kernels by name, then one JSON line with
+time, the codec's host spans (HESIC's ``codec/...``, ``enc/...`` and
+``dec/...``), and the ten longest kernels by name, then one JSON line with
 the same numbers.  Kernel 5's
 launches group as its hoisted product, its context stage, its three MLP
 stages and its coder.  Device time is the sum of the kernels' own times
@@ -47,9 +47,9 @@ untraced step, then traces one.  The device time is split by the
 operations that launched it: convolutions forward (cuDNN, deconvolutions
 included) and backward, the warp's gather and its backward (a
 scatter-add), the likelihoods' work (the bottlenecks' and mixtures'
-forwards, marked by module hooks, and the backward of every operation
-they ran, matched by autograd sequence number), the Adam update, and the
-rest.
+forwards, inside their own ``likelihoods`` spans, and the backward of
+every operation they ran, matched by autograd sequence number), the Adam
+update, and the rest.
 
 ``--model hesic-batch`` profiles the port's bench loop
 (``hesic_tpu_torch.bench``): HESIC N=128/M=192/K=5, bf16, calibrated as
@@ -62,8 +62,8 @@ the device's busy time (the union of its kernels and copies over every
 stream) and idle share of the traced wall time, the kernel time of
 kernels 1-3, softmax, cuDNN and the rest (memsets left out), the copies
 by direction and host memory (pinned or pageable), the codec's host
-ranges (``enc/...``,
-``dec/...``: the ``record_function`` ranges of models/hesic_fast.py),
+spans (``codec/...``, ``enc/...``, ``dec/...``: models/hesic_fast.py's,
+utils/tracing.py),
 the host time in CUDA runtime calls (a launch that blocks on a full
 queue, or a synchronize, shows there), and the longest kernels, then one
 JSON line with the same numbers.
@@ -73,8 +73,8 @@ N=128/M=192/F=21/C=32/K=5, bf16, calibrated (60 steps, no homography),
 batch 32 and mm 16 by default.  Its kernels are grouped by the operation
 that launched them: the 3-D branch (``Conv3D``: the folded band
 convolution and its band weight), ``GroupNorm``, ``dense_warp`` and the
-align-corners upsampling (profiler ranges around each, from module hooks
-and wrapped functions), then by name: kernels 1-3, softmax, cuDNN 2-D
+align-corners upsampling (the model's own ``dsic/...`` spans,
+models/dsic.py), then by name: kernels 1-3, softmax, cuDNN 2-D
 convolutions and the rest.  Before the trace it times, on cost volume
 1's 3-D branch input at that batch (scale 8), the folded band
 convolution against ``F.conv3d`` on the unfolded layout (CUDA events,
@@ -177,25 +177,6 @@ def _codec(model: str, batch: int, mm: int, calib_steps: int, rng):
     return trip
 
 
-def _marked(modules, label: str):
-    """Hooks that run each module's forward inside a profiler range named
-    `label`."""
-    from torch.profiler import record_function
-    open_ranges = []
-
-    def enter(module, args):
-        r = record_function(label)
-        r.__enter__()
-        open_ranges.append(r)
-
-    def leave(module, args, out):
-        open_ranges.pop().__exit__(None, None, None)
-
-    for m in modules:
-        m.register_forward_pre_hook(enter)
-        m.register_forward_hook(leave)
-
-
 def _kernels_of(evs):
     """The kernels (name, duration us) launched by profiler events and
     their children."""
@@ -216,7 +197,8 @@ def _top(kernels, n: int):
 
 def _step_breakdown(events) -> dict:
     """Kernels of one traced train step by the operations that launched
-    them: {group: kernels}; "other kernels" holds the rest."""
+    them: {group: kernels}; "other kernels" holds the rest.  The
+    likelihoods are the entropy models' own ``likelihoods`` spans."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
 
@@ -261,8 +243,6 @@ def train_main(batch: int) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..entropy_models import (EntropyBottleneck,
-                                  GaussianMixtureConditional)
     from ..models.base import deterministic_backends
     from ..models.hesic import HESIC
 
@@ -275,8 +255,6 @@ def train_main(batch: int) -> int:
                   seed=0)
     _, step, gen = trainer(model)
     data = train_batch(np.random.RandomState(0), batch, SIZE, "cuda")
-    _marked([m for m in model.modules() if isinstance(
-        m, (EntropyBottleneck, GaussianMixtureConditional))], "likelihoods")
 
     def timed_step():
         torch.cuda.synchronize()
@@ -355,8 +333,8 @@ def _tally(labelled) -> dict:
 
 def _range_groups(events, ranges) -> dict:
     """{group: [ms, launches]} of the device kernels of a trace: those
-    launched inside a profiler range of `ranges` under its name, the rest
-    by kernel name (kernels 1-3, softmax, cuDNN convolutions, other).
+    launched inside a span of `ranges` (the model's own ``dsic/...``
+    spans) under its name less the prefix, the rest by kernel name (kernels 1-3, softmax, cuDNN convolutions, other).
     The port's own kernels are launched through ctypes, outside any
     PyTorch operation, so every kernel is first tallied by name from the
     device's events, and the ranges' kernels are then moved to their
@@ -402,33 +380,9 @@ def _copy_kind(name: str) -> str:
     return f"{direction} {memory}"
 
 
+# DSIC's spans (models/dsic.py), each a kernel group of its own
 _DSIC_RANGES = ("dsic/3-D branch", "dsic/GroupNorm", "dsic/dense_warp",
                 "dsic/upsampling")
-
-
-def _dsic_marks(model):
-    """Profiler ranges around DSIC's Conv3D and GroupNorm modules (forward
-    hooks) and its dense_warp and upsampling functions (wrapped in the
-    model's module); returns the range names."""
-    from torch.profiler import record_function
-
-    from ..models import dsic
-
-    _marked([m for m in model.modules() if isinstance(m, dsic.Conv3D)],
-            _DSIC_RANGES[0])
-    _marked([m for m in model.modules() if isinstance(m, dsic.GroupNorm)],
-            _DSIC_RANGES[1])
-
-    def ranged(fn, label):
-        def call(*args):
-            with record_function(label):
-                return fn(*args)
-        return call
-
-    dsic.dense_warp = ranged(dsic.dense_warp, _DSIC_RANGES[2])
-    dsic.upsample_bilinear_ac = ranged(dsic.upsample_bilinear_ac,
-                                       _DSIC_RANGES[3])
-    return _DSIC_RANGES
 
 
 def _fold_forms(model, batch: int) -> dict:
@@ -495,7 +449,7 @@ def batch_main(batch: int, mm: int, homography: str,
     forms, ranges = None, ()
     if arch == "dsic":
         forms = _fold_forms(model, batch)
-        ranges = _dsic_marks(model)
+        ranges = _DSIC_RANGES
     bench.warm_up(codec, pool, h)
     state = {"prev": codec.compress_fast_finish(
         codec.compress_fast_start(*pool[0], h))["blob"],
@@ -527,7 +481,7 @@ def batch_main(batch: int, mm: int, homography: str,
                     if e.name.startswith("Memcpy"))
     host_side = [e for e in events if e.device_type != cuda]
     host = _tally((e.name, e) for e in host_side
-                  if e.name.startswith(("enc/", "dec/")))
+                  if e.name.startswith(("codec/", "enc/", "dec/")))
     runtime = _tally((e.name, e) for e in host_side
                      if e.name.startswith("cu")
                      and not e.name.startswith(("cudnn", "cublas")))
@@ -731,14 +685,14 @@ def main(argv=None) -> int:
 
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    # the codec's record_function ranges also appear on the device as
+    # the codec's spans also appear on the device as
     # user annotations spanning their kernels: they are not device work
     device = [e for e in events
               if e.device_type == cuda and not e.is_user_annotation]
     kernels = _tally((e.name, e) for e in device)
     groups = _tally((_group(e.name), e) for e in device)
     host = _tally((e.name, e) for e in events if e.device_type != cuda
-                  and e.name.startswith(("enc/", "dec/")))
+                  and e.name.startswith(("codec/", "enc/", "dec/")))
     busy_ms = sum(ms for ms, _ in kernels.values())
 
     print(f"card: {card}")
