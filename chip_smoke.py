@@ -139,7 +139,17 @@ and prints no result):
      at batch 32, 4 timed batches, identity H (DSIC ignores it), in
      modes 2 and 0, with phase 9's checks; then holds kernels 1-3 at batch
      32 on every grid those loops picked (bit-equal, timed, with bounds);
-     phase 9's FLOP count and MFU share come with its loops;
+     phase 9's FLOP count and MFU share come with its loops.  DSIC's dense
+     warp kernel must launch six times a round trip of one batch (three
+     warps an encode, three a decode) in the round trips and the timed
+     loops (never in HESIC's).  Then (phase_dense_warp) the dense warp
+     kernel against its plain twin (the loop of one addcmul_ a shift):
+     bit-equal on bf16 at the bench cell's six calls (batch 32, N 128, C
+     32; 256x256, 128x128 and 64x64, two seeds each), at 5 disparities,
+     at a width that is no multiple of a row segment and at one that is
+     no multiple of 4; float32 within DW_F32_TOL; DenseWarp's cost
+     gradient equal to autograd through the loop on bf16 and float32;
+     times the kernel and its twin at the cell's shapes beside its bound;
  11. drives mbt2018 at bench.py's ar-device point: N=192/M=192 float32
      (seeded random weights) through JointAutoregressiveDeviceCodec on 11
      smooth 512x512 images (phase 6's first eyes; mm 16, 8 groups) and
@@ -212,8 +222,9 @@ and prints no result):
      decoding with the H passed equal decoding with the header's.
      Prints bpp_real, bpp_side, the encode and decode seconds and the
      host coder's share of them.  Phases 15 and 16 launch none of the
-     five kernels: their coders are host C++ (the range coder, rANS), as
-     the JAX package's are;
+     five coder kernels: their coders are host C++ (the range coder,
+     rANS), as the JAX package's are (DSIC's transforms launch the dense
+     warp's);
  17. drives Cheng2020 through the wavefront device codec (the zoo builds
      both): cheng2020-anchor at quality 4 (N=192) on phase 11's 11
      images, round trips at random weights (mm 16, and mm 1 on the
@@ -244,7 +255,8 @@ and prints no result):
      against enhanced (information only: the enhancement is untrained).
      Then zoo.create_model builds every name at its lowest quality on
      the card (its default device), as the registry's classes.  Phase 18
-     launches none of the five kernels;
+     launches none of the five coder kernels (DSIC+'s transforms launch
+     the dense warp's);
  19. trains from image folders and keeps what was trained: writes stereo
      folders (8 train and 2 test pairs of 512x512 smooth images, the
      right eye the left warped by bench.py's real H) and a single-image
@@ -314,8 +326,9 @@ and prints no result):
      cross-check; kernels 1-3's times and bounds at batch 64 on the widest
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
-     included), then the device line {"ok": true, "device": {...}}
-     last.
+     included; the dense warp's summed over the six calls of a DSIC
+     round trip at batch 32), then the device line {"ok": true,
+     "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -419,6 +432,18 @@ BENCH_GRIDS = (4, 16)
 # at batch 8 (grid cap 32, and mm 4 for the escape case)
 DS_F, DS_C = 21, 32
 DS_BENCH_B, DS_BENCH_BATCHES = 32, 4
+# DSIC's dense warp (codecs/csrc/dense_warp.cu) at the bench cell's calls:
+# batch 32, N 128, C 32, the encoder's and the decoder's warps at 256x256,
+# 128x128 and 64x64 (each shape twice a round trip, on other inputs);
+# then off them: 5 disparities, a width that is no multiple of a row
+# segment (200) and one that is no multiple of 4 (90: the element-wise
+# loads and stores).  float32 within DW_F32_TOL of the twin (the existing
+# tolerance of the port's dense_warp tests); gradients at DW_GRAD_SHAPE.
+DW_SIZES = (256, 128, 64)
+DW_EXTRA = ((DS_BENCH_B, N, 64, 64, 5), (4, N, 24, 200, DS_C),
+            (4, 24, 16, 90, DS_C), (4, 24, 16, 90, 5))
+DW_F32_TOL = 1e-6
+DW_GRAD_SHAPE = (4, N, 64, 64)
 # a device sleep of ~1 s at the H100's ~2 GHz, queued ahead of a call that
 # must not wait for the device
 SLEEP_CYCLES = 2_000_000_000
@@ -1505,6 +1530,13 @@ def phase_bench(model, card: str, b: int = BENCH_B,
                         f"bench {name} [{what}, mode {mode}]: {kernel} "
                         f"launched {counts.get(kernel)} times for "
                         f"{n_batches} batches, not twice a batch")
+            # DSIC warps three times an encode and three times a decode
+            warps = 6 * n_batches if name == "DSIC" else 0
+            if counts.get("dense_warp", 0) != warps:
+                raise AssertionError(
+                    f"bench {name} [{what}, mode {mode}]: dense_warp "
+                    f"launched {counts.get('dense_warp', 0)} times for "
+                    f"{n_batches} batches, not {warps}")
             bench.check_exact(codec, batches, h, loop)
             outs = loop["containers"]
             grids.update(v for o in outs for v in o["blob"][1:3])
@@ -1534,6 +1566,144 @@ def phase_bench(model, card: str, b: int = BENCH_B,
     return launches, grids, blobs
 
 
+def warp_inputs(shape, c: int, seed: int, dtype):
+    """Seeded dense-warp inputs on the card: features (B, N, H, W) of both
+    signs and costs (B, c, H, W) softmaxed over the disparities, as the
+    cost volumes give them."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b, _, hh, w = shape
+    h1 = torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    cost = torch.softmax(3 * torch.randn((b, c, hh, w), generator=g,
+                                         device=DEVICE), dim=1).to(dtype)
+    return h1, cost
+
+
+def warp_bound(b: int, n: int, hh: int, w: int, c: int, itemsize: int):
+    """The dense warp's least time on the card: {"bytes": ms, "operations":
+    ms}.  Bytes: h1 and the costs read once, the output written once.
+    Operations: each tap the inputs need (x + d < W) is one f32
+    multiply-add, and on bf16 one rounding, at PEAK_F32_OPS."""
+    taps = b * n * hh * sum(min(c, w - x) for x in range(w))
+    nbytes = itemsize * (2 * b * n * hh * w + b * c * hh * w)
+    ops = taps * (2 if itemsize == 2 else 1)
+    return {"bytes": nbytes / PEAK_BYTES * 1e3,
+            "operations": ops / PEAK_F32_OPS * 1e3}
+
+
+def check_warp(label: str, shape, c: int, seed: int, dtype,
+               tol: float = 0.0) -> float:
+    """The kernel against its twin: bit-equal (tol 0) or within tol;
+    returns max |kernel - twin|."""
+    import torch
+    from hesic_tpu_torch.models import dsic
+    h1, cost = warp_inputs(shape, c, seed, dtype)
+    got = dsic.dense_warp_cuda(h1, cost)
+    want = dsic.dense_warp_plain(h1, cost)
+    sync()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"dense_warp {label}: {got.dtype} "
+                             f"{tuple(got.shape)} against the twin's "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if tol == 0:
+        same = torch.equal(got.view(torch.int16) if dtype == torch.bfloat16
+                           else got.view(torch.int32),
+                           want.view(torch.int16) if dtype == torch.bfloat16
+                           else want.view(torch.int32))
+        err = float((got.float() - want.float()).abs().max())
+        if not same:
+            raise AssertionError(f"dense_warp {label}: not bit-equal to its "
+                                 f"twin (max abs err {err})")
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"dense_warp {label}: max abs err {err} "
+                                 f"above {tol}")
+    return err
+
+
+def phase_dense_warp(card: str) -> dict:
+    """DSIC's dense warp kernel against its plain twin (models/dsic.py's
+    addcmul_ loop): bit-equal on bf16 at the bench cell's six calls
+    (DW_SIZES, two seeds each) and at DW_EXTRA; float32 within DW_F32_TOL;
+    the DenseWarp function's cost gradient equal to autograd through the
+    loop, in both dtypes, and its output as above.  Times kernel and twin at the cell's
+    shapes beside the bound.  Returns the sums over one round trip's six
+    calls."""
+    import torch
+    from hesic_tpu_torch.models import dsic
+
+    t0 = time.perf_counter()
+    err = 0.0
+    for size in DW_SIZES:
+        shape = (DS_BENCH_B, N, size, size)
+        for seed in (1, 2):
+            err = max(err, check_warp(f"bf16 {shape} C={DS_C} seed {seed}",
+                                      shape, DS_C, 100 * size + seed,
+                                      torch.bfloat16))
+        torch.cuda.empty_cache()
+    for b, n, hh, w, c in DW_EXTRA:
+        err = max(err, check_warp(f"bf16 {(b, n, hh, w)} C={c}",
+                                  (b, n, hh, w), c, w + c, torch.bfloat16))
+    f32_err = 0.0
+    for b, n, hh, w, c in ((8, N, 128, 128, DS_C), (4, 24, 16, 90, 5)):
+        f32_err = max(f32_err, check_warp(
+            f"float32 {(b, n, hh, w)} C={c}", (b, n, hh, w), c, 7 + w,
+            torch.float32, DW_F32_TOL))
+    for dtype in (torch.bfloat16, torch.float32):
+        h1, cost = warp_inputs(DW_GRAD_SHAPE, DS_C, 5, dtype)
+        g = torch.randn(DW_GRAD_SHAPE, device=DEVICE,
+                        generator=torch.Generator(device=DEVICE)
+                        .manual_seed(6)).to(dtype)
+        ref = cost.clone().requires_grad_(True)
+        fn = cost.clone().requires_grad_(True)
+        want = dsic.dense_warp_plain(h1, ref)
+        want.backward(g)
+        got = dsic.DenseWarp.apply(h1, fn)
+        got.backward(g)
+        sync()
+        out_err = float((got - want).detach().abs().max())
+        tol = DW_F32_TOL if dtype == torch.float32 else 0.0
+        if not (out_err <= tol and torch.equal(fn.grad, ref.grad)):
+            raise AssertionError(
+                f"dense_warp {dtype}: DenseWarp's output or cost gradient "
+                f"differs from autograd through the loop (max abs "
+                f"{out_err}, {float((fn.grad - ref.grad).abs().max())})")
+        if dtype == torch.float32:
+            f32_err = max(f32_err, out_err)
+    print(f"dense_warp: bit-equal to its twin on bf16 at the DSIC cell's "
+          f"six calls (B={DS_BENCH_B}, N={N}, C={DS_C}; {DW_SIZES}) and at "
+          f"{DW_EXTRA}; float32 max abs err {f32_err:.3e} (limit "
+          f"{DW_F32_TOL}); DenseWarp's cost gradient equal to autograd "
+          f"through the loop at {DW_GRAD_SHAPE}, bf16 and float32")
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    bys = set()
+    for size in DW_SIZES:
+        shape = (DS_BENCH_B, N, size, size)
+        h1, cost = warp_inputs(shape, DS_C, size, torch.bfloat16)
+        ms = cuda_ms(lambda: dsic.dense_warp_cuda(h1, cost), 20)
+        plain_ms = cuda_ms(lambda: dsic.dense_warp_plain(h1, cost), 3)
+        bound = warp_bound(*shape, DS_C, 2)
+        by = max(bound, key=bound.get)
+        bys.add(by)
+        print(f"kernel dense_warp bf16 {shape} C={DS_C} [{card}]: "
+              f"{ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+              f"{bound[by]:.4f} ms by {by} (bytes {bound['bytes']:.4f} ms), "
+              f"{100 * bound[by] / ms:.1f}% of it")
+        # each shape is warped twice a round trip: encoder and decoder
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound[by])):
+            total[k] += 2 * v
+        del h1, cost
+        torch.cuda.empty_cache()
+    print(f"kernel dense_warp, the six calls of a DSIC round trip at batch "
+          f"{DS_BENCH_B} [{card}]: {total['ms']:.4f} ms kernel, "
+          f"{total['plain_ms']:.3f} ms plain, bound {total['bound_ms']:.4f} "
+          f"ms; phase {time.perf_counter() - t0:.1f} s")
+    return {**total, "err": err, "bound_by": "/".join(sorted(bys))}
+
+
 def phase_dsic_path() -> tuple:
     """DSIC's fast codec at full width on 8 pairs (random weights): the
     per-pair and the batch container (grid cap 32), and an escape case
@@ -1559,11 +1729,17 @@ def phase_dsic_path() -> tuple:
     build.launch_counts.clear()
     runs = {}
     for label, (cdc, a, b, batch) in cases.items():
+        before = build.launch_counts["dense_warp"]
         out = cdc.compress_fast(a, b, batch_container=batch)
         rec = (cdc.decompress_fast_batch(out["blob"]) if batch
                else cdc.decompress_fast(out["blobs"]))
         sync()
         runs[label] = (out, rec)
+        warps = build.launch_counts["dense_warp"] - before
+        if warps != 6:
+            raise AssertionError(f"DSIC {label}: the dense warp kernel "
+                                 f"launched {warps} times in a round trip "
+                                 f"of one batch, not 6")
     launches = dict(build.launch_counts)
     if launches.get("grid_rans_encode") != 2 * len(cases):
         raise AssertionError(f"DSIC: kernel 2 launched "
@@ -2088,12 +2264,14 @@ def phase_hesic_plus_host(card: str, model, pairs, random_bpp: float):
 
 
 def no_kernel_launched(label: str) -> None:
-    """Raise if any kernel launched since build.launch_counts was
-    cleared."""
+    """Raise if any of the five coder kernels launched since
+    build.launch_counts was cleared (DSIC's transforms launch the dense
+    warp's kernel on any codec)."""
     from hesic_tpu_torch.codecs import build
-    if build.launch_counts:
-        raise AssertionError(f"{label} launched kernels "
-                             f"{dict(build.launch_counts)}")
+    coders = {k: v for k, v in build.launch_counts.items()
+              if v and k != "dense_warp"}
+    if coders:
+        raise AssertionError(f"{label} launched kernels {coders}")
 
 
 def phase_priors(card: str, x) -> None:
@@ -2176,8 +2354,8 @@ def phase_ref_codecs(card: str, hesic, dsic, plus, pairs) -> None:
     the identity H, the second at the rotated H (DSIC takes none).
     Decoded y1_hat/y2_hat must equal the encoder's, the reconstructions
     be finite and of the input's shape, and decoding with the H passed
-    equal decoding with the header's.  Launches none of the five
-    kernels."""
+    equal decoding with the header's.  Launches none of the five coder
+    kernels (DSIC's transforms launch the dense warp's)."""
     import numpy as np
     import torch
     from hesic_tpu_torch import bench
@@ -2468,7 +2646,7 @@ def phase_stage2(card: str, hesic, dsic, plus, pairs) -> None:
     enhancement is untrained).  Then zoo.create_model for every name at
     its lowest quality on the card: each model's parameters must be on
     the card and its codec the registry's class.  Launches none of the
-    five kernels."""
+    five coder kernels (DSIC+'s transforms launch the dense warp's)."""
     import numpy as np
     import torch
     from hesic_tpu_torch import bench, zoo
@@ -3345,6 +3523,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dsic_launches, _, dsic_model = phase_dsic(card)
     torch.cuda.empty_cache()
+    warp = phase_dense_warp(card)
+    torch.cuda.empty_cache()
     mbt_launches, mbt_held, (mbt_model, mbt_x, mbt_bpp) = phase_mbt(card)
     torch.cuda.empty_cache()
     plus_cal_launches, plus_model = phase_hesic_plus_calibrated(
@@ -3410,7 +3590,9 @@ def main() -> int:
                  "hesic_tpu/codecs/pallas_rans.py:349", ar_post["pairs"]),
              "ar_wavefront": ("hesic_tpu_torch/codecs/csrc/wavefront.cu",
                               "hesic_tpu/models/pallas_wavefront.py:245",
-                              ar_post["wavefront"])}
+                              ar_post["wavefront"]),
+             "dense_warp": ("hesic_tpu_torch/codecs/csrc/dense_warp.cu",
+                            None, warp)}
     kernels = []
     for name, (src, replaces, r) in names.items():
         if launches.get(name, 0) <= 0:

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (plain C ABI, ctypes).
 
-Five shared libraries, each built from this package's sources on first
+Six shared libraries, each built from this package's sources on first
 use into ``hesic_tpu_torch/_build/`` (gitignored) and rebuilt when its
 source is newer than the library.  The host library's file name carries
 a hash of the target options ``-march=native`` resolves to, so a
@@ -20,7 +20,9 @@ loading instructions that CPU may lack:
   ``pairs_rans`` csrc/pairs_rans.cu, nvcc for sm_90a: kernel 4 (the
                  slot-stream rANS encoder);
   ``wavefront``  csrc/wavefront.cu, nvcc for sm_90a with ``-fmad=false``:
-                 kernel 5 (the wavefront level scan).
+                 kernel 5 (the wavefront level scan);
+  ``dense_warp`` csrc/dense_warp.cu, nvcc for sm_90a: DSIC's dense warp
+                 (no TPU kernel: the JAX package leaves it to XLA).
 
 Nothing is compiled at import.  ``build_all`` starts every compiler at
 once (one process per source) so a cold start pays the slowest build,
@@ -54,6 +56,7 @@ SOURCES = {
     "grid_rans": "grid_rans.cu",
     "pairs_rans": "pairs_rans.cu",
     "wavefront": "wavefront.cu",
+    "dense_warp": "dense_warp.cu",
 }
 
 _HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",

@@ -20,14 +20,20 @@ block-banded expansion of its 3-D kernel.  The branch's output goes back
 to the reference channel order ``f*C + c`` before it meets the 2-D
 branch.
 
-``dense_warp`` is a shift-accumulate over the C disparities in plain
-PyTorch: one in-place ``addcmul_`` per shift.  It is no TPU kernel (the
+``dense_warp`` is a shift-accumulate over the C disparities.  On the
+CPU it is its plain twin, ``dense_warp_plain``: one in-place ``addcmul_``
+per shift.  On the card it is one launch of codecs/csrc/dense_warp.cu,
+bit-equal to the twin on bf16 (the running value rounded after every
+shift), inside a ``torch.autograd.Function`` whose backward is the
+twin's gradient formula in plain PyTorch.  It replaces no TPU kernel (the
 JAX package leaves it to XLA to fuse).
 
 Tracing (utils/tracing.py, entered only while a profiler records): each
 ``Conv3D`` and ``GroupNorm`` forward runs in a ``dsic/3-D branch`` or
 ``dsic/GroupNorm`` span, each ``dense_warp`` in ``dsic/dense_warp`` and
-each ``upsample_bilinear_ac`` in ``dsic/upsampling``.
+each ``upsample_bilinear_ac`` in ``dsic/upsampling``.  Each launch of
+the dense warp's kernel leaves ``count/dense_warp_launches=1`` in its
+span.
 
 Stage 2 (``DSICPlus``): DSIC and a per-eye enhancement without warp or
 cross-view input (``IndependentEnhancementNoWarp``).
@@ -35,14 +41,17 @@ cross-view input (``IndependentEnhancementNoWarp``).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..codecs import build
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
 from ..layers import GDN, Conv, Deconv
 from ..layers.conv import _kaiming_
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 from .hesic import (Enhancement, GmmHyperY1, GmmHyperY2, HyperEncoder,
                     Together)
 
@@ -153,20 +162,102 @@ def upsample_bilinear_ac(x: torch.Tensor, scale: int) -> torch.Tensor:
         return torch.matmul(torch.matmul(mh, x), mw.t())
 
 
+def dense_warp_plain(h1: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the dense warp's kernel: h1 (B, N, H, W) features,
+    cost (B, C, H, W) weights over C rightward shifts; out[..., w] =
+    sum_d cost[:, d, :, w] * h1[..., w + d], zero beyond the right edge,
+    one in-place ``addcmul_`` per shift in ascending d, so the running
+    value is rounded to h1's dtype after every shift."""
+    c, w = cost.shape[1], h1.shape[-1]
+    h1p = F.pad(h1, (0, c - 1))
+    out = torch.zeros_like(h1)
+    for d in range(c):
+        out.addcmul_(cost[:, d:d + 1], h1p[..., d:d + w])
+    return out
+
+
+DENSE_WARP_MAX_C = 32           # disparities the kernel takes
+_DW_NAME = "dense_warp"
+
+
+def _dense_warp_lib():
+    lib = build.load(_DW_NAME)
+    if not getattr(lib, "_hesic_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.hesic_dense_warp.restype = ci
+        lib.hesic_dense_warp.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+        lib._hesic_typed = True
+    return lib
+
+
+def dense_warp_cuda(h1: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    """The dense warp's kernel (codecs/csrc/dense_warp.cu) on the card:
+    h1 (B, N, H, W) and cost (B, C, H, W), contiguous CUDA tensors of one
+    dtype, bf16 or float32, 1 <= C <= DENSE_WARP_MAX_C; same contract as
+    dense_warp_plain, bit-equal to it on bf16.  Forward only."""
+    if h1.dim() != 4 or cost.dim() != 4:
+        raise ValueError(f"dense_warp takes 4-D h1 and cost, got "
+                         f"{tuple(h1.shape)} and {tuple(cost.shape)}")
+    if h1.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dense_warp's kernel takes bf16 or float32, got "
+                         f"{h1.dtype}")
+    b, n, hh, w = h1.shape
+    c = cost.shape[1]
+    if not 1 <= c <= DENSE_WARP_MAX_C:
+        raise ValueError(f"dense_warp's kernel takes 1 to "
+                         f"{DENSE_WARP_MAX_C} disparities, got {c}")
+    if tuple(cost.shape) != (b, c, hh, w):
+        raise ValueError(f"cost must have shape {(b, c, hh, w)}, got "
+                         f"{tuple(cost.shape)}")
+    build.check_cuda_tensor(h1, "h1", h1.dtype)
+    build.check_cuda_tensor(cost, "cost", h1.dtype)
+    out = torch.empty_like(h1)
+    stream = torch.cuda.current_stream(h1.device).cuda_stream
+    rc = _dense_warp_lib().hesic_dense_warp(
+        h1.data_ptr(), cost.data_ptr(), out.data_ptr(), b, n, c, hh, w,
+        int(h1.dtype == torch.bfloat16), stream)
+    build.check_status(rc, _DW_NAME, "B and H at most 65535")
+    build.count_launch(_DW_NAME)
+    count("dense_warp_launches", 1)
+    return out
+
+
+class DenseWarp(torch.autograd.Function):
+    """The dense warp with a gradient to its costs only (the features are
+    detached): forward the kernel on the card and the twin on the CPU;
+    backward in plain PyTorch, as autograd takes it through the twin's
+    loop: cost channel d gets (grad_out * h1 shifted left by d,
+    zero-padded).sum(1)."""
+
+    @staticmethod
+    def forward(ctx, h1, cost):
+        ctx.save_for_backward(h1)
+        ctx.disparities = cost.shape[1]
+        return (dense_warp_cuda if h1.is_cuda else dense_warp_plain)(h1, cost)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        (h1,) = ctx.saved_tensors
+        c, w = ctx.disparities, h1.shape[-1]
+        h1p = F.pad(h1, (0, c - 1))
+        return None, torch.stack([(grad_out * h1p[..., d:d + w]).sum(1)
+                                  for d in range(c)], dim=1)
+
+
 def dense_warp(h1: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     """Disparity-weighted horizontal shift-accumulate: h1 (B, N, H, W)
     features (detached: no gradient reaches them), cost (B, C, H, W)
     weights over C rightward shifts; out[..., w] = sum_d cost[:, d, :, w]
     * h1[..., w + d], zero beyond the right edge, summed d = 0..C-1 in the
-    features' dtype."""
+    features' dtype.  The kernel (``DenseWarp``) for CUDA tensors, the
+    plain twin on the CPU."""
     with span("dsic/dense_warp"):
         h1 = h1.detach()
-        c, w = cost.shape[1], h1.shape[-1]
-        h1p = F.pad(h1, (0, c - 1))
-        out = torch.zeros_like(h1)
-        for d in range(c):
-            out.addcmul_(cost[:, d:d + 1], h1p[..., d:d + w])
-        return out
+        if h1.is_cuda:
+            return DenseWarp.apply(h1, cost)
+        return dense_warp_plain(h1, cost)
 
 
 class Encoder1WithTaps(nn.Module):

@@ -352,7 +352,7 @@ RENAMED = {"codecs/rans.py": "codecs/host_rans.py",
 # (JAX module, name): why the port has no such name there
 ELSEWHERE = {
     ("codecs/build.py", "SRC"): "the JAX build's one C++ source; the "
-                                "port's build.SOURCES names its five",
+                                "port's build.SOURCES names its six",
     ("geometry/fast_warp.py", "warp_perspective_mxu"): "the TPU's one-hot "
         "matmul warp; the port warps by a gather (ROADMAP A)",
     ("models/ar_device.py", "ar_wavefront"): "the level scan is "

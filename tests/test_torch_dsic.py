@@ -118,6 +118,107 @@ def test_dense_warp_matches_jax():
     np.testing.assert_allclose(_nhwc(got), want, atol=1e-6, rtol=0)
 
 
+def _warp_inputs(seed, dtype, c, b=2, n=3, h=4, w=37):
+    """Features of both signs and softmaxed costs, as the model has them."""
+    rng = np.random.RandomState(seed)
+    h1 = torch.from_numpy(rng.randn(b, n, h, w).astype(np.float32))
+    cost = torch.softmax(torch.from_numpy(
+        3 * rng.randn(b, c, h, w).astype(np.float32)), dim=1)
+    return h1.to(dtype), cost.to(dtype)
+
+
+@pytest.mark.parametrize("c", [5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_warp_function_backward_matches_the_loop(dtype, c):
+    h1, cost = _warp_inputs(4, dtype, c)
+    g = torch.from_numpy(np.random.RandomState(5).randn(*h1.shape)
+                         .astype(np.float32)).to(dtype)
+    ref_cost = cost.clone().requires_grad_(True)
+    want = td.dense_warp_plain(h1, ref_cost)
+    want.backward(g)
+    fn_cost = cost.clone().requires_grad_(True)
+    got = td.DenseWarp.apply(h1, fn_cost)
+    got.backward(g)
+    assert got.dtype == dtype and fn_cost.grad.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(fn_cost.grad, ref_cost.grad, rtol=0, atol=0)
+
+
+def _round_bf16(a):
+    """float32 -> nearest bf16 (ties to even), as float32 (finite a)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_dense_warp_cpu_bf16_rounds_after_every_shift():
+    c = 32
+    h1, cost = _warp_inputs(6, torch.bfloat16, c)
+    got = td.dense_warp(h1, cost).float().numpy()
+    hf, cf = h1.float().numpy(), cost.float().numpy()
+    w = hf.shape[-1]
+    hp = np.pad(hf, ((0, 0), (0, 0), (0, 0), (0, c - 1)))
+    acc = np.zeros_like(hf)
+    once = np.zeros_like(hf)
+    for d in range(c):
+        term = cf[:, d:d + 1] * hp[..., d:d + w]        # exact in float32
+        acc = _round_bf16(acc + term)
+        once = once + term
+    np.testing.assert_array_equal(got, acc)
+    # the rounding after every shift is what the comparison holds
+    assert (_round_bf16(once) != acc).any()
+
+
+def test_dense_warp_cpu_takes_the_loop(monkeypatch):
+    from hesic_tpu_torch.codecs import build
+
+    def refuse(*_):
+        raise AssertionError("the kernel was called for CPU tensors")
+
+    monkeypatch.setattr(td, "dense_warp_cuda", refuse)
+    before = dict(build.launch_counts)
+    for dtype in (torch.float32, torch.bfloat16):
+        h1, cost = _warp_inputs(7, dtype, 5)
+        torch.testing.assert_close(td.dense_warp(h1, cost),
+                                   td.dense_warp_plain(h1, cost),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(td.DenseWarp.apply(h1, cost),
+                                   td.dense_warp_plain(h1, cost),
+                                   rtol=0, atol=0)
+    assert dict(build.launch_counts) == before
+
+
+def test_dense_warp_cpu_leaves_no_launch_counter():
+    from torch.profiler import ProfilerActivity, profile
+    h1, cost = _warp_inputs(8, torch.bfloat16, 5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        td.dense_warp(h1, cost)
+    names = [e.name for e in prof.events()]
+    assert "dsic/dense_warp" in names
+    assert not [n for n in names if n.startswith("count/dense_warp_launches")]
+
+
+@pytest.mark.parametrize("case", ["cpu", "c33", "float16", "shape", "3d"])
+def test_dense_warp_kernel_wrapper_refuses(case):
+    h1, cost = _warp_inputs(9, torch.float32, 5)
+    if case == "c33":
+        cost = torch.ones(2, 33, 4, 37)
+        match = "1 to 32 disparities"
+    elif case == "float16":
+        h1, cost = h1.half(), cost.half()
+        match = "bf16 or float32"
+    elif case == "shape":
+        cost = cost[..., :36]
+        match = "shape"
+    elif case == "3d":
+        h1 = h1[0]
+        match = "4-D"
+    else:
+        match = "CUDA tensor"
+    with pytest.raises(ValueError, match=match):
+        td.dense_warp_cuda(h1, cost)
+
+
 # ---- align-corners upsamplers ----
 
 @pytest.mark.parametrize("scale", [2, 8])
