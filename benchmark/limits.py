@@ -49,14 +49,13 @@ def control_checks(workload: str, seed: int, device="cuda",
     model = ref.build(cfg, dev)
     model.load_state_dict(state)
     model.requires_grad_(False)
+    cod = run.coder(cfg)
     pool = run.make_pool(traffic, seed, dev)
     idx = sorted({i % len(pool) for i in run.kept_indices(traffic, seed)})
-    hw = (traffic["size"] // 16) ** 2
-    ctrl = judge.control_outputs(ref, model, pool, idx, cfg["mm"],
-                                 hw // run.auto_ppl(hw))
-    numbers = judge.reference_numbers(ref, model, pool, ctrl)
+    ctrl = judge.control_outputs(ref, model, pool, idx, cod, cfg, traffic)
+    numbers = judge.reference_numbers(ref, model, pool, ctrl, cod)
     bad = [torch.zeros(len(numbers), dtype=torch.bool)]
-    return judge.verdict(bad, numbers, cfg["limits"])
+    return judge.verdict(bad, numbers, cfg["limits"], 0)
 
 
 def flop_lines(workload: str, device="cuda") -> dict:
@@ -70,8 +69,8 @@ def flop_lines(workload: str, device="cuda") -> dict:
     net = run.program_class(prog["model"])(
         **cfg["widths"], dtype=getattr(torch, cfg["dtype"]), device=device,
         seed=0)
-    codec = run.program_class(prog["codec"])(net, mm=cfg["mm"],
-                                             codec_batch=1).update()
+    codec = run.coder(cfg).build(run.program_class(prog["codec"]), net, cfg,
+                                 dict(traffic, batch=1))
     got = codec.device_flops(s, s)
     return {"reference_flops_per_pair": count,
             "program_flops_per_pair": got["flops_per_pair"],

@@ -6,11 +6,21 @@
 Everything is found by name from ``BENCHMARK.json``: the cell's
 configuration (``benchmark/configs/<config>.json``: the program's model
 and codec classes, widths, dtype, the codec's grid cap, the calibration
-recipe and the limits of the check), its traffic
+recipe, the limits of the check and, optionally, its coder), its traffic
 (``benchmark/traffic/<mix>.json``: the loop, batch, pool and image
 parameters), the loop (``benchmark/loops/<loop>.py``), the plain
-reference (``benchmark/reference/<config>.py``) and each per-layer metric
-(``benchmark/metrics/<metric>.py``).
+reference (``benchmark/reference/<config>.py``), the coder
+(``benchmark/coders/<coder>.py``, ``grid`` where the configuration names
+none) and each per-layer metric (``benchmark/metrics/<metric>.py``).
+
+The coder holds all that the benchmark knows of a codec's container and
+entropy coder (``benchmark/coders/__init__.py`` states its hooks): how
+the codec is built, what its encoder coded for a kept decode, how the
+reference's latents are quantised, the code lengths the container states
+and those its coder gives the decoded latents under the reference's
+conditioning, the same for the fp8 control, and the coder work the
+rooflines read.  A configuration on another container brings its own
+coder as a new file.
 
 A run: the benchmark's own inputs first, timed apart (the weights, drawn
 from the configuration's ``weights_seed`` and calibrated by the
@@ -64,6 +74,8 @@ def load_file(rel: str):
     """A module of the benchmark's folder by its path (names may hold
     '-' and '.')."""
     path = os.path.join(ROOT, rel)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no file {rel}")
     name = "benchmark._by_name." + rel.replace("/", "__").replace(
         "-", "_").replace(".", "_")
     if name in sys.modules:
@@ -79,6 +91,11 @@ def program_class(spec: str):
     """'package.module:Class' of the program."""
     module, cls = spec.split(":")
     return getattr(importlib.import_module(module), cls)
+
+
+def coder(cfg: dict):
+    """The configuration's coder module (``benchmark/coders/``)."""
+    return load_file(f"benchmark/coders/{cfg.get('coder', 'grid')}.py")
 
 
 def cell(name: str) -> dict:
@@ -121,59 +138,19 @@ def make_pool(traffic: dict, seed: int, device) -> list:
 
 
 def kept_indices(traffic: dict, seed: int) -> set:
-    """The window's batches (or pairs) whose decodes the check judges,
-    drawn from the seed: `check` of the first `check_from` ones."""
+    """The window's iterations whose decodes the check judges, drawn from
+    the seed: `check` of the first `check_from` ones, on as many distinct
+    batches of the pool; a draw that falls twice on one pool batch is
+    drawn again from the same stream."""
     import numpy as np
+    if traffic["check"] > traffic["pool"]:
+        raise ValueError("the check draws more batches than the pool has")
     rng = np.random.default_rng([int(seed), STREAM_SAMPLE])
-    return {int(i) for i in rng.choice(traffic["check_from"],
-                                       traffic["check"], replace=False)}
-
-
-def auto_ppl(hw: int) -> int:
-    """Positions per rANS lane, as the container format fixes them."""
-    for p in (8, 4, 2):
-        if hw % p == 0 and (hw // p) % 128 == 0:
-            return p
-    return 1
-
-
-def coder_work(ref, model, pool, programs, widths: dict) -> dict:
-    """The coder kernels' launches in the traced stretch, from the
-    reference's rounded latents of the batches the stretch coded, at the
-    grids the containers name: {"gmm": [(B, M, K, hw, mm)], "rans":
-    [(sum of sym + 1, symbols, lanes)] per eye and program}."""
-    import torch
-
-    from benchmark import judge
-    from benchmark.reference.layers import f32_backends
-    lat = {}
-    with torch.no_grad(), f32_backends():
-        for _, idx, _ in programs:
-            if idx in lat:
-                continue
-            b = pool[idx]
-            ys = [[], []]
-            for lo in range(0, b["x1"].shape[0], judge.CHUNK):
-                s = slice(lo, lo + judge.CHUNK)
-                x1, x2 = judge.nchw(b["x1"][s]), judge.nchw(b["x2"][s])
-                h = torch.as_tensor(b["h"][s], device=x1.device).float()
-                y1, _ = ref.analysis(model, x1, x2, h)
-                y1 = torch.round(y1)
-                _, y2 = ref.analysis(model, x1, x2, h, y1)
-                ys[0].append(y1)
-                ys[1].append(torch.round(y2))
-            lat[idx] = [torch.cat(y) for y in ys]
-    gmm, rans = [], []
-    for _, idx, mms in programs:
-        for y, mm in zip(lat[idx], mms):
-            bsz, m, hy, wy = y.shape
-            hw = hy * wy
-            c = torch.clamp(torch.round(y.mean(dim=(2, 3))), -127, 127)
-            sym = torch.clamp(y - c[:, :, None, None], -mm, mm) + mm
-            gmm.append((bsz, m, widths["K"], hw, int(mm)))
-            rans.append((int((sym + 1).sum().item()), sym.numel(),
-                         bsz * hw // auto_ppl(hw)))
-    return {"gmm": gmm, "rans": rans}
+    while True:
+        draw = {int(i) for i in rng.choice(traffic["check_from"],
+                                           traffic["check"], replace=False)}
+        if len({i % traffic["pool"] for i in draw}) == len(draw):
+            return draw
 
 
 def reference_flops(ref, model, size: int) -> float:
@@ -218,6 +195,7 @@ def run_cell(args, device: str = "cuda", check_chip: bool = True,
     # ---- the benchmark's inputs (timed apart) ----
     t = time.perf_counter()
     ref = load_file(f"benchmark/reference/{cfg['name']}.py")
+    cod = coder(cfg)
     if state is None:
         state = weights.state(cfg, dev)
     pool = make_pool(traffic, args.seed, dev)
@@ -237,8 +215,7 @@ def run_cell(args, device: str = "cuda", check_chip: bool = True,
         seed=0)
     model.load_state_dict(state)
     model.requires_grad_(False)
-    codec = program_class(prog["codec"])(
-        model, mm=cfg["mm"], codec_batch=traffic["batch"]).update()
+    codec = cod.build(program_class(prog["codec"]), model, cfg, traffic)
     loop = load_file(f"benchmark/loops/{traffic['loop']}.py")
     loop.warm_up(codec, pool, sync)
     setup_s = time.perf_counter() - t
@@ -258,8 +235,8 @@ def run_cell(args, device: str = "cuda", check_chip: bool = True,
 
     # ---- the check: exactness by the program, then the reference ----
     t = time.perf_counter()
-    bad, zs = judge.encoder_side(codec, pool, res["kept"])
-    decoded = judge.program_outputs(res["kept"], model.M, zs)
+    bad, zs = judge.encoder_side(cod, codec, pool, res["kept"])
+    decoded = judge.program_outputs(cod, res["kept"], cfg, zs)
     del codec, model, loop
     gc.collect()
     if cuda:
@@ -267,8 +244,9 @@ def run_cell(args, device: str = "cuda", check_chip: bool = True,
     rmodel = ref.build(cfg, dev)
     rmodel.load_state_dict(state)
     rmodel.requires_grad_(False)
-    numbers = judge.reference_numbers(ref, rmodel, pool, decoded)
-    v = judge.verdict(bad, numbers, cfg["limits"])
+    numbers = judge.reference_numbers(ref, rmodel, pool, decoded, cod)
+    unjudged = (len(keep) - len(res["kept"])) * traffic["batch"]
+    v = judge.verdict(bad, numbers, cfg["limits"], unjudged)
     log(f"check_s {time.perf_counter() - t:.3f} ({v['pairs_checked']} "
         f"pairs)")
 
@@ -281,8 +259,7 @@ def run_cell(args, device: str = "cuda", check_chip: bool = True,
         ctx = {"trace": res["trace"], "traced_pairs": res["traced_pairs"],
                "flops_per_pair": reference_flops(ref, rmodel,
                                                  traffic["size"]),
-               "coder": coder_work(ref, rmodel, pool, res["programs"],
-                                   cfg["widths"])}
+               "coder": cod.work(ref, rmodel, pool, res["programs"], cfg)}
         log(f"reference FLOPs a pair {ctx['flops_per_pair']:.6e}")
         for m in wanted:
             val = load_file(f"benchmark/metrics/{m['name']}.py").read(ctx)

@@ -23,6 +23,7 @@ def test_workload_resolves(wl):
     assert cfg["name"] == wl["config"]
     assert exists(f"benchmark/reference/{cfg['name']}.py")
     assert exists(f"benchmark/loops/{traffic['loop']}.py")
+    assert exists(f"benchmark/coders/{cfg.get('coder', 'grid')}.py")
     from benchmark import judge
     assert set(cfg["limits"]) <= set(judge.NAMES)
     assert {"y_mismatch_pct", "x_rel_err_pct"} <= set(cfg["limits"])

@@ -81,3 +81,35 @@ def test_control_is_not_correct(cell):
     v = limits.control_checks(wl, 2 ** 31 + 77, device="cpu",
                               override=tiny.override(wl))
     assert v["correct"] is False
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: c[0])
+def test_unjudged_draw_is_not_correct(cell):
+    """A window that ends after its first iteration never decodes the
+    second drawn one: its pairs count as failed."""
+    wl, cfg = cell
+    out = run.run_cell(tiny.args(wl, seconds=0.0), device="cpu",
+                       check_chip=False, override=tiny.override(wl))
+    assert out["checks"]["unjudged_pairs"]["value"] == 2
+    assert out["correct"] is False and out["failed"] >= 2
+
+
+@pytest.mark.parametrize("wl", [w for w, _ in CELLS])
+def test_draw_falls_on_distinct_pool_batches(wl):
+    """Every seed's draw holds distinct pool batches, and a seed whose
+    first draw did keeps it."""
+    import numpy as np
+    traffic = run.cell(wl)["traffic"]
+    kept = 0
+    for seed in range(2 ** 31 - 200, 2 ** 31 + 200):
+        draw = run.kept_indices(traffic, seed)
+        assert len(draw) == traffic["check"]
+        assert len({i % traffic["pool"] for i in draw}) == len(draw)
+        first = {int(i) for i in np.random.default_rng(
+            [seed, run.STREAM_SAMPLE]).choice(traffic["check_from"],
+                                              traffic["check"],
+                                              replace=False)}
+        if len({i % traffic["pool"] for i in first}) == len(first):
+            assert draw == first
+            kept += 1
+    assert 0 < kept < 400

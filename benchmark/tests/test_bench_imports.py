@@ -1,6 +1,7 @@
 """No module of the benchmark imports jax, jaxlib, flax or the JAX
 package (top-level names compared whole: hesic_tpu_torch is not
-hesic_tpu), and the references import nothing of the program either."""
+hesic_tpu), and the references, the judge and the coders import nothing
+of the program either."""
 
 import ast
 import os
@@ -31,7 +32,8 @@ def test_no_forbidden_import(rel):
     assert not found & set(run.FORBIDDEN), found
     if rel.startswith(("benchmark/reference/", "benchmark/judge.py",
                        "benchmark/pairs.py", "benchmark/weights.py",
-                       "benchmark/peaks.py", "benchmark/metrics/")):
+                       "benchmark/peaks.py", "benchmark/metrics/",
+                       "benchmark/coders/", "benchmark/container.py")):
         assert "hesic_tpu_torch" not in found
 
 

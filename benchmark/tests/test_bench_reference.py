@@ -88,23 +88,25 @@ def test_calibration_is_reproducible(config):
 def test_coder_emulation_matches_container():
     """Rows built from the program's own left head and the coder run over
     them give each lane the code length its batch container states."""
-    from benchmark import container, judge
+    from benchmark import judge
     _, r, p = both("hesic-n128-m192")
-    codec = run.program_class(
-        "hesic_tpu_torch.models.hesic_fast:HESICFastCodec")(
-        p, mm=16, codec_batch=2).update()
+    cfg = dict(run.read_json("benchmark/configs/hesic-n128-m192.json"),
+               widths=tiny.WIDTHS["hesic-n128-m192"])
+    grid = run.coder(cfg)
+    codec = grid.build(run.program_class(cfg["program"]["codec"]), p, cfg,
+                       {"batch": 2})
     x1, x2, h = pairs.make_pairs(2, 64, P, pairs.generator(4, 3, "cpu"),
                                  "cpu")
     nhwc = [t.permute(0, 2, 3, 1).contiguous() for t in (x1, x2)]
     blob = codec.compress_fast(*nhwc, h.numpy(), batch_container=True)[
         "blob"]
     rec = codec.decompress_fast_batch(blob)
-    rate = container.y_code_bits(blob, 24)
-    z1 = codec.transforms_enc(x1, x2, h, blob[3])[2].float()
+    rate = grid.stated(blob, cfg)
+    z1 = grid.encoded(codec, {"x1": nhwc[0], "x2": nhwc[1], "h": h},
+                      blob)[2]
     with torch.no_grad():
         head = p.gmm1(z1 + codec._median("entropy_bottleneck1"))
-        rows = judge.code_rows(judge.nchw(rec["y1_hat"]), head, 2,
-                               rate["mm"][0])
-        got = judge.rans_bits([rows], rate["bits"].shape[2])[:, 0]
-    assert torch.allclose(got, torch.as_tensor(rate["bits"][:, 0]),
-                          rtol=0, atol=1e-6)
+        rows = grid.code_rows(judge.nchw(rec["y1_hat"]), head, 2,
+                              rate["params"][0])
+        got = grid.rans_bits([rows], rate["bits"].shape[2])[:, 0]
+    assert torch.allclose(got, rate["bits"][:, 0], rtol=0, atol=1e-6)
