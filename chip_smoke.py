@@ -48,7 +48,8 @@ and prints no result):
      product (the scan-independent part of its first layer) must agree
      with its twin within HOIST_TOL; times kernel 5's pass, its hoisted
      product, and one level's four products as torch.matmul (a
-     yardstick);
+     yardstick); all of it again at the benchmark cell's batch of
+     AR_BIG_B = 64 (704 rows a level, 16,896 lanes);
      Then C13's functions on the card (phase_c13_routes): the
      interleaved coder through kernels 2 and 3 bit-equal to its twin and
      decoding back; wavefront_encode -> wavefront_decode (kernels 5 and
@@ -77,7 +78,12 @@ and prints no result):
      launched exactly once per eye and kernel 5 must have launched
      (kernel 5 counts one launch per eye pass, its 626 kernel launches
      included: the hoisted product, then four stage GEMMs and the coder
-     per level);
+     per level).  Then (phase_hesic_plus_fast) HESIC+ N=128/M=192 on the
+     fast protocol at the benchmark cell's batch of 64: pipelined
+     batches in the benchmark loop's order must equal compress's
+     containers byte for byte and decode to the encoder's latents, at mm
+     16 and at mm 1 with escapes past the start's slab; the start and the
+     batch decode must not wait for the device; a timed pipelined pass;
   7. trains HESIC N=128/M=192/K=5 at bench.py's train point (512x512,
      batch 8, lambda 1e-2, Adam 1e-4 main / 1e-3 aux), in bf16 and in
      f32: one warm-up step, whose FLOPs torch's FlopCounterMode counts,
@@ -379,6 +385,11 @@ PEAK_F32_FLOPS = 67e12          # an FMA counts as two
 # batches.
 AR_B, AR_N, AR_M, AR_MM, AR_GROUPS, AR_CAP = 11, 192, 192, 16, 8, 64
 AR_BENCH_BATCHES = 4
+# the benchmark's HESIC+ cell (hesicplus.rig-batch64): kernels 4 and 5 at
+# 64 pairs (704 rows a level, 16,896 lanes); its fast protocol on HESIC+
+# N=128/M=192 (bf16 transforms, seeded random weights), pipelined over
+# PF_BATCHES batches, and the escape fallback with a slab of PF_SLAB
+AR_BIG_B, PF_N, PF_BATCHES, PF_SLAB = 64, 128, 4, 64
 # bench.py's ar point (the host AR codec): batch 8, 2 timed batches
 HOST_B, HOST_BATCHES = 8, 2
 # kernel 5 against its twin on lattice inputs (the twin's own
@@ -813,8 +824,8 @@ def phase_main_path():
     return launches, runs["identity H"][0]["bpp_real"]
 
 
-def ar_setup():
-    """The HESIC+ model and codec at the path's widths, the smooth pairs,
+def ar_setup(b: int = AR_B):
+    """The HESIC+ model and codec at the path's widths, `b` smooth pairs,
     and the level scan's inputs for both eyes from the model's transforms
     (identity H): {label: (weights, pre, post, y)}."""
     import numpy as np
@@ -827,8 +838,8 @@ def ar_setup():
                       seed=0)
     codec = HESICPlusDeviceCodec(model, mm=AR_MM, groups=AR_GROUPS,
                                  cap=AR_CAP).update()
-    x1, x2 = smooth_pairs(np.random.RandomState(1), AR_B, HW_IMG)
-    h = torch.eye(3, device=DEVICE).expand(AR_B, 3, 3).contiguous()
+    x1, x2 = smooth_pairs(np.random.RandomState(1), b, HW_IMG)
+    h = torch.eye(3, device=DEVICE).expand(b, 3, 3).contiguous()
 
     def nhwc(t):
         return t.permute(0, 2, 3, 1).contiguous()
@@ -1193,6 +1204,99 @@ def phase_hesic_plus_path(model, codec, pairs) -> tuple:
               f"decode {rec['dectime'] * 1e3:.1f} ms wall for {AR_B} pairs; "
               f"decoded latents equal the encoder's")
     return launches, runs["identity H"][0]["bpp_real"]
+
+
+def phase_hesic_plus_fast(card: str) -> dict:
+    """HESIC+ N=128/M=192 (bf16, seeded random weights) on the fast
+    protocol at the benchmark cell's batch of AR_BIG_B smooth pairs, mm
+    16, 8 groups, and an mm 1 codec whose escapes pass a slab of PF_SLAB
+    (the finish's synchronous gather): PF_BATCHES batches (the identity
+    and the rotated H in turn) in the benchmark loop's order (decode i-1,
+    start i+1, finish i) must give compress's containers byte for byte
+    and decode to the encoder's latents; compress_fast_start and
+    decompress_fast_batch must not wait for the device (check_no_wait),
+    on either codec; then PF_BATCHES timed pipelined iterations.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+    from hesic_tpu_torch.bench import rotated_homography
+    from hesic_tpu_torch.codecs import build
+    from hesic_tpu_torch.models import ar_device
+    from hesic_tpu_torch.models.ar_device import HESICPlusDeviceCodec
+    from hesic_tpu_torch.models.hesic_plus import HESICPlus
+    from hesic_tpu_torch.training.recipe import smooth_pairs
+
+    model = HESICPlus(N=PF_N, M=AR_M, dtype=torch.bfloat16, device=DEVICE,
+                      seed=0)
+    rng = np.random.RandomState(5)
+    batches = []
+    for i in range(PF_BATCHES):
+        x1, x2 = smooth_pairs(rng, AR_BIG_B, HW_IMG)
+        hm = rotated_homography() if i % 2 else np.eye(3, dtype=np.float32)
+        batches.append((torch.from_numpy(x1).to(DEVICE),
+                        torch.from_numpy(x2).to(DEVICE),
+                        np.tile(hm[None], (AR_BIG_B, 1, 1))))
+    build.launch_counts.clear()
+    full = ar_device.ESCAPE_CAP
+    for mm, slab in ((AR_MM, full), (1, PF_SLAB)):
+        codec = HESICPlusDeviceCodec(model, mm=mm,
+                                     groups=AR_GROUPS).update()
+        ar_device.ESCAPE_CAP = slab
+        want = [codec.compress(*b) for b in batches]
+        blobs, recs = [], []
+        handle, prev = codec.compress_fast_start(*batches[0]), None
+        for i in range(PF_BATCHES):
+            if prev is not None:
+                recs.append(codec.decompress_fast_batch(prev))
+            nxt = (codec.compress_fast_start(*batches[i + 1])
+                   if i + 1 < PF_BATCHES else None)
+            prev = codec.compress_fast_finish(handle)["blob"]
+            blobs.append(prev)
+            handle = nxt
+        recs.append(codec.decompress_fast_batch(prev))
+        sync()
+        escapes = [w["escapes"] for w in want]
+        for i, (w, blob, rec) in enumerate(zip(want, blobs, recs)):
+            if blob != w["strings"][0]:
+                raise AssertionError(f"HESIC+ fast, mm {mm}: batch {i}'s "
+                                     f"pipelined container differs from "
+                                     f"compress's")
+            for key in ("y1_hat", "y2_hat"):
+                if not torch.equal(rec[key], w[key]):
+                    raise AssertionError(f"HESIC+ fast, mm {mm}: batch "
+                                         f"{i}'s decoded {key} differs "
+                                         f"from the encoder's")
+        if mm == 1 and min(min(e) for e in escapes) <= slab:
+            raise AssertionError(f"HESIC+ fast, mm 1: escapes {escapes} "
+                                 f"do not pass the slab of {slab}")
+        print(f"HESIC+ fast [mm {mm}, slab {slab}]: {PF_BATCHES} pipelined "
+              f"batches of {AR_BIG_B} equal compress's containers and "
+              f"decode to the encoder's latents; escapes {escapes}; "
+              f"bpp_real {np.mean([w['bpp_real'] for w in want]):.6f}; "
+              + check_no_wait(codec, *batches[1], blobs[1]))
+    ar_device.ESCAPE_CAP = full
+    codec = HESICPlusDeviceCodec(model, mm=AR_MM,
+                                 groups=AR_GROUPS).update()
+    # timed: the loop's order over the batches, after one warm pass
+    for timed in (False, True):
+        sync()
+        t0 = time.perf_counter()
+        handle, prev = codec.compress_fast_start(*batches[0]), None
+        for i in range(PF_BATCHES):
+            if prev is not None:
+                codec.decompress_fast_batch(prev)
+            nxt = (codec.compress_fast_start(*batches[i + 1])
+                   if i + 1 < PF_BATCHES else None)
+            prev = codec.compress_fast_finish(handle)["blob"]
+            handle = nxt
+        codec.decompress_fast_batch(prev)
+        sync()
+        secs = time.perf_counter() - t0
+    print(f"HESIC+ fast [{card}]: {PF_BATCHES} pipelined batches of "
+          f"{AR_BIG_B} {HW_IMG}x{HW_IMG} pairs in {secs:.3f} s, "
+          f"{PF_BATCHES * AR_BIG_B / secs:.2f} pairs/s (random weights, "
+          f"smooth pairs); peak {torch.cuda.max_memory_allocated()} bytes")
+    return dict(build.launch_counts)
 
 
 def check_step(label: str, model, opt, before: dict, losses) -> None:
@@ -3502,8 +3606,14 @@ def main() -> int:
     ar = {label: phase_wavefront(label, *args)
           for label, args in eyes.items()}
     ar_post = ar["eye 2, post"]
-    ar_post["wavefront"]["err"] = max(r["wavefront"]["err"]
-                                      for r in ar.values())
+    # kernels 4 and 5 at the benchmark cell's batch
+    big = ar_setup(AR_BIG_B)[3]
+    for label, args in big.items():
+        ar[f"{label}, B={AR_BIG_B}"] = phase_wavefront(
+            f"{label}, B={AR_BIG_B}", *args)
+    del big
+    for k in ("wavefront", "pairs"):
+        ar_post[k]["err"] = max(r[k]["err"] for r in ar.values())
     torch.cuda.empty_cache()
 
     phase_c13_routes()
@@ -3513,6 +3623,8 @@ def main() -> int:
     plus_launches, plus_random_bpp = phase_hesic_plus_path(model, codec,
                                                            pairs)
     launches.update(plus_launches)
+    add_launches(launches, phase_hesic_plus_fast(card))
+    torch.cuda.empty_cache()
     del model, codec, eyes, ar
     torch.cuda.empty_cache()
 

@@ -27,6 +27,44 @@ codec's determinism policy (deterministic cuDNN, no TF32); the level
 scan's parameters come from a fixed-order kernel that encode and decode
 both launch.  Only integers cross between the directions.
 
+HESIC+'s fast protocol (the fast codecs' serving path, as
+models/hesic_fast.py names it): ``compress_fast`` (one batch container,
+synchronously), ``compress_fast_start`` (dispatch only: the transforms,
+both eyes' teacher chains, kernel 4 once per eye, the escapes gathered
+into a fixed-capacity slab (ESCAPE_CAP a eye) with a device count,
+and the copies of what the container needs, into pinned buffers on a
+side stream), ``compress_fast_finish`` (waits on that handle's copies
+only, copies each eye's counted words on a second side stream, codes
+the z strings, packs the container) and ``decompress_fast_batch``
+(parse, z strings, one pinned upload, the word buffers and escape maps
+rebuilt on the device, both decode chains and the output synthesis,
+dispatched; the caller synchronises).  Nothing on the two dispatch paths
+waits for the device.  An eye with more escapes than the slab holds
+takes a synchronous gather in the finish, on the finish stream (counted
+as ``count/escape_fallbacks``).  ``compress`` is a start and its finish,
+``decompress`` a ``decompress_fast_batch`` and a synchronise: the
+container is packed (``_finish``) and parsed (``_parse``) in one place.
+
+Tracing (utils/tracing.py; entered only while a profiler records).  The
+fast protocol's public calls are spans ``codec/compress_fast``,
+``codec/compress_fast_start``, ``codec/compress_fast_finish`` and
+``codec/decompress_fast_batch``, each holding ``count/batch`` and
+``count/device_allocs``.  Inside them: ``enc/transforms``,
+``enc/scan1``, ``enc/reencode``, ``enc/scan2`` (the chain: eye 1's
+hyper-synthesis and level scan; the decoded left view's synthesis, warp
+and re-encode; eye 2's), ``enc/pairs-rans``, ``enc/fetch``,
+``enc/wait-counts``, ``enc/words-d2h``, ``enc/wait-words``,
+``enc/escapes``, ``enc/z-rans``, ``enc/pack``; ``dec/parse``,
+``dec/z-rans``, ``dec/upload``, ``dec/expand``, ``dec/scan1``,
+``dec/reencode``, ``dec/scan2``, ``dec/synthesis``.  A ``wait`` stage
+is the host blocked on the device.  Counters: ``count/h2d_bytes``
+(``_upload``), ``count/d2h_bytes`` (the start's copies, the finish's
+words), ``count/latents`` and ``count/escapes`` (each finish),
+``count/escape_fallbacks`` (each finish: its eyes that overflowed the
+slab) and ``count/scan_levels`` (each level scan: the levels it
+launched).  ``compress`` and ``decompress`` run the same chain, so its
+spans show there too.
+
 Not carried over from the JAX codec: the TPU link devices
 (``DENSE_LINK_THRESHOLD``, ``compact_stream``, ``upload_words_auto``,
 ``pow2_bucket``: words cross with ``.cpu()``) and the ``HESIC_NO_PALLAS``
@@ -35,13 +73,16 @@ switch (the tensor's device selects the backend).
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from ..codecs.device_rans import PROB_BITS, pack_stream, unpack_stream
+from ..codecs.device_rans import (PROB_BITS, pack_stream, pack_stream_dense,
+                                  unpack_stream, unpack_stream_dense)
 from ..geometry import warp_perspective
+from ..utils.tracing import call, count, span
 from .autoregressive import extract_ar_weights
 from .base import CompressionModel, counted_flops, deterministic_backends
 
@@ -53,6 +94,10 @@ TAPS = [(di - 2, dj - 2) for di in range(2) for dj in range(5)] \
 # the left prior's warp: warp_perspective_mxu's defaults in the JAX codec
 WARP_WIN = 64
 
+# escapes a eye that the fast protocol's start gathers without waiting for
+# the device; an eye with more takes the finish's synchronous gather
+ESCAPE_CAP = 1024
+
 # Stream-format byte.  The JAX package's backends are 0 (lax.scan, XLA
 # erfc) and 2 (Pallas level scan); the port's two differ from both and
 # from each other (other product orders), so they take ids of their own.
@@ -62,6 +107,50 @@ BACKEND_NAMES = {0: "xla-scan", 2: "pallas-level-scan",
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).contiguous()
+
+
+def _levels(pre: torch.Tensor) -> int:
+    """The levels of a level scan over NHWC `pre`'s (hy, wy) latents."""
+    return 3 * (pre.shape[1] - 1) + pre.shape[2]
+
+
+def _u16(w: torch.Tensor) -> torch.Tensor:
+    """int32 u16 values -> int16 tensors of their bit patterns."""
+    return (w - ((w >> 15) << 16)).to(torch.int16)
+
+
+def _compact_lanes(words, counts, total: int) -> torch.Tensor:
+    """Kernel 4's (L, cap) word buffer and its (L,) counts -> the `total`
+    = sum(counts) counted words, lane-major (each lane's first `count`
+    words, in emission order): the container's packed payload, as int16
+    u16 bit patterns.  A gather where the words are, sized on the host."""
+    c = counts.to(torch.int64)
+    ends = torch.cumsum(c, 0)
+    k = torch.arange(total, device=words.device)
+    lane = torch.searchsorted(ends, k, right=True)
+    return _u16(words[lane, k - (ends - c)[lane]])
+
+
+def _expand_lanes(flat, counts, cap: int) -> torch.Tensor:
+    """Inverse of _compact_lanes: lane-major u16 words (int32 values) and
+    (L,) counts -> the (L, cap) int32 buffer kernel 5's decode reads, zero
+    past each lane's count (unpack_stream's buffer, built on the
+    device)."""
+    c = counts.to(torch.int64)
+    start = torch.cumsum(c, 0) - c
+    j = torch.arange(cap, device=flat.device)
+    keep = j[None, :] < c[:, None]
+    src = torch.where(keep, start[:, None] + j[None, :], 0)
+    padded = torch.cat([flat, flat.new_zeros(1)])
+    return torch.where(keep, padded[src], 0)
+
+
+def _escape_record(idx: np.ndarray, vals: np.ndarray) -> bytes:
+    """An eye's escapes as the container holds them: u32 n | u32 flat NHWC
+    index[n] | i32 value[n]."""
+    return (np.array([idx.size], np.uint32).tobytes()
+            + idx.astype(np.uint32).tobytes()
+            + vals.astype(np.int32).tobytes())
 
 
 def schedule(hy: int, wy: int):
@@ -168,6 +257,7 @@ class _WavefrontCodec(CompressionModel):
         super().__init__(model)
         deterministic_backends()
         self.mm, self.groups = mm, groups
+        self._valid_masks = {}
 
     def _check_size(self, x):
         b, _, h_img, w_img = x.shape
@@ -189,9 +279,14 @@ class _WavefrontCodec(CompressionModel):
 
     def _valid(self, b: int, h_img: int, w_img: int) -> torch.Tensor:
         """The level scan's (slot, lane) validity for a batch of `b`
-        images of h_img x w_img."""
-        return wavefront_valid_mask(h_img // 16, w_img // 16, b,
-                                    self.groups, self.latent_ch, self.device)
+        images of h_img x w_img, made once a shape (uploaded through
+        ``_upload``: it does not wait for the device)."""
+        key = (b, h_img, w_img)
+        if key not in self._valid_masks:
+            self._valid_masks[key] = self._upload(wavefront_valid_mask(
+                h_img // 16, w_img // 16, b, self.groups, self.latent_ch
+            ).numpy())
+        return self._valid_masks[key]
 
     def _encode_level_scan(self, starts, freqs, valid) -> bytes:
         """Pairs-encode one level scan's slot stream in one launch and
@@ -221,12 +316,15 @@ class _WavefrontCodec(CompressionModel):
     def _pack_escapes(self, resid: torch.Tensor):
         """Residuals beyond the grid -> (container bytes: u32 n | u32 flat
         NHWC index[n] | i32 value[n], n)."""
+        idx, vals = self._gather_escapes(resid)
+        return _escape_record(idx, vals), int(idx.size)
+
+    def _gather_escapes(self, resid: torch.Tensor):
+        """Residuals beyond the grid -> (flat NHWC indices, values) as
+        numpy arrays; waits for the device."""
         flat = resid.reshape(-1)
         idx = torch.nonzero(torch.abs(flat) > self.mm)[:, 0]
-        vals = flat[idx].cpu().numpy().astype(np.int32)
-        idx = idx.cpu().numpy().astype(np.uint32)
-        return (np.array([idx.size], np.uint32).tobytes() + idx.tobytes()
-                + vals.tobytes()), int(idx.size)
+        return idx.cpu().numpy(), flat[idx].cpu().numpy()
 
     def _parse_escapes(self, blob: bytes, off: int, shape):
         """Inverse of _pack_escapes -> ((mask, value) int32 maps of
@@ -248,9 +346,13 @@ class _WavefrontCodec(CompressionModel):
                 self._upload(cv.reshape(shape))), off
 
     def _z_bytes(self, name: str, z_sym) -> bytes:
-        """One bottleneck's z strings, each behind its u32 length."""
-        strs = self.eb_encode_symbols(name,
-                                      z_sym.permute(0, 2, 3, 1).cpu().numpy())
+        """One bottleneck's z strings, each behind its u32 length, from
+        (B, C, zh, zw) symbols on the device."""
+        return self._z_strings(name, z_sym.permute(0, 2, 3, 1).cpu().numpy())
+
+    def _z_strings(self, name: str, z_nhwc: np.ndarray) -> bytes:
+        """_z_bytes of (B, zh, zw, C) host symbols."""
+        strs = self.eb_encode_symbols(name, z_nhwc)
         return b"".join(np.array([len(s)], np.uint32).tobytes() + s
                         for s in strs)
 
@@ -267,11 +369,11 @@ class _WavefrontCodec(CompressionModel):
         z = np.ascontiguousarray(z.transpose(0, 3, 1, 2))
         return self._upload(z), off
 
-    def _header(self, b: int, h_img: int, w_img: int, z_sym) -> bytes:
+    def _header(self, b: int, h_img: int, w_img: int, zh: int,
+                zw: int) -> bytes:
         """The backend byte and the 5 x u32 header (B, H, W, zh, zw)."""
         return bytes([wavefront_backend_id(self.device)]) + np.array(
-            [b, h_img, w_img, z_sym.shape[2], z_sym.shape[3]],
-            np.uint32).tobytes()
+            [b, h_img, w_img, zh, zw], np.uint32).tobytes()
 
     def _parse_header(self, blob: bytes):
         off = check_wavefront_backend(blob, self.device)
@@ -331,7 +433,7 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
         stream = self._encode_level_scan(st, fr,
                                          self._valid(b, h_img, w_img))
         escapes, n_esc = self._pack_escapes(resid)
-        blob = (self._header(b, h_img, w_img, z_sym) + escapes
+        blob = (self._header(b, h_img, w_img, *z_sym.shape[2:]) + escapes
                 + self._z_bytes("entropy_bottleneck", z_sym) + stream)
         return {"strings": [blob], "shape": tuple(z_sym.shape[2:]),
                 "y_hat": y_hat, "bpp_real": len(blob) * 8 / (b * h_img
@@ -370,19 +472,25 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
     ``cap`` is the JAX class's word-buffer argument; here it reaches
     neither the container nor the codec's work (the encoder launches once
     per eye with room for every word, and the decoder's buffer is as wide
-    as the largest count).  Images are (B, H, W, 3) float32 with H, W
-    multiples of 64; homographies (B, 3, 3) or (1, 3, 3); latents come
-    out as (B, hy, wy, M) float32.
+    as the largest count).  Images are (B, H, W, 3) float32 with H, W multiples of 64;
+    homographies (B, 3, 3) or (1, 3, 3); latents come out as (B, hy, wy,
+    M) float32.
 
     Container: backend byte | 5 x u32 (B, H, W, zh, zw) | escapes of eye
     1, of eye 2 | B z1 strings | B z2 strings | B x 9 f32 homographies |
-    eye 1's packed stream | eye 2's."""
+    eye 1's packed stream | eye 2's (``_finish`` packs it, ``_parse``
+    reads it)."""
 
     def __init__(self, model, mm: int = 16, groups: int = 8,
                  cap: int = 256):
         super().__init__(model, mm, groups)
         self.cap = cap
         self.latent_ch = model.M
+        self._side_streams = None
+        # encodes and decodes begun: the next one's sequence number, which
+        # its trace's count/batch carries
+        self._encodes = 0
+        self._decodes = 0
         self._weights_loaded()
 
     def _weights_loaded(self) -> None:
@@ -411,29 +519,47 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
 
     @torch.no_grad()
     def _chain(self, z1_sym, z2_sym, y1, y2, s1, s2, c1, c2, h,
-               teacher: bool):
+               teacher: bool, side: str = "enc"):
         """The both-eyes coding chain, shared by encode (teacher, y1/y2
         the NHWC latents) and decode (s1/s2 the (words, counts, states)
         streams, c1/c2 the escape (mask, value) maps or None).  Returns
-        ((starts, freqs, y_hat, resid) per eye, x1_hat NCHW)."""
+        ((starts, freqs, y_hat, resid) per eye, x1_hat NCHW).  `side`
+        ("enc" or "dec") names its spans only."""
         from .wavefront import ar_wavefront
         m = self.model
         mm, groups = self.mm, self.groups
         none3 = (None, None, None)
-        pre1 = _nhwc(m.hyper_synthesis1(self._z_hat(z1_sym,
-                                                    "entropy_bottleneck1")))
-        eye1 = ar_wavefront(self.w1, pre1, None, y1, *(c1 or (None, None)),
-                            *(s1 or none3), teacher, mm, groups)
-        x1_hat = m.synthesis1(eye1[2].permute(0, 3, 1, 2))
-        x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
-        # left prior: eval-quantized re-encode of the decoded left view
-        y1_prior = _nhwc(torch.round(m.analysis1(x1w)))
-        pre2 = _nhwc(m.hyper_synthesis2(self._z_hat(z2_sym,
-                                                    "entropy_bottleneck2")))
-        eye2 = ar_wavefront(self.w2, pre2, y1_prior, y2,
-                            *(c2 or (None, None)), *(s2 or none3), teacher,
-                            mm, groups)
+        with span(f"{side}/scan1"):
+            pre1 = _nhwc(m.hyper_synthesis1(self._z_hat(
+                z1_sym, "entropy_bottleneck1")))
+            eye1 = ar_wavefront(self.w1, pre1, None, y1,
+                                *(c1 or (None, None)), *(s1 or none3),
+                                teacher, mm, groups)
+            count("scan_levels", _levels(pre1))
+        with span(f"{side}/reencode"):
+            x1_hat = m.synthesis1(eye1[2].permute(0, 3, 1, 2))
+            x1w, _ = warp_perspective(x1_hat, h, WARP_WIN)
+            # left prior: eval-quantized re-encode of the decoded left view
+            y1_prior = _nhwc(torch.round(m.analysis1(x1w)))
+        with span(f"{side}/scan2"):
+            pre2 = _nhwc(m.hyper_synthesis2(self._z_hat(
+                z2_sym, "entropy_bottleneck2")))
+            eye2 = ar_wavefront(self.w2, pre2, y1_prior, y2,
+                                *(c2 or (None, None)), *(s2 or none3),
+                                teacher, mm, groups)
+            count("scan_levels", _levels(pre2))
         return eye1, eye2, x1_hat
+
+    @torch.no_grad()
+    def coded_latents(self, x1, x2, h):
+        """What the encoder codes for a batch: NCHW images and (B, 3, 3)
+        homographies on the codec's device -> (y1_hat, y2_hat (B, hy, wy,
+        M) float32, the teacher chain's latents; z1_sym, z2_sym (B, C, zh,
+        zw) int32)."""
+        y1, y2, z1_sym, z2_sym = self.transforms_enc(x1, x2, h)
+        eye1, eye2, _ = self._chain(z1_sym, z2_sym, _nhwc(y1), _nhwc(y2),
+                                    None, None, None, None, h, True)
+        return eye1[2], eye2[2], z1_sym, z2_sym
 
     def _dec_out(self, x1_hat, y2_hat, h):
         """The decoder's output synthesis after the chain: x2_hat (B, 3, H,
@@ -477,16 +603,11 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
 
     @torch.no_grad()
     def compress(self, x1, x2, h_matrix) -> dict:
-        """Compress a batch of pairs into one blob.  Returns {'strings':
-        [blob], 'shape': (hy, wy), 'y1_hat', 'y2_hat' (B, hy, wy, M),
-        'bpp_real', 'enctime', 'escapes': per-eye escape counts}."""
-        start = time.perf_counter()
-        x1, x2 = self._to_device(x1), self._to_device(x2)
-        b, h_img, w_img = self._check_size(x1)
-        h, h_np = self._homographies(h_matrix, b)
-        y1, y2, z1_sym, z2_sym = self.transforms_enc(x1, x2, h)
-        return self._compress_latents(y1, y2, z1_sym, z2_sym, h, h_np,
-                                      (h_img, w_img), start)
+        """Compress a batch of pairs into one blob, synchronously (a start
+        and its finish).  Returns {'strings': [blob], 'shape': (hy, wy),
+        'y1_hat', 'y2_hat' (B, hy, wy, M), 'bpp_real', 'enctime',
+        'escapes': per-eye escape counts}."""
+        return self._compressed(self._encode_device(x1, x2, h_matrix))
 
     @torch.no_grad()
     def _compress_latents(self, y1, y2, z1_sym, z2_sym, h, h_np, size,
@@ -496,51 +617,357 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         of parallel/codec.py gathers the transforms' outputs of its ranks
         and calls this on every rank).  `size` is (H, W) of the images;
         `start` the perf_counter time enctime counts from."""
-        b = y1.shape[0]
-        h_img, w_img = size
-        eye1, eye2, _ = self._chain(z1_sym, z2_sym, _nhwc(y1), _nhwc(y2),
-                                    None, None, None, None, h, teacher=True)
-        valid = self._valid(b, h_img, w_img)
-        streams = [self._encode_level_scan(st, fr, valid)
-                   for st, fr, _, _ in (eye1, eye2)]
-        escapes = [self._pack_escapes(eye[3]) for eye in (eye1, eye2)]
-        blob = (self._header(b, h_img, w_img, z1_sym)
-                + escapes[0][0] + escapes[1][0]
-                + self._z_bytes("entropy_bottleneck1", z1_sym)
-                + self._z_bytes("entropy_bottleneck2", z2_sym)
-                + h_np.astype(np.float32).tobytes() + streams[0]
-                + streams[1])
-        return {"strings": [blob], "shape": (h_img // 16, w_img // 16),
-                "y1_hat": eye1[2], "y2_hat": eye2[2],
-                "bpp_real": len(blob) * 8 / (2 * b * h_img * w_img),
-                "enctime": time.perf_counter() - start,
-                "escapes": (escapes[0][1], escapes[1][1])}
+        return self._compressed(self._encode_latents(
+            y1, y2, z1_sym, z2_sym, h, h_np, size, start))
+
+    def _compressed(self, handle) -> dict:
+        """compress's keys for an encode handle, finished."""
+        out = self._finish(handle)
+        h_img, w_img = handle["shape"]
+        return {"strings": out["blobs"], "shape": (h_img // 16, w_img // 16),
+                "y1_hat": handle["y_hat"][0], "y2_hat": handle["y_hat"][1],
+                **{k: out[k] for k in ("bpp_real", "enctime", "escapes")}}
 
     @torch.no_grad()
     def decompress(self, strings) -> dict:
-        """Inverse of compress: {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat',
-        'y2_hat' (B, hy, wy, M), 'dectime'}."""
+        """Inverse of compress, synchronously: {'x1_hat', 'x2_hat' (B, H,
+        W, 3), 'y1_hat', 'y2_hat' (B, hy, wy, M), 'dectime'}."""
         start = time.perf_counter()
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
-        (b, h_img, w_img, zh, zw), off = self._parse_header(blob)
-        shp = (b, h_img // 16, w_img // 16, self.latent_ch)
-        corr1, off = self._parse_escapes(blob, off, shp)
-        corr2, off = self._parse_escapes(blob, off, shp)
-        z1_sym, off = self._parse_z(blob, off, "entropy_bottleneck1", b, zh,
-                                    zw)
-        z2_sym, off = self._parse_z(blob, off, "entropy_bottleneck2", b, zh,
-                                    zw)
-        h = self._upload(np.frombuffer(blob, np.float32, 9 * b, off)
-                         .reshape(b, 3, 3))
-        off += 36 * b
-        s1, off = self._decoder_stream(blob, off)
-        s2, off = self._decoder_stream(blob, off)
-        eye1, eye2, x1_hat = self._chain(z1_sym, z2_sym, None, None, s1, s2,
-                                         corr1, corr2, h, teacher=False)
-        x2_hat = self._dec_out(x1_hat, eye2[2], h)
-        out = {"x1_hat": _nhwc(x1_hat), "x2_hat": _nhwc(x2_hat),
-               "y1_hat": eye1[2], "y2_hat": eye2[2]}
+        out = self._decompress_fast_batch(blob)
         if out["x2_hat"].is_cuda:
             torch.cuda.synchronize(out["x2_hat"].device)
         out["dectime"] = time.perf_counter() - start
         return out
+
+    # ---- the fast protocol (module docstring) ----
+
+    def _streams(self):
+        """(start stream, finish stream) of the codec's card, made once:
+        the start's copies go on the first; the finish gathers and copies
+        its words, and any escape fallback, on the second, so they never
+        queue behind a later start's copies."""
+        if self._side_streams is None:
+            self._side_streams = (torch.cuda.Stream(self.device),
+                                  torch.cuda.Stream(self.device))
+        return self._side_streams
+
+    def _fetch(self, dev: dict) -> dict:
+        """Start the device -> host copies of `dev` ({name: tensor}).  On
+        the card: an event on the compute stream, then the copies into
+        pinned buffers on the start stream.  Returns {"ready": the compute
+        event, "copied": the copies' event, "host": {name: host tensor}};
+        on the CPU the tensors themselves, and no events."""
+        count("d2h_bytes", sum(t.nbytes for t in dev.values()))
+        if self.device.type != "cuda":
+            return {"ready": None, "copied": None, "host": dict(dev)}
+        ready = torch.cuda.Event()
+        ready.record()
+        stream = self._streams()[0]
+        stream.wait_event(ready)
+        host = {}
+        with torch.cuda.stream(stream):
+            for name, t in dev.items():
+                t.record_stream(stream)
+                host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                host[name].copy_(t, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return {"ready": ready, "copied": copied, "host": host}
+
+    def _on_finish_stream(self, handle, tensors):
+        """A context that runs on the finish stream after the handle's
+        compute event, `tensors` kept for it (the CPU: no context)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        stream = self._streams()[1]
+        stream.wait_event(handle["ready"])
+        for t in tensors:
+            t.record_stream(stream)
+        return torch.cuda.stream(stream)
+
+    def _escape_slab(self, resid: torch.Tensor) -> torch.Tensor:
+        """(2 ESCAPE_CAP + 1,) int64: the number of residuals beyond the
+        grid, then the flat NHWC indices of the first ESCAPE_CAP of them
+        (-1 past the count) and their values.  Dispatched: nothing waits
+        for the device."""
+        flat = resid.reshape(-1)
+        hit = torch.abs(flat) > self.mm
+        idx = torch.nonzero_static(hit, size=ESCAPE_CAP,
+                                   fill_value=-1)[:, 0]
+        vals = flat[idx.clamp_min(0)].to(torch.int64)
+        return torch.cat([hit.sum().reshape(1), idx, vals])
+
+    def _encode_device(self, x1, x2, h_matrix) -> dict:
+        """The encoder's device half, dispatched: the transforms, then
+        _encode_latents.  Returns the handle compress_fast_finish reads."""
+        t0 = time.perf_counter()
+        with span("enc/transforms"):
+            x1, x2 = self._to_device(x1), self._to_device(x2)
+            b, h_img, w_img = self._check_size(x1)
+            h, h_np = self._homographies(h_matrix, b)
+            y1, y2, z1_sym, z2_sym = self.transforms_enc(x1, x2, h)
+        return self._encode_latents(y1, y2, z1_sym, z2_sym, h, h_np,
+                                    (h_img, w_img), t0)
+
+    def _encode_latents(self, y1, y2, z1_sym, z2_sym, h, h_np, size,
+                        t0: float) -> dict:
+        """The encoder's device half after the transforms, dispatched:
+        both eyes' teacher chains, kernel 4 once per eye (room for every
+        word), each eye's escape slab and the copies the host half reads
+        (counts, states, escapes, z symbols).  Returns the handle; its
+        "seq" numbers the encode in the traces."""
+        from ..codecs.pairs_rans import rans_encode_pairs
+        seq = self._encodes
+        self._encodes += 1
+        b = y1.shape[0]
+        h_img, w_img = size
+        eyes = self._chain(z1_sym, z2_sym, _nhwc(y1), _nhwc(y2), None,
+                           None, None, None, h, True)[:2]
+        with span("enc/pairs-rans"):
+            valid = self._valid(b, h_img, w_img)
+            streams = [rans_encode_pairs(st, fr, valid, st.shape[0])
+                       for st, fr, _, _ in eyes]
+        with span("enc/fetch"):
+            meta = torch.cat([t.to(torch.int64) for t in (
+                streams[0][1], streams[1][1], streams[0][2], streams[1][2],
+                self._escape_slab(eyes[0][3]),
+                self._escape_slab(eyes[1][3]))])
+            z = torch.cat([t.permute(0, 2, 3, 1).reshape(-1)
+                           for t in (z1_sym, z2_sym)])
+            fetched = self._fetch({"meta": meta, "z": z})
+        return {"mode": "async", "seq": seq, "t0": t0,
+                "mm": (self.mm, self.mm), "b": b,
+                "shape": (h_img, w_img), "h_np": h_np,
+                "z_shape": tuple(z1_sym.permute(0, 2, 3, 1).shape),
+                "slots": eyes[0][0].shape[0],
+                "words": [s[0] for s in streams],
+                "counts": [s[1] for s in streams],
+                "resid": [e[3] for e in eyes],
+                "y_hat": [e[2] for e in eyes], **fetched}
+
+    def _fetch_words(self, handle, totals) -> list:
+        """Each eye's counted words (`totals` of them), lane-major, as
+        numpy u16: gathered and copied on the finish stream after the
+        handle's compute event."""
+        count("d2h_bytes", 2 * sum(totals))
+        pairs = list(zip(handle["words"], handle["counts"], totals))
+        with span("enc/words-d2h"):
+            with self._on_finish_stream(handle, handle["words"]
+                                        + handle["counts"]):
+                flats = [_compact_lanes(w, c, n) for w, c, n in pairs]
+                if self.device.type == "cuda":
+                    host = [torch.empty(n, dtype=torch.int16,
+                                        pin_memory=True) for n in totals]
+                    for dst, f in zip(host, flats):
+                        dst.copy_(f, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host, done = flats, None
+        with span("enc/wait-words"):
+            if done is not None:
+                done.synchronize()
+        return [t.numpy().view(np.uint16) for t in host]
+
+    def _escapes(self, handle, eye: int, slab: np.ndarray):
+        """An eye's (indices, values) from its fetched slab; past
+        ESCAPE_CAP, a synchronous gather on the finish stream.  Returns
+        (indices, values, whether it fell back)."""
+        n, cap = int(slab[0]), ESCAPE_CAP
+        if n <= cap:
+            return slab[1:1 + n], slab[1 + cap:1 + cap + n], False
+        resid = handle["resid"][eye]
+        with self._on_finish_stream(handle, [resid]):
+            idx, vals = self._gather_escapes(resid)
+        if idx.size != n:
+            raise RuntimeError(f"escape gather found {idx.size} residuals "
+                               f"beyond the grid, the device counted {n}")
+        return idx, vals, True
+
+    def _finish(self, handle) -> dict:
+        """The encoder's host half: wait for the handle's copies, fetch
+        the counted words, the escapes, the z strings, the container."""
+        b, lanes = handle["b"], handle["counts"][0].shape[0]
+        with span("enc/wait-counts"):
+            if handle["copied"] is not None:
+                handle["copied"].synchronize()
+            meta = handle["host"]["meta"].numpy()
+            z = handle["host"]["z"].numpy()
+        slab = 2 * ESCAPE_CAP + 1
+        c1, c2, st1, st2, esc1, esc2 = np.split(meta, np.cumsum(
+            [lanes] * 4 + [slab])[:5])
+        cmax = int(max(c1.max(), c2.max()))
+        if cmax > handle["slots"]:
+            raise RuntimeError(f"pairs encoder counted {cmax} words in a "
+                               f"lane of {handle['slots']} slots")
+        flats = self._fetch_words(handle, [int(c1.sum()), int(c2.sum())])
+        with span("enc/escapes"):
+            escapes = [self._escapes(handle, e, slab_e)
+                       for e, slab_e in enumerate((esc1, esc2))]
+            records = [_escape_record(idx, vals) for idx, vals, _ in escapes]
+            n_esc = tuple(int(idx.size) for idx, _, _ in escapes)
+        count("latents", 2 * handle["resid"][0].numel())
+        count("escapes", sum(n_esc))
+        count("escape_fallbacks", sum(fb for _, _, fb in escapes))
+        with span("enc/z-rans"):
+            zn = z.size // 2
+            zb = [self._z_strings(name, part.reshape(handle["z_shape"]))
+                  for name, part in (("entropy_bottleneck1", z[:zn]),
+                                     ("entropy_bottleneck2", z[zn:]))]
+        with span("enc/pack"):
+            h_img, w_img = handle["shape"]
+            zh, zw = handle["z_shape"][1:3]
+            blob = (self._header(b, h_img, w_img, zh, zw) + records[0]
+                    + records[1] + zb[0] + zb[1]
+                    + handle["h_np"].astype(np.float32).tobytes()
+                    + pack_stream_dense(flats[0], c1, st1.astype(np.uint32))
+                    + pack_stream_dense(flats[1], c2,
+                                        st2.astype(np.uint32)))
+        return {"blob": blob, "blobs": [blob],
+                "bpp_real": len(blob) * 8 / (2 * b * h_img * w_img),
+                "enctime": time.perf_counter() - handle["t0"],
+                "escapes": n_esc, "fallback": False}
+
+    @torch.no_grad()
+    def compress_fast(self, x1, x2, h_matrix, batch_container: bool = True
+                      ) -> dict:
+        """Compress a batch of pairs into one container, synchronously:
+        {'blob', 'blobs' ([blob]), 'bpp_real', 'enctime', 'escapes':
+        per-eye counts, 'fallback' (False)}.  The container is always the
+        batch's (``batch_container`` is the fast codecs' argument; this
+        codec has no per-pair container)."""
+        with call("codec/compress_fast", self._encodes, self.device):
+            return self._finish(self._encode_device(x1, x2, h_matrix))
+
+    @torch.no_grad()
+    def compress_fast_start(self, x1, x2, h_matrix) -> dict:
+        """Dispatch-only half of a pipelined batch encode: nothing waits
+        for the device.  Returns the handle (its "mm": the grids, (mm,
+        mm)) for compress_fast_finish."""
+        with call("codec/compress_fast_start", self._encodes, self.device):
+            return self._encode_device(x1, x2, h_matrix)
+
+    @torch.no_grad()
+    def compress_fast_finish(self, handle) -> dict:
+        """The container of a compress_fast_start handle (compress_fast's
+        keys): waits for that batch's copies only."""
+        with call("codec/compress_fast_finish", handle["seq"], self.device):
+            return self._finish(handle)
+
+    @torch.no_grad()
+    def decompress_fast_batch(self, blob: bytes) -> dict:
+        """Decode a container: {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat',
+        'y2_hat' (B, hy, wy, M), 'dectime'}.  The z strings decode on the
+        host; z symbols, homographies, counts, states, words and escapes
+        go up in one pinned upload; the word buffers and escape maps are
+        rebuilt on the device.  Only dispatches: ``dectime`` is the
+        dispatch time, and the caller synchronises when it needs the
+        results."""
+        with call("codec/decompress_fast_batch", self._decodes,
+                  self.device):
+            return self._decompress_fast_batch(blob)
+
+    def _parse(self, blob: bytes) -> dict:
+        """The container's parts, on the host (views of `blob`): {"dims":
+        (B, H, W, zh, zw), "escapes": per eye (flat NHWC indices, values),
+        "z": per bottleneck its B strings' (start, end) byte extents, "h":
+        (B x 9,) float32, "streams": per eye (lane-major u16 words,
+        counts, u32 states)}.  Raises on another backend's container, and
+        where the layout does not end with the blob."""
+        dims, off = self._parse_header(blob)
+        b = dims[0]
+        escapes = []
+        for _ in range(2):
+            n = int(np.frombuffer(blob, np.uint32, 1, off)[0])
+            escapes.append((np.frombuffer(blob, np.uint32, n, off + 4),
+                            np.frombuffer(blob, np.int32, n, off + 4 + 4 * n)))
+            off += 4 + 8 * n
+        extents = []
+        for _ in range(2):
+            ext = []
+            for _ in range(b):
+                length = int(np.frombuffer(blob, np.uint32, 1, off)[0])
+                ext.append((off + 4, off + 4 + length))
+                off += 4 + length
+            extents.append(ext)
+        h_np = np.frombuffer(blob, np.float32, 9 * b, off)
+        off += 36 * b
+        streams = []
+        for _ in range(2):
+            flat, counts, states, off = unpack_stream_dense(blob, off)
+            streams.append((flat, counts, states))
+        if off != len(blob):
+            raise ValueError(f"wavefront container: the parse ends at byte "
+                             f"{off} of {len(blob)}")
+        return {"dims": dims, "escapes": escapes, "z": extents, "h": h_np,
+                "streams": streams}
+
+    def _decompress_fast_batch(self, blob: bytes) -> dict:
+        """decompress_fast_batch inside its span."""
+        start = time.perf_counter()
+        self._decodes += 1
+        with span("dec/parse"):
+            parts = self._parse(blob)
+            b, h_img, w_img, zh, zw = parts["dims"]
+            escapes, streams = parts["escapes"], parts["streams"]
+        with span("dec/z-rans"):
+            z = [self.eb_decode_streams(name, blob, ext, (zh, zw))
+                 for name, ext in zip(("entropy_bottleneck1",
+                                       "entropy_bottleneck2"), parts["z"])]
+        with span("dec/upload"):
+            up = [z[0], z[1], parts["h"].view(np.int32)]
+            for flat, counts, states in streams:
+                even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
+                even[:flat.size] = flat
+                up += [counts, states.view(np.int32), even.view(np.int32)]
+            for idx, vals in escapes:
+                up += [idx.view(np.int32), vals]
+            sizes = [p.size for p in up]
+            buf = self._upload(np.concatenate(
+                [p.astype(np.int32, copy=False).reshape(-1) for p in up]))
+        with span("dec/expand"):
+            got = torch.split(buf, sizes)
+            z1_sym, z2_sym = (t.reshape(zz.shape).permute(0, 3, 1, 2)
+                              for t, zz in zip(got[:2], z))
+            h = got[2].view(torch.float32).reshape(b, 3, 3)
+            dev_streams = []
+            for e, (flat, counts, _) in enumerate(streams):
+                c_d, st_d, w_d = got[3 + 3 * e:6 + 3 * e]
+                words = w_d.view(torch.int16)[:flat.size].to(torch.int32)
+                dev_streams.append((
+                    _expand_lanes(words & 0xFFFF, c_d,
+                                  max(int(counts.max()), 1)),
+                    c_d, st_d.to(torch.int64) & 0xFFFFFFFF))
+            shape = (b, h_img // 16, w_img // 16, self.latent_ch)
+            corr = []
+            for e, (idx, _) in enumerate(escapes):
+                if idx.size == 0:
+                    corr.append(None)
+                    continue
+                # scatters: an indexed store of a Python number would
+                # copy it up from pageable memory and wait
+                at = got[9 + 2 * e].to(torch.int64)
+                mask = torch.zeros(int(np.prod(shape)), dtype=torch.int32,
+                                   device=self.device)
+                val = torch.zeros_like(mask).scatter_(0, at, got[10 + 2 * e])
+                corr.append((mask.scatter_(0, at, 1).reshape(shape),
+                             val.reshape(shape)))
+        out = self._decode_device(z1_sym, z2_sym, h, dev_streams, corr)
+        out["dectime"] = time.perf_counter() - start
+        return out
+
+    def _decode_device(self, z1_sym, z2_sym, h, streams, corr) -> dict:
+        """The decoder's device half, dispatched: both decode chains over
+        the eyes' (words, counts, states) `streams` and escape maps `corr`
+        (None for an eye without escapes), then the output synthesis.
+        Returns {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat', 'y2_hat' (B,
+        hy, wy, M)}."""
+        eye1, eye2, x1_hat = self._chain(z1_sym, z2_sym, None, None,
+                                         *streams, *corr, h,
+                                         teacher=False, side="dec")
+        with span("dec/synthesis"):
+            x2_hat = self._dec_out(x1_hat, eye2[2], h)
+            return {"x1_hat": _nhwc(x1_hat), "x2_hat": _nhwc(x2_hat),
+                    "y1_hat": eye1[2], "y2_hat": eye2[2]}
