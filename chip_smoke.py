@@ -47,9 +47,11 @@ and prints no result):
      must give y_hat bit-equal to its teacher pass; kernel 5's hoisted
      product (the scan-independent part of its first layer) must agree
      with its twin within HOIST_TOL; times kernel 5's pass, its hoisted
-     product, and one level's four products as torch.matmul (a
-     yardstick); all of it again at the benchmark cell's batch of
-     AR_BIG_B = 64 (704 rows a level, 16,896 lanes);
+     product, a teacher pass by kernel (the level kernel, the coder and
+     the hoisted product, torch.profiler) with the level plans it ran,
+     and one level's four products as torch.matmul (a yardstick); all of
+     it again at the benchmark cell's batch of AR_BIG_B = 64 (704 rows a
+     level, 16,896 lanes);
      Then C13's functions on the card (phase_c13_routes): the
      interleaved coder through kernels 2 and 3 bit-equal to its twin and
      decoding back; wavefront_encode -> wavefront_decode (kernels 5 and
@@ -76,14 +78,18 @@ and prints no result):
      encoder's, the reconstructions must be finite and of the input's
      shape, the escape case must have escapes, kernel 4 must have
      launched exactly once per eye and kernel 5 must have launched
-     (kernel 5 counts one launch per eye pass, its 626 kernel launches
-     included: the hoisted product, then four stage GEMMs and the coder
-     per level).  Then (phase_hesic_plus_fast) HESIC+ N=128/M=192 on the
+     (kernel 5 counts one launch per eye pass, its 251 kernel launches
+     included: the hoisted product, then the cluster level kernel and the
+     coder per level).  Then (phase_hesic_plus_fast) HESIC+ N=128/M=192 on the
      fast protocol at the benchmark cell's batch of 64: pipelined
      batches in the benchmark loop's order must equal compress's
      containers byte for byte and decode to the encoder's latents, at mm
      16 and at mm 1 with escapes past the start's slab; the start and the
-     batch decode must not wait for the device; a timed pipelined pass;
+     batch decode must not wait for the device; one traced round trip
+     must count as many level-kernel launches
+     (count/wavefront_level_launches) as levels (count/scan_levels), new
+     containers must carry backend byte 5 and one with byte 4 must be
+     refused by name; a timed pipelined pass;
   7. trains HESIC N=128/M=192/K=5 at bench.py's train point (512x512,
      batch 8, lambda 1e-2, Adam 1e-4 main / 1e-3 aux), in bf16 and in
      f32: one warm-up step, whose FLOPs torch's FlopCounterMode counts,
@@ -485,6 +491,33 @@ def cuda_ms(fn, reps: int) -> float:
 def sync():
     import torch
     torch.cuda.synchronize()
+
+
+# kernel 5's kernels, as kernel_ms groups a pass's device time
+LEVEL_KERNELS = ("wavefront_level_kernel", "wavefront_coder_kernel",
+                 "wavefront_hoist_kernel")
+
+
+def kernel_ms(fn, names) -> dict:
+    """Device ms of one call of `fn` (after a warm-up) by kernel:
+    {name: the summed time of the kernels whose names hold it}, from
+    torch.profiler; the first name must have run (the trace may miss a
+    pass's first, short kernel: it then reads 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        for name in names:
+            if name in ev.key:
+                out[name] += ev.device_time_total / 1e3
+    if not out[names[0]]:
+        raise AssertionError(f"kernel_ms: no device time for {out}")
+    return out
 
 
 def check_equal(name: str, got, want) -> int:
@@ -986,6 +1019,7 @@ def phase_pairs(label: str, st, fr, valid) -> dict:
 def phase_wavefront(label: str, w, pre, post, y) -> dict:
     """Kernel 5 (one variant) and kernel 4 against their twins, and
     kernel 5's own round trip through kernel 4."""
+    import numpy as np
     import torch
     from hesic_tpu_torch.models import wavefront as wf
     from hesic_tpu_torch.models.ar_device import (schedule,
@@ -1075,7 +1109,7 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     dec_ms = cuda_ms(decode, 3)
 
     # the hoisted product (pre and post rows of the first layer, every
-    # pixel) against its twin, and one level's four stage products as
+    # pixel) against its twin, and one level's four products as
     # torch.matmul at a full level's rows (a yardstick, never called by
     # the port)
     # H1, H2: the real widths (the bound's work); the kernel runs the
@@ -1095,10 +1129,28 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
         raise AssertionError(f"ar_wavefront {label}: the hoisted "
                              f"product's padded columns are not 0")
     hoist_ms = cuda_ms(lambda: wf.hoisted_base_cuda(w, pre, post), 10)
-    n_levels, _, _, p_max = schedule(hy, wy)
+    # one teacher pass's device time by kernel, and the level plans
+    split = kernel_ms(lambda: teach(wf.ar_wavefront_cuda, y), LEVEL_KERNELS)
+    n_levels, _, count, p_max = schedule(hy, wy)
     rows = b * p_max
     shapes = wf.stage_shapes(m, h1p, h2p)
-    blocks = wf.stage_blocks(wf.stage_plan(m, h1p, h2p), shapes, rows)
+    plans = {int(b * n): wf.level_plan(m, h1p, h2p, int(b * n))
+             for n in np.unique(count)}
+    full = plans[rows]
+    smem = wf.level_smem(m, h1p, h2p, full)
+    # the plans' model of a wave: the clusters the card holds at once
+    resident = wf.level_clusters(full.cluster, smem, full.tile)
+    if resident != wf.CLUSTER_SLOTS[full.cluster]:
+        raise AssertionError(f"ar_wavefront {label}: the card holds "
+                             f"{resident} clusters of {full.cluster}, "
+                             f"level_plan assumes "
+                             f"{wf.CLUSTER_SLOTS[full.cluster]}")
+    plan_text = ("level plans (rows: bm, cluster, kq, tile -> blocks) "
+                 + ", ".join(f"{r}: {p.bm}, {p.cluster}, {p.kq}, {p.tile} "
+                             f"-> {wf.level_ctas(p, r)}"
+                             for r, p in plans.items())
+                 + f"; a full level's {smem} B of shared memory a block, "
+                 f"{resident} clusters of {full.cluster} resident at once")
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     mats = [(torch.randn(rows, k, generator=gen, device=DEVICE), wt)
             for (k, _), wt in zip(shapes.values(),
@@ -1136,11 +1188,12 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
           f"decode {dec_ms:.3f} ms, plain {plain5:.1f} ms; bound "
           f"{bound5[by5]:.4f} ms by {by5} ({flops:.3e} FLOP + "
           f"{coder_ops:.3e} coder ops; {w_bytes + io_bytes:.3e} B); "
-          f"{4 * n_levels + 1} stage launches per pass (the hoisted "
-          f"product, then ctx and layers 0-2 per level) and {n_levels} "
-          f"coder launches; blocks per stage at {rows} rows {blocks}; "
-          f"{wf.weight_bytes_per_level(shapes, rows):.3e} weight bytes "
-          f"read per level at {rows} rows; hoisted product {hoist_ms:.4f} "
+          f"{2 * n_levels + 1} launches per pass (the hoisted product, then "
+          f"the level kernel and the coder per level); one teacher pass by "
+          f"kernel: level {split['wavefront_level_kernel']:.3f} ms, coder "
+          f"{split['wavefront_coder_kernel']:.3f} ms, hoist "
+          f"{split['wavefront_hoist_kernel']:.4f} ms; {plan_text}; "
+          f"hoisted product {hoist_ms:.4f} "
           f"ms (max |d| {d_base:.3e} against its twin, limit "
           f"{base_lim:.3e}); one level's four products as torch.matmul at "
           f"{rows} rows {level_mm_ms:.4f} ms (yardstick); MLP widths H1 "
@@ -1148,9 +1201,39 @@ def phase_wavefront(label: str, w, pre, post, y) -> dict:
     return {
         "wavefront": {"err": d_y, "ms": ms5, "plain_ms": plain5,
                       "bound_ms": bound5[by5], "bound_by": by5,
-                      "dec_ms": dec_ms},
+                      "dec_ms": dec_ms, "split": split},
         "pairs": pairs,
     }
+
+
+def level_split_at(label: str, w, pre, post, y, b: int = AR_BIG_B) -> dict:
+    """Kernel 5's device time by kernel (the level kernel, the coder and
+    the hoisted product) for one teacher pass at batch `b`, the images of
+    a smaller batch repeated: {name: ms}, printed with the level plans'
+    blocks at the full level."""
+    from hesic_tpu_torch.models import wavefront as wf
+    from hesic_tpu_torch.models.ar_device import schedule
+
+    def tile(t):
+        if t is None:
+            return None
+        reps = -(-b // t.shape[0])
+        return t.repeat(reps, 1, 1, 1)[:b].contiguous()
+
+    pre, post, y = tile(pre), tile(post), tile(y)
+    split = kernel_ms(lambda: wf.ar_wavefront_cuda(
+        w, pre, post, y, None, None, None, None, None, True, AR_MM,
+        AR_GROUPS), LEVEL_KERNELS)
+    _, _, _, p_max = schedule(y.shape[1], y.shape[2])
+    h1p, h2p = w.w1.shape
+    full = wf.level_plan(y.shape[-1], h1p, h2p, b * p_max)
+    print(f"kernel ar_wavefront {label}, B={b} (the images repeated): one "
+          f"teacher pass by kernel: level "
+          f"{split['wavefront_level_kernel']:.3f} ms, coder "
+          f"{split['wavefront_coder_kernel']:.3f} ms, hoist "
+          f"{split['wavefront_hoist_kernel']:.4f} ms; full level plan "
+          f"{tuple(full)} -> {wf.level_ctas(full, b * p_max)} blocks")
+    return split
 
 
 def phase_hesic_plus_path(model, codec, pairs) -> tuple:
@@ -1277,6 +1360,35 @@ def phase_hesic_plus_fast(card: str) -> dict:
     ar_device.ESCAPE_CAP = full
     codec = HESICPlusDeviceCodec(model, mm=AR_MM,
                                  groups=AR_GROUPS).update()
+    # the level scans take the cluster level kernel (one traced round
+    # trip: count/wavefront_level_launches equals count/scan_levels), new
+    # containers carry backend byte 5 and one with byte 4 (the earlier
+    # stage kernels' product order) is refused by name
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        blob = codec.compress(*batches[0])["strings"][0]
+        codec.decompress([blob])
+        sync()
+    counts = {"scan_levels": 0, "wavefront_level_launches": 0}
+    for ev in prof.events():
+        name, _, val = ev.name.partition("=")
+        if name.startswith("count/") and name[6:] in counts:
+            counts[name[6:]] += int(val)
+    if not counts["scan_levels"] or len(set(counts.values())) != 1:
+        raise AssertionError(f"HESIC+ fast: level scan counters {counts}")
+    if blob[0] != 5:
+        raise AssertionError(f"HESIC+ fast: backend byte {blob[0]}, not 5")
+    try:
+        codec.decompress([bytes([4]) + blob[1:]])
+    except ValueError as err:
+        if "cuda-level-scan" not in str(err):
+            raise
+        refused = str(err)
+    else:
+        raise AssertionError("HESIC+ fast: a byte-4 container decoded")
+    print(f"HESIC+ fast: one traced round trip counted {counts}; new "
+          f"containers carry backend byte 5; a byte-4 container is refused "
+          f"({refused})")
     # timed: the loop's order over the batches, after one warm pass
     for timed in (False, True):
         sync()
@@ -2234,6 +2346,8 @@ def phase_mbt(card: str) -> tuple:
                                                     "entropy_bottleneck")))
     held = phase_wavefront("mbt2018 calibrated, no post", cal.w, pre, None,
                            nhwc(y))
+    held["wavefront"]["split_big"] = level_split_at(
+        "mbt2018 calibrated, no post", cal.w, pre, None, nhwc(y))
     del xd, y, pre
     torch.cuda.empty_cache()
     add_launches(launches, phase_device_bench(model, card, "mbt2018", 1))
@@ -2611,6 +2725,9 @@ def phase_cheng(card: str, x) -> tuple:
         pre, y = level_scan_inputs(cal, images)
         held[label + case] = phase_wavefront(
             f"{label} calibrated, no post{case}", cal.w, pre, None, y)
+        if not case:
+            level_split_at(f"{label} calibrated, no post", cal.w, pre,
+                           None, y)
         del pre, y
     out = bench.host_round_trip(host.update(), x[:2],
                                 f"{label} host codec")
@@ -2637,6 +2754,8 @@ def phase_cheng(card: str, x) -> tuple:
     pre, y = level_scan_inputs(cdc, hot)
     held[label_a] = phase_wavefront(f"{label_a}, no post, amplified "
                                     f"images", cdc.w, pre, None, y)
+    level_split_at(f"{label_a}, no post, amplified images", cdc.w, pre,
+                   None, y)
     del attn, cdc, pre, y
     torch.cuda.empty_cache()
     print("kernel ar_wavefront on Cheng2020 [" + card + "]: " + "; ".join(

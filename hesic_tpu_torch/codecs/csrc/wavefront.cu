@@ -11,18 +11,17 @@
 //   (h) hesic_ar_hoist, once: the scan-independent part of the entropy-
 //       parameter MLP's first layer for every pixel of the batch,
 //       base = pre @ w0[0:P] + post @ w0[P+2M:] + b0  (B*hy*wy, H1);
-//   then hesic_ar_wavefront, per level s, five kernels on the level's
+//   then hesic_ar_wavefront, per level s, two kernels on the level's
 //   compacted rows r = b*cnt_s + p (pixel (i_min[s] + p, s - 3i) of image
 //   b; R_s = B*cnt_s rows, no padding rows):
-//   (1) ctx: the 12 mask-A taps of y_hat gathered from the NHWC buffer (0
-//       outside the image, never wrapping at the right edge) times tapk
-//       (12M, 2M), K split into chunks of whole taps;
-//   (2) layer 0: A = ctx_bias + the ctx chunks' sum, times w0[P:P+2M];
-//   (3) layer 1: A = leaky_relu(base[pixel] + the layer-0 chunks' sum),
-//       times w1;
-//   (4) layer 2: A = leaky_relu(b1 + the layer-1 chunks' sum), times w2,
-//       plus b2: g = (scales, means), written to row b*p_max + p;
-//   (5) wavefront_coder_kernel: one thread per lane (r, mc) and channel
+//   (1) wavefront_level_kernel: the whole chain from context to g for a
+//       tile of rows, one thread-block cluster a tile.
+//       ctx  = ctx_bias + the 12 mask-A taps of y_hat (0 outside the
+//              image, never wrapping at the right edge) @ tapk (12M, 2M);
+//       h0   = leaky_relu(base[pixel] + ctx @ w0[P:P+2M]);
+//       h1   = leaky_relu(b1 + h0 @ w1);
+//       g    = b2 + h1 @ w2 = (scales, means), written to row b*p_max + p;
+//   (2) wavefront_coder_kernel: one thread per lane (r, mc) and channel
 //       group g, channel m = g*Mg + mc.  It builds the PMF row over
 //       the residual grid [-mm, mm] (A&S 7.1.26 Phi through det_math at
 //       the edges (k - mm) - 0.5 over the scale), quantizes it to 2^16
@@ -36,26 +35,32 @@
 //       (det_math.cuh, -fmad=false), so given equal (scales, means) it
 //       builds rows bit-equal to the plain twin's.
 //
-// Stages (h) and (1)-(4) are one tiled SIMT f32 GEMM (stage_body), a
-// kernel of its own name per stage: a block of 256 threads owns a
-// kBM = 64-row x BN-column output tile and one chunk of K.  Per k-step,
-// the copy engine (cp.async.bulk, one copy per row segment, completing on
-// an mbarrier) brings A's sources into shared memory: the gathered tap
-// rows, the pixel rows, or every chunk of the previous stage plus the
-// base rows, which the block then sums in order; cp.async brings W's
-// rows.  Four groups of 64 threads each take a quarter of the k-step
-// with an 8 x BN/8 register tile per thread.
+// The level kernel.  A cluster of C blocks (256 threads each) owns a tile
+// of bm rows; block `rank` owns the units [Q*rank/C, Q*(rank+1)/C) of each
+// product's Q = N/u output units of u columns (u, the register tile: 4 or
+// 8).  It first loads its share of the tile's taps (the same split of the
+// context product's 3M input quads) from y_hat into its shared memory,
+// once, while cp.async brings its layer-0 columns of the tile's base rows.
+// Each product then runs over k-steps: the block gathers the step's
+// columns of its input, every row of the tile, from the blocks that own
+// them, through distributed shared memory (cluster.map_shared_rank; into
+// registers one step ahead, then into its own buffer), while cp.async
+// brings the step's rows of its weight columns from L2.  Its output slice
+// stays in its own shared memory, stored column-major (bm floats a column,
+// the layout the next product gathers), with a cluster barrier between
+// products; only g leaves the chip.  No product writes partial sums to
+// device memory.
 //
 // Determinism, so that encode and decode get bit-equal g: every output is
-// a fixed-order sum.  Within a block, each thread group sums its quarter
-// of each k-step, k ascending, one __fmaf_rn per term, and the epilogue
-// adds the four groups' sums in order 0..3.  The chunks of a stage are
-// written to separate scratch slices and summed by the next stage in
-// chunk order 0, 1, ..., then the bias (or base) is added.  There are no
-// atomics and no reduction whose order depends on scheduling.  The
-// partition (tile widths, chunks, k-steps) is fixed by the caller from
-// the layer widths alone, never by the direction.  Encode and decode
-// launch the same functions on the same inputs.
+// summed over its full K in one order, fixed by K alone.  K is cut into
+// four k-groups [gK/4, (g+1)K/4); the threads of group g (64 of them) sum
+// its k ascending, one __fmaf_rn per term, and the groups' sums are added
+// in order 0..3, then the bias (or base row), then leaky_relu.  There are
+// no atomics and no reduction whose order depends on scheduling.  The
+// tiling (bm, C, the k-step) changes who computes an output, never its
+// order of terms, so the caller may pick it per level from the level's
+// rows (models/wavefront.py level_plan).  Encode and decode launch the
+// same functions on the same inputs.
 //
 // Layouts (the JAX package's): pre (B, hy, wy, P), post (B, hy, wy, Q) or
 // none, y_true/corr/y_hat/resid (B, hy, wy, M), all NHWC; starts/freqs
@@ -67,33 +72,51 @@
 // 2*(12M*2M + Cin*H1 + H1*H2 + H2*2M) FLOP per pixel (4.6e10 for an eye
 // with post at B=11, 32x32, M=192: ~0.7 ms at 67 TFLOP/s f32), plus the
 // coder's ~2k un-fused operations per latent.  What bounds this design is
-// L2 bandwidth and launches.  A level holds at most 121 rows, so a 64-row
-// tile reads each weight element at most twice per level (13 MB at
-// M=192; the earlier design read all 8 MB of weights once per 2-row
-// block, 0.5 GB).  But narrow column tiles, needed for ~100 blocks per
-// launch, each read the whole A operand again, and a K-split stage makes
-// the next stage read every chunk: about 100 MB of L2 reads per full
-// level, whatever the tile plan.  125 dependent levels cost 625 launches.
-// Not done here (later work): bf16 operands and wgmma, clusters sharing
-// A tiles, a persistent kernel with a grid barrier per level, or a CUDA
-// graph over the launches.  The TPU kernel's ring buffer, level-major
-// gather and one-hot word read were devices of its VMEM and vector unit:
-// here y_hat lives whole in device memory (8.7 MB, L2-resident), pixels
-// are indexed in place, and the word is a direct load.
+// a block's serial work and its traffic.  Its threads each hold up to 64
+// sums (four 4x4 or one 8x8 register tile of one k-group), so each float4
+// loaded from shared memory feeds 16 or 32 FMAs; but a k-group's sum is a
+// chain of K/4 terms on one thread, and a block's tiles seldom fill its
+// four schedulers evenly.  A block reads its weight columns once a level
+// (the whole weights once a tile: 6.6 MB at M=192, about 100 MB of L2
+// reads for a full level of 704 rows in 15 tiles), and gathers the tile's
+// activations once a product (bm * K * (C-1)/C floats of distributed
+// shared memory, the costliest byte here: about 15 GB/s an SM, measured).
+// level_plan weighs these from the level's rows (a model fitted to 9,500
+// launches timed on the card).  125 dependent levels cost 250 launches a
+// pass.  Not done here (later work): bf16 operands and wgmma (ruled out:
+// the configuration's products are f32), a CUDA graph over the launches.
+// The TPU kernel's ring buffer, level-major gather and one-hot word read
+// were devices of its VMEM and vector unit: here y_hat lives whole in
+// device memory (8.7 MB at B=11), pixels are indexed in place, and
+// the word is a direct load.
 
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
+
+#include <cooperative_groups.h>
 
 #include "det_math.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBM = 64;              // rows per stage tile
-constexpr int kThreads = 256;        // per stage block: kGroups x 64
-constexpr int kGroups = 4;           // k-groups of a stage block
+// the hoisted product (wavefront_hoist_kernel)
+constexpr int kBM = 64;              // rows per tile
+constexpr int kThreads = 256;        // per block: kGroups x 64
+constexpr int kGroups = 4;           // k-groups of a block (both kernels)
 // dynamic shared memory a block may take: 227 KB less the row tables
 constexpr int kMaxSmem = 226 * 1024;
+// the level kernel (wavefront_level_kernel)
+constexpr int kLvThreads = 256;
+constexpr int kLvGather = 8;         // float4s a thread gathers a k-step
+constexpr int kLvMaxCluster = 16;    // non-portable above 8
+constexpr int kLvMaxRows = 64;
+// dynamic shared memory a block may take: 227 KB less the row tables
+// (1.25 KB) and what the runtime reserves
+constexpr int kLvMaxSmem = 225 * 1024;
 constexpr int kCoderThreads = 128;
 constexpr int kMaxS = 65;            // grid half-width mm <= 32
 constexpr uint32_t kRansL = 1u << 16;
@@ -113,39 +136,13 @@ __device__ __forceinline__ int64_t level_pixel(const Level& lv, int r,
   return (static_cast<int64_t>(*b) * lv.hy + *i) * lv.wy + *j;
 }
 
-// Where a stage's A[r, k] comes from (rows of k in whole float4s).
-enum OperandKind { kPixels = 0, kTaps = 1, kChunks = 2 };
-
-struct Operand {
-  // kPixels: row r is pixel r; k < split from a (row stride lda), else
-  //          from a2 (row stride lda2) at k - split.
-  // kTaps:   a is y_hat (B, hy, wy, lda = M); k = tap * M + c.
-  // kChunks: sum over c < nsum of a[c * a_chunk + r * lda + k], then
-  //          + add[k] (bias) or + add[pixel(r) * lda + k] (add_rows), then
-  //          leaky_relu when leaky.
+// The hoisted product's operand: row r is pixel r; k < split from a (row
+// stride lda), else from a2 (row stride lda2) at k - split.
+struct Pixels {
   const float* a;
   const float* a2;
-  int lda, lda2, split, nsum;
-  int64_t a_chunk;
-  const float* add;
-  int add_rows, leaky;
+  int lda, lda2, split;
 };
-
-// Where a stage writes: out[chunk * chunk_stride + row * ldo + n] with
-// row = r, or b*p_max + p when scatter; plus bias[n] when bias is set
-// (single-chunk stages only).
-struct Out {
-  float* out;
-  int64_t chunk_stride;
-  int ldo;
-  const float* bias;
-  int scatter;
-};
-
-__device__ __forceinline__ float4 add4(float4 x, float4 y) {
-  return make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y),
-                     __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
-}
 
 __device__ __forceinline__ float leaky1(float x) {
   return x < 0.0f ? __fmul_rn(x, kSlope) : x;
@@ -233,80 +230,40 @@ __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
   }
 }
 
-// Calls f(rr, k4) for this thread's share of a kBM x kt tile, in float4
-// steps: element idx = rr * (kt / 4) + k4 / 4 for idx = threadIdx.x,
-// + kThreads, ...; the indices advance without a division.
-template <typename F>
-__device__ __forceinline__ void tile_elems(int kt, F&& f) {
-  const int kq = kt / 4;
-  int rr = threadIdx.x / kq;
-  int k4 = 4 * (threadIdx.x - rr * kq);
-  const int drr = kThreads / kq;
-  const int dk4 = 4 * (kThreads - drr * kq);
-  while (rr < kBM) {
-    f(rr, k4);
-    k4 += dk4;
-    rr += drr;
-    if (k4 >= kt) {
-      k4 -= kt;
-      ++rr;
-    }
-  }
-}
-
-__host__ __device__ __forceinline__ int stage_slices(int kind, int nsum,
-                                                     int add_rows) {
-  return kind == kChunks ? nsum + add_rows : 1;
-}
-
-__host__ __device__ __forceinline__ int stage_bias_row(int kind,
-                                                       int add_rows, int kt) {
-  return kind == kChunks && !add_rows ? kt + 4 : 0;
-}
-
-// Dynamic shared memory of a stage launch, in bytes: the k-step's tiles,
-// or the k-groups' sums in the epilogue, whichever is larger.
-size_t stage_smem(int kind, int nsum, int add_rows, int bn, int kt) {
-  const size_t tiles =
-      static_cast<size_t>(stage_slices(kind, nsum, add_rows)) * kBM *
-          (kt + 4) +
-      stage_bias_row(kind, add_rows, kt) + static_cast<size_t>(kt) * bn;
+// Dynamic shared memory of a hoisted-product launch, in bytes: the
+// k-step's tiles, or the k-groups' sums in the epilogue, whichever is
+// larger.
+size_t hoist_smem(int bn, int kt) {
+  const size_t tiles = static_cast<size_t>(kBM) * (kt + 4) +
+                       static_cast<size_t>(kt) * bn;
   const size_t sums = static_cast<size_t>(kGroups) * kBM * bn;
   return sizeof(float) * (tiles > sums ? tiles : sums);
 }
 
-// C[r, n] = sum over k of the block's chunk [z*kc, min(K, (z+1)*kc)) of
-// A[r, k] * W[k, n]; W (K, N) row-major.  Block (x, y, z): columns
-// [x*BN, +BN), rows [y*kBM, +kBM), chunk z.  Each k-step of kt columns of
-// A (row-major, pitch kt + 4) and rows of W goes through shared memory.
-// The block's 256 threads are kGroups k-groups of 64: group g sums the
-// g-th quarter of every k-step, k ascending, one __fmaf_rn per term, in
-// an 8 x BN/8 register tile per thread (rows ty + 8i: no bank conflicts);
-// the epilogue adds the groups' sums in order 0..3.  A fixed order
-// throughout.
-template <int KIND, int BN>
-__device__ __forceinline__ void stage_body(const Operand& op,
-                                           const float* __restrict__ W,
-                                           int K, int N, int kc, int kt,
-                                           const Out& o, int R,
-                                           const Level& lv) {
+// base[r, n] = sum over k < K of A[r, k] * W[k, n] + bias[n]; W (K, N)
+// row-major.  Block (x, y): columns [x*BN, +BN), rows [y*kBM, +kBM).  Each
+// k-step of kt columns of A (row-major, pitch kt + 4) and rows of W goes
+// through shared memory: the copy engine (cp.async.bulk, one copy per row
+// segment, completing on an mbarrier) brings A's pixel rows, cp.async W's
+// rows.  The block's 256 threads are kGroups k-groups of 64: group g sums
+// the g-th quarter of every k-step, k ascending, one __fmaf_rn per term,
+// in an 8 x BN/8 register tile per thread (rows ty + 8i: no bank
+// conflicts); the epilogue adds the groups' sums in order 0..3.  A fixed
+// order throughout.
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+    wavefront_hoist_kernel(Pixels op, const float* __restrict__ W, int K,
+                           int N, int kt, float* __restrict__ out,
+                           const float* __restrict__ bias, int R) {
   constexpr int TM = 8;
   constexpr int TN = BN / 8;
-  // shared memory: nslice A slices of kBM x lda (the sources of A, summed
-  // into slice 0 for kChunks), a bias row Bs (kChunks without add_rows),
-  // then W's kt x BN
+  // shared memory: A's kBM x lda, then W's kt x BN
   extern __shared__ float4 smem4[];
   const int lda = kt + 4;
-  const int slice = kBM * lda;
-  const int nslice = stage_slices(KIND, op.nsum, op.add_rows);
   float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + nslice * slice;
-  float* Ws = Bs + stage_bias_row(KIND, op.add_rows, kt);
-  // row_pix[rr]: the pixel of row r0 + rr (kPixels: r itself), -1 past
-  // R; row_tap[rr] (kTaps): the offset in y_hat of the k-step's tap
-  // neighbour (k0 % M folded in), -1 where it is zero
-  __shared__ int row_pix[kBM];
-  __shared__ int row_tap[kBM];
+  float* Ws = As + kBM * lda;
+  // row_ok[rr]: row r0 + rr lies below R
+  __shared__ int row_ok[kBM];
   __shared__ uint64_t bar;
   const int tid = threadIdx.x;
   const int gk = tid / 64;
@@ -314,18 +271,9 @@ __device__ __forceinline__ void stage_body(const Operand& op,
   const int ty = (tid % 64) / 8;   // rows ty, ty + 8, ..
   const int r0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * kc;
-  const int ke = min(K, kb + kc);
   int phase = 0;
   if (tid == 0) mbar_init(&bar);
-  if (tid < kBM) {
-    const int r = r0 + tid;
-    int b, i, j;
-    row_pix[tid] = r >= R ? -1
-                   : KIND == kPixels
-                       ? r
-                       : static_cast<int>(level_pixel(lv, r, &b, &i, &j));
-  }
+  if (tid < kBM) row_ok[tid] = r0 + tid < R;
   __syncthreads();
   float acc[TM][TN];
 #pragma unroll
@@ -333,72 +281,26 @@ __device__ __forceinline__ void stage_body(const Operand& op,
 #pragma unroll
     for (int jn = 0; jn < TN; ++jn) acc[i][jn] = 0.0f;
   }
-  for (int k0 = kb; k0 < ke; k0 += kt) {
-    const int kn = min(kt, ke - k0);
-    if constexpr (KIND == kTaps) {
-      // the k-step lies within one tap (M % kt == 0)
-      const int m = op.lda;
-      const int tap = k0 / m;
-      if (tid < kBM) {
-        int b, i, j;
-        int off = -1;
-        if (r0 + tid < R) {
-          level_pixel(lv, r0 + tid, &b, &i, &j);
-          // ar_device.TAPS order: rows -2 and -1 (dj = -2..2), then
-          // (0, -2), (0, -1)
-          const int ii = i + (tap < 10 ? tap / 5 - 2 : 0);
-          const int jj = j + (tap < 10 ? tap % 5 - 2 : tap - 12);
-          if (ii >= 0 && jj >= 0 && jj < lv.wy)
-            off = ((b * lv.hy + ii) * lv.wy + jj) * m + k0 - tap * m;
-        }
-        row_tap[tid] = off;
-      }
-      __syncthreads();
-    }
-    // fill: each row segment of each A slice is one bulk copy; a row
-    // past R is left as it is (its outputs are never stored); a valid
-    // row whose tap lies outside the image is zeroed
+  for (int k0 = 0; k0 < K; k0 += kt) {
+    const int kn = min(kt, K - k0);
+    // fill: each row segment of A is one bulk copy; a row past R is left
+    // as it is (its outputs are never stored)
     if (tid == 0) {
       int rows = 0;
-      for (int rr = 0; rr < kBM; ++rr)
-        rows += (KIND == kTaps ? row_tap[rr] : row_pix[rr]) >= 0;
-      mbar_expect(&bar, 4u * rows * nslice * kn);
+      for (int rr = 0; rr < kBM; ++rr) rows += row_ok[rr];
+      mbar_expect(&bar, 4u * rows * kn);
     }
     fence_async_smem();
     __syncthreads();
-    for (int t = tid; t < nslice * kBM; t += kThreads) {
-      const int c = t / kBM;
-      const int rr = t - c * kBM;
+    for (int rr = tid; rr < kBM; rr += kThreads) {
+      if (!row_ok[rr]) continue;
       const int r = r0 + rr;
-      float* dst = As + c * slice + rr * lda;
-      if constexpr (KIND == kPixels) {
-        if (row_pix[rr] < 0) continue;
-        const int na = max(0, min(kn, op.split - k0));   // from a
-        if (na) bulk_copy(dst, op.a + r * op.lda + k0, 4 * na, &bar);
-        if (kn > na)
-          bulk_copy(dst + na, op.a2 + r * op.lda2 + k0 + na - op.split,
-                    4 * (kn - na), &bar);
-      } else if constexpr (KIND == kTaps) {
-        if (row_tap[rr] >= 0)
-          bulk_copy(dst, op.a + row_tap[rr], 4 * kn, &bar);
-      } else {
-        if (row_pix[rr] < 0) continue;
-        bulk_copy(dst,
-                  c < op.nsum ? op.a + c * op.a_chunk + r * op.lda + k0
-                              : op.add + row_pix[rr] * op.lda + k0,
-                  4 * kn, &bar);
-      }
-    }
-    if constexpr (KIND == kTaps) {
-      tile_elems(kt, [&](int rr, int k4) {
-        if (row_pix[rr] >= 0 && row_tap[rr] < 0)
-          *reinterpret_cast<float4*>(As + rr * lda + k4) =
-              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      });
-    }
-    if (KIND == kChunks && !op.add_rows) {
-      for (int k4 = 4 * tid; k4 < kt; k4 += 4 * kThreads)
-        cp16(Bs + k4, k4 < kn ? op.add + k0 + k4 : op.add, k4 < kn);
+      float* dst = As + rr * lda;
+      const int na = max(0, min(kn, op.split - k0));   // from a
+      if (na) bulk_copy(dst, op.a + r * op.lda + k0, 4 * na, &bar);
+      if (kn > na)
+        bulk_copy(dst + na, op.a2 + r * op.lda2 + k0 + na - op.split,
+                  4 * (kn - na), &bar);
     }
     for (int idx = tid; idx < kt * (BN / 4); idx += kThreads) {
       const int kk = idx / (BN / 4);
@@ -411,26 +313,6 @@ __device__ __forceinline__ void stage_body(const Operand& op,
     mbar_wait(&bar, phase);
     phase ^= 1;
     __syncthreads();
-    if constexpr (KIND == kChunks) {
-      // A = act(chunk 0 + chunk 1 + ... + add), in that order, into
-      // slice 0
-      tile_elems(kt, [&](int rr, int k4) {
-        float4* dst = reinterpret_cast<float4*>(As + rr * lda + k4);
-        float4 v = *dst;
-        for (int c = 1; c < op.nsum; ++c)
-          v = add4(v, dst[c * slice / 4]);
-        v = add4(v, op.add_rows ? dst[op.nsum * slice / 4]
-                                : *reinterpret_cast<const float4*>(Bs + k4));
-        if (op.leaky) {
-          v.x = leaky1(v.x);
-          v.y = leaky1(v.y);
-          v.z = leaky1(v.z);
-          v.w = leaky1(v.w);
-        }
-        *dst = v;
-      });
-      __syncthreads();
-    }
     const int q = kn / kGroups;   // a multiple of 4
     for (int kk = gk * q; kk < (gk + 1) * q; kk += 4) {
       float4 a4[TM];
@@ -464,7 +346,6 @@ __device__ __forceinline__ void stage_body(const Operand& op,
       sums[(gk * kBM + ty + 8 * i) * BN + tx * TN + jn] = acc[i][jn];
   }
   __syncthreads();
-  float* out = o.out + blockIdx.z * o.chunk_stride;
   for (int idx = tid; idx < kBM * BN; idx += kThreads) {
     const int rr = idx / BN;
     const int n = n0 + idx - rr * BN;
@@ -473,89 +354,468 @@ __device__ __forceinline__ void stage_body(const Operand& op,
     float v = sums[idx];
 #pragma unroll
     for (int g = 1; g < kGroups; ++g) v = __fadd_rn(v, sums[g * kBM * BN + idx]);
-    if (o.bias) v = __fadd_rn(v, o.bias[n]);
-    int64_t row = r;
-    if (o.scatter) {
-      const int b = r / lv.cnt;
-      row = static_cast<int64_t>(b) * lv.p_max + (r - b * lv.cnt);
-    }
-    out[row * o.ldo + n] = v;
+    out[static_cast<int64_t>(r) * N + n] = __fadd_rn(v, bias[n]);
   }
 }
 
-// One launch of a stage: its operand kind and tile plan (width bn,
-// chunk kc, k-step kt), and the kernel's arguments.
-struct Launch {
-  int kind, bn;
-  Operand op;
-  const float* W;
-  int K, N, kc, kt;
-  Out o;
-  int R;
-  Level lv;
+using HoistFn = void (*)(Pixels, const float*, int, int, int, float*,
+                         const float*, int);
+
+// the hoisted product's kernel at each built tile width
+HoistFn hoist_fn(int bn) {
+  switch (bn) {
+    case 8: return wavefront_hoist_kernel<8>;
+    case 16: return wavefront_hoist_kernel<16>;
+    case 32: return wavefront_hoist_kernel<32>;
+    case 64: return wavefront_hoist_kernel<64>;
+    default: return nullptr;
+  }
+}
+
+// ---- the level kernel ----
+
+// The first unit of the units [q*rank/c, q*(rank+1)/c) that block `rank`
+// of a cluster of c owns of q units.
+__host__ __device__ __forceinline__ int slice_lo(int q, int rank, int c) {
+  return q * rank / c;
+}
+
+// The most columns a block of a cluster of c owns of n columns cut into
+// units of u.
+int max_cols(int n, int c, int u) { return u * ((n / u + c - 1) / c); }
+
+// The level kernel's dynamic shared memory, in floats: the owner table
+// (ints, at 0), then the block's tap share (quads of the context
+// product's input), its two output slices o0 (the context product's, then
+// layer 1's) and o1 (layer 0's), each bm floats a column, its layer-0
+// columns of the base rows (row-major), then the k-step buffers: two of A
+// (4 kq columns of bm rows) and, at ws, two of W (4 kq rows of ncmax
+// columns), which the k-group partial sums reuse after the last k-step.
+// models/wavefront.py level_smem is the same sum.
+struct LevelSmem {
+  int tap, o0, o1, base, work, ws, ncmax;
+  size_t bytes;
 };
 
-using StageFn = void (*)(Operand, const float*, int, int, int, int, Out,
-                         int, Level);
-
-template <int BN>
-int launch_as(StageFn fn, const Launch& a, cudaStream_t st) {
-  const dim3 grid((a.N + BN - 1) / BN, (a.R + kBM - 1) / kBM,
-                  (a.K + a.kc - 1) / a.kc);
-  fn<<<grid, kThreads, stage_smem(a.kind, a.op.nsum, a.op.add_rows, BN, a.kt),
-       st>>>(
-      a.op, a.W, a.K, a.N, a.kc, a.kt, a.o, a.R, a.lv);
-  return static_cast<int>(cudaGetLastError());
+LevelSmem level_smem(int M, int H1, int H2, int bm, int c, int kq, int u) {
+  LevelSmem L;
+  const int qmax = std::max({3 * M, M / 2, H1 / 4, H2 / 4});
+  L.tap = (qmax + 3) / 4 * 4;
+  L.o0 = L.tap + max_cols(12 * M, c, 4) * bm;
+  L.o1 = L.o0 + std::max(max_cols(2 * M, c, u), max_cols(H2, c, u)) * bm;
+  L.base = L.o1 + max_cols(H1, c, u) * bm;
+  L.work = L.base + max_cols(H1, c, u) * bm;
+  L.ncmax = std::max({max_cols(2 * M, c, u), max_cols(H1, c, u),
+                      max_cols(H2, c, u)});
+  L.ws = 2 * 4 * kq * bm;
+  const int work = std::max(L.ws + 2 * 4 * kq * L.ncmax, 4 * bm * L.ncmax);
+  L.bytes = sizeof(float) * (static_cast<size_t>(L.work) + work);
+  return L;
 }
 
-// Each stage is a kernel of its own name (so a profile tells them apart),
-// built for the tile widths 8, 16, 32 and 64; launch_<name>(a, ...)
-// picks the width, and allow_<name> lets each width take up to kMaxSmem
-// of dynamic shared memory.
-#define WAVEFRONT_STAGE(name, KIND)                                          \
-  template <int BN>                                                          \
-  __global__ void __launch_bounds__(kThreads)                                \
-      name(Operand op, const float* __restrict__ W, int K, int N, int kc,    \
-           int kt, Out o, int R, Level lv) {                                 \
-    stage_body<KIND, BN>(op, W, K, N, kc, kt, o, R, lv);                     \
-  }                                                                          \
-  int launch_##name(const Launch& a, cudaStream_t st) {                      \
-    switch (a.bn) {                                                          \
-      case 8: return launch_as<8>(name<8>, a, st);                           \
-      case 16: return launch_as<16>(name<16>, a, st);                        \
-      case 32: return launch_as<32>(name<32>, a, st);                        \
-      case 64: return launch_as<64>(name<64>, a, st);                        \
-      default: return -1;                                                    \
-    }                                                                        \
-  }                                                                          \
-  int allow_##name() {                                                       \
-    const StageFn fns[] = {name<8>, name<16>, name<32>, name<64>};           \
-    for (StageFn f : fns) {                                                  \
-      const cudaError_t e = cudaFuncSetAttribute(                            \
-          reinterpret_cast<const void*>(f),                                  \
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);            \
-      if (e != cudaSuccess) return static_cast<int>(e);                      \
-    }                                                                        \
-    return 0;                                                                \
+// A level plan (bm rows a tile, c blocks a cluster, kq k a group a
+// k-step, u x u register tiles) is built and fits: u 4 or 8 dividing bm
+// (up to kLvMaxRows) and every product's width, c up to kLvMaxCluster, a
+// k-step's gather within kLvGather float4s a thread, every product's
+// tiles within the threads' registers (64 sums a thread), and shared
+// memory within kLvMaxSmem.  models/wavefront.py level_plan_ok is the
+// same test.
+bool level_plan_ok(int M, int H1, int H2, int bm, int c, int kq, int u) {
+  if ((u != 4 && u != 8) || bm < u || bm > kLvMaxRows || bm % u || c < 1 ||
+      c > kLvMaxCluster || kq < 4 || kq % 4 ||
+      kq * bm > kLvGather * kLvThreads)
+    return false;
+  for (int n : {2 * M, H1, H2})
+    if (n % u || kGroups * (bm / u) * (max_cols(n, c, u) / u) >
+                     kLvThreads * (64 / (u * u)))
+      return false;
+  return level_smem(M, H1, H2, bm, c, kq, u).bytes <=
+         static_cast<size_t>(kLvMaxSmem);
+}
+
+// The level kernel's arguments: per product (0 ctx, 1 layer 0, 2 layer 1,
+// 3 layer 2) its (K, N) weights w (row-major), bias (none for layer 0,
+// which adds base rows), its input's and output's offsets in shared
+// memory (out < 0: g); the level, its rows R and the plan; the shared
+// memory layout.
+struct LevelArgs {
+  const float* yhat;
+  const float* base;
+  float* g;
+  const float* w[4];
+  const float* bias[4];
+  int k[4], n[4], src[4], dst[4];
+  Level lv;
+  int M, H1, R, bm, kq;
+  LevelSmem L;
+};
+
+// The k-group of column `col` of a k-step of kn columns a group.
+__device__ __forceinline__ int step_group(int col, int kn) {
+  return (col >= kn) + (col >= 2 * kn) + (col >= 3 * kn);
+}
+
+// One launch per level: cluster blockIdx.x / C owns rows [tile*bm, +bm);
+// each thread holds up to 64 / (U*U) U x U tiles of one product's output
+// (rows and columns in U/4 runs of 4, half a tile apart, so that the
+// lanes of a warp read neighbouring float4s).
+template <int U>
+__global__ void __launch_bounds__(kLvThreads, 1)
+    wavefront_level_kernel(const LevelArgs a) {
+  constexpr int kItems = 64 / (U * U);
+  constexpr int kRuns = U / 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  int* own = reinterpret_cast<int*>(smem4);
+  float* As = sm + a.L.work;
+  float* Ws = As + a.L.ws;
+  float* base_s = sm + a.L.base;
+  // each tile row's pixel (-1 past R), its row of g, and (b, i, j)
+  __shared__ int row_pix[kLvMaxRows], row_g[kLvMaxRows];
+  __shared__ int row_b[kLvMaxRows], row_i[kLvMaxRows], row_j[kLvMaxRows];
+  const Level& lv = a.lv;
+  const int tid = threadIdx.x;
+  const int bm = a.bm;
+  const int bmq = bm / 4;
+  const int kq = a.kq;
+  const int r0 = static_cast<int>(blockIdx.x) / C * bm;
+  if (tid < bm) {
+    int b = 0, i = 0, j = 0, pix = -1, gr = 0;
+    if (r0 + tid < a.R) {
+      pix = static_cast<int>(level_pixel(lv, r0 + tid, &b, &i, &j));
+      gr = b * lv.p_max + i - lv.lo;
+    }
+    row_pix[tid] = pix;
+    row_g[tid] = gr;
+    row_b[tid] = b;
+    row_i[tid] = i;
+    row_j[tid] = j;
+  }
+  __syncthreads();
+
+  // this block's layer-0 columns of the tile's base rows, in flight while
+  // the context product runs (0 past R)
+  {
+    const int nu = a.H1 / U;
+    const int c0 = U * slice_lo(nu, rank, C);
+    const int nc4 = U * (slice_lo(nu, rank + 1, C) - slice_lo(nu, rank, C)) / 4;
+    for (int e = tid; e < bm * nc4; e += kLvThreads) {
+      const int r = e / nc4;
+      const int q = e - r * nc4;
+      const int pix = row_pix[r];
+      cp16(base_s + 4 * (r * nc4 + q),
+           pix >= 0 ? a.base + static_cast<int64_t>(pix) * a.H1 + c0 + 4 * q
+                    : a.base,
+           pix >= 0);
+    }
   }
 
-WAVEFRONT_STAGE(wavefront_hoist_kernel, kPixels)
-WAVEFRONT_STAGE(wavefront_ctx_kernel, kTaps)
-WAVEFRONT_STAGE(wavefront_layer0_kernel, kChunks)
-WAVEFRONT_STAGE(wavefront_layer1_kernel, kChunks)
-WAVEFRONT_STAGE(wavefront_layer2_kernel, kChunks)
+  // the tile's taps: this block's share, quads [lo, lo + nq) of the
+  // context product's 3M input quads (k = tap*M + c), bm floats a column,
+  // 0 outside the image and past R; loads in batches of 4
+  {
+    float* tap = sm + a.L.tap;
+    const int q = 3 * a.M;
+    const int lo = slice_lo(q, rank, C);
+    const int n = (slice_lo(q, rank + 1, C) - lo) * bm;
+    for (int e0 = tid; e0 < n; e0 += 4 * kLvThreads) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * kLvThreads;
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (e >= n) continue;
+        const int ql = e / bm;
+        const int r = e - ql * bm;
+        const int k = 4 * (lo + ql);
+        const int t = k / a.M;
+        if (row_pix[r] < 0) continue;
+        // ar_device.TAPS order: rows -2 and -1 (dj = -2..2), then
+        // (0, -2), (0, -1)
+        const int ii = row_i[r] + (t < 10 ? t / 5 - 2 : 0);
+        const int jj = row_j[r] + (t < 10 ? t % 5 - 2 : t - 12);
+        if (ii >= 0 && jj >= 0 && jj < lv.wy)
+          v[u] = *reinterpret_cast<const float4*>(
+              a.yhat +
+              ((static_cast<int64_t>(row_b[r]) * lv.hy + ii) * lv.wy + jj) *
+                  a.M +
+              k - t * a.M);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * kLvThreads;
+        if (e >= n) continue;
+        const int ql = e / bm;
+        float* d = tap + 4 * ql * bm + e - ql * bm;
+        d[0] = v[u].x;
+        d[bm] = v[u].y;
+        d[2 * bm] = v[u].z;
+        d[3 * bm] = v[u].w;
+      }
+    }
+  }
+  cluster.sync();
 
-#undef WAVEFRONT_STAGE
+  // this thread's first element (col, rq) of a k-step's gather grid of
+  // 4 kn columns x bmq row quads, rq fastest, and the stride to its next
+  const int gcol0 = tid / bmq;
+  const int grq0 = tid - gcol0 * bmq;
+  const int dcol = kLvThreads / bmq;
+  const int drq = kLvThreads - dcol * bmq;
 
-// A stage's tile plan is built and fits: a built width, k-steps that
-// split into kGroups whole float4s, and shared memory within kMaxSmem.
-bool plan_ok(const Launch& a) {
-  constexpr int q = 4 * kGroups;
-  return (a.bn == 8 || a.bn == 16 || a.bn == 32 || a.bn == 64) &&
-         a.kc > 0 && a.kt > 0 && a.kc % q == 0 && a.kt % q == 0 &&
-         a.kt <= a.kc && a.K % q == 0 && a.N % 4 == 0 &&
-         stage_smem(a.kind, a.op.nsum, a.op.add_rows, a.bn, a.kt) <=
-             static_cast<size_t>(kMaxSmem);
+  for (int si = 0; si < 4; ++si) {
+    const int K = a.k[si];
+    const int N = a.n[si];
+    const int kg = K / kGroups;   // k of a group
+    const int qk = K / 4;         // quads of the input
+    const int uin = si == 0 ? 1 : U / 4;   // quads a unit of the input
+    const float* src = sm + a.src[si];
+    // the owner of each input quad and its place there
+    for (int q = tid; q < qk; q += kLvThreads) {
+      const int nu = qk / uin;
+      const int v = q / uin;
+      const int c = ((v + 1) * C + nu - 1) / nu - 1;
+      own[q] = (c << 16) | (q - uin * slice_lo(nu, c, C));
+    }
+    const int nu = N / U;
+    const int n0 = U * slice_lo(nu, rank, C);
+    const int nc = U * (slice_lo(nu, rank + 1, C) - slice_lo(nu, rank, C));
+    const int trn = bm / U;                // tiles down the rows
+    const int tiles = trn * (nc / U);
+    const int rh = bm / kRuns;             // a tile's runs: rows apart
+    const int ch = nc / kRuns;             //   and columns apart
+    // this thread's items i = tid + 256 it: k-group g, tile t (rows
+    // fastest), the tile's first row and column, and its sums
+    int item_g[kItems], t_row[kItems], t_col[kItems];
+    float acc[kItems][U * U];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + kLvThreads * it;
+      const int g = tiles ? i / tiles : kGroups;
+      const int t = i - g * tiles;
+      const int tc = tiles ? t / trn : 0;
+      item_g[it] = g;
+      t_row[it] = 4 * (t - tc * trn);
+      t_col[it] = 4 * tc;
+#pragma unroll
+      for (int e = 0; e < U * U; ++e) acc[it][e] = 0.0f;
+    }
+    const int nsteps = (kg + kq - 1) / kq;
+    float4 gr[kLvGather];
+    // k-step `step`: kn k of each group; column col of the step is k =
+    // g*kg + step*kq + kk of the input, (g, kk) = step_group
+    const auto kn_of = [&](int step) { return min(kq, kg - step * kq); };
+    const auto gather_load = [&](int step) {
+      const int kn = kn_of(step);
+      int col = gcol0, rq = grq0;
+#pragma unroll
+      for (int i = 0; i < kLvGather; ++i) {
+        if (col < 4 * kn) {
+          const int g = step_group(col, kn);
+          const int k = g * kg + step * kq + col - g * kn;
+          const int o = own[k >> 2];
+          const float* p = cluster.map_shared_rank(src, o >> 16) +
+                           (4 * (o & 0xFFFF) + (k & 3)) * bm + 4 * rq;
+          gr[i] = *reinterpret_cast<const float4*>(p);
+        }
+        col += dcol;
+        rq += drq;
+        if (rq >= bmq) {
+          rq -= bmq;
+          ++col;
+        }
+      }
+    };
+    const auto gather_store = [&](int step, int buf) {
+      const int kn = kn_of(step);
+      float* dst = As + buf * 4 * kq * bm;
+      int col = gcol0, rq = grq0;
+#pragma unroll
+      for (int i = 0; i < kLvGather; ++i) {
+        if (col < 4 * kn) {
+          const int g = step_group(col, kn);
+          *reinterpret_cast<float4*>(
+              dst + (g * kq + col - g * kn) * bm + 4 * rq) = gr[i];
+        }
+        col += dcol;
+        rq += drq;
+        if (rq >= bmq) {
+          rq -= bmq;
+          ++col;
+        }
+      }
+    };
+    const auto load_w = [&](int step, int buf) {
+      if (!nc) return;
+      const int kn = kn_of(step);
+      const int nq = nc / 4;
+      float* dst = Ws + buf * 4 * kq * a.L.ncmax;
+      const float* W = a.w[si];
+      int row = tid / nq;
+      int q = tid - row * nq;
+      const int drow = kLvThreads / nq;
+      const int dq = kLvThreads - drow * nq;
+      while (row < 4 * kn) {
+        const int g = step_group(row, kn);
+        const int kk = row - g * kn;
+        const int k = g * kg + step * kq + kk;
+        cp16(dst + (g * kq + kk) * nc + 4 * q,
+             W + static_cast<int64_t>(k) * N + n0 + 4 * q, true);
+        row += drow;
+        q += dq;
+        if (q >= nq) {
+          q -= nq;
+          ++row;
+        }
+      }
+    };
+
+    __syncthreads();   // the owner table
+    gather_load(0);
+    load_w(0, 0);
+    gather_store(0, 0);
+    cp_wait_all();
+    __syncthreads();
+    for (int step = 0; step < nsteps; ++step) {
+      const int cur = step & 1;
+      const bool more = step + 1 < nsteps;
+      if (more) {
+        gather_load(step + 1);
+        load_w(step + 1, cur ^ 1);
+      }
+      const int kn = kn_of(step);
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        if (item_g[it] < kGroups) {
+          const float* ap = As + (cur * 4 + item_g[it]) * kq * bm + t_row[it];
+          const float* wp = Ws + cur * 4 * kq * a.L.ncmax +
+                            item_g[it] * kq * nc + t_col[it];
+#pragma unroll 2
+          for (int kk = 0; kk < kn; ++kk) {
+            float x[U], w[U];
+#pragma unroll
+            for (int h = 0; h < kRuns; ++h) {
+              const float4 xv =
+                  *reinterpret_cast<const float4*>(ap + kk * bm + h * rh);
+              const float4 wv =
+                  *reinterpret_cast<const float4*>(wp + kk * nc + h * ch);
+              x[4 * h] = xv.x;
+              x[4 * h + 1] = xv.y;
+              x[4 * h + 2] = xv.z;
+              x[4 * h + 3] = xv.w;
+              w[4 * h] = wv.x;
+              w[4 * h + 1] = wv.y;
+              w[4 * h + 2] = wv.z;
+              w[4 * h + 3] = wv.w;
+            }
+#pragma unroll
+            for (int i = 0; i < U; ++i) {
+#pragma unroll
+              for (int j = 0; j < U; ++j)
+                acc[it][i * U + j] =
+                    __fmaf_rn(x[i], w[j], acc[it][i * U + j]);
+            }
+          }
+        }
+      }
+      if (more) {
+        gather_store(step + 1, cur ^ 1);
+        cp_wait_all();
+      }
+      __syncthreads();
+    }
+
+    // the k-groups' sums, column-major (bm floats a column) a group, in
+    // the k-step buffers; then each output is their sum in group order
+    // 0..3, + the bias (layer 0: the pixel's base row), leaky_relu after
+    // layers 0 and 1, into this block's output slice, or g
+    float* red = As;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      if (item_g[it] >= kGroups) continue;
+      float* p = red + item_g[it] * nc * bm;
+#pragma unroll
+      for (int hc = 0; hc < kRuns; ++hc) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* col = p + (hc * ch + t_col[it] + j) * bm + t_row[it];
+#pragma unroll
+          for (int h = 0; h < kRuns; ++h) {
+            const float* s = acc[it] + 4 * h * U + 4 * hc + j;
+            *reinterpret_cast<float4*>(col + h * rh) =
+                make_float4(s[0], s[U], s[2 * U], s[3 * U]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    {
+      const int grp = nc * bm;
+      float* dst = si < 3 ? sm + a.dst[si] : nullptr;
+      int c = tid / bm;
+      int r = tid - c * bm;
+      const int dc = kLvThreads / bm;
+      const int dr = kLvThreads - dc * bm;
+      for (int e = tid; e < grp; e += kLvThreads) {
+        float v = red[e];
+#pragma unroll
+        for (int g = 1; g < kGroups; ++g) v = __fadd_rn(v, red[g * grp + e]);
+        v = __fadd_rn(v, si == 1 ? base_s[r * nc + c] : a.bias[si][n0 + c]);
+        if (si == 1 || si == 2) v = leaky1(v);
+        if (dst)
+          dst[e] = v;
+        else if (row_pix[r] >= 0)
+          a.g[static_cast<int64_t>(row_g[r]) * N + n0 + c] = v;
+        c += dc;
+        r += dr;
+        if (r >= bm) {
+          r -= bm;
+          ++c;
+        }
+      }
+    }
+    // the slice is complete for the next product's gathers (after the last
+    // product: no block leaves while another still reads its memory)
+    cluster.sync();
+  }
+}
+
+using LevelFn = void (*)(LevelArgs);
+
+// the level kernel at each register tile
+LevelFn level_fn(int u) {
+  return u == 8 ? wavefront_level_kernel<8> : wavefront_level_kernel<4>;
+}
+
+// Lets the level kernel (tile u) take kLvMaxSmem of dynamic shared memory
+// and clusters of up to 16 blocks.
+int allow_level(int u) {
+  const void* f = reinterpret_cast<const void*>(level_fn(u));
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, kLvMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return static_cast<int>(e);
+}
+
+cudaLaunchConfig_t level_config(int clusters, int c, size_t smem,
+                                cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * c);
+  cfg.blockDim = dim3(kLvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // One thread per (lane, group): lanes of a block are kCoderThreads / G
@@ -689,97 +949,91 @@ int hesic_ar_hoist(const void* pre, const void* post, const void* w0pp,
                    const void* b0, void* base, int npix, int P, int Q,
                    int H1, const int* plan, void* stream) {
   const int K = P + Q;
-  const Launch a{
-      kPixels, plan[0],
-      Operand{static_cast<const float*>(pre), static_cast<const float*>(post),
-              P, Q, P, 1, 0, nullptr, 0, 0},
-      static_cast<const float*>(w0pp), K, H1, K, plan[1],
-      Out{static_cast<float*>(base), 0, H1, static_cast<const float*>(b0), 0},
-      npix, Level{}};
-  if (P % 4 || Q % 4 || !plan_ok(a)) return -1;
-  const int e = allow_wavefront_hoist_kernel();
-  if (e) return e;
-  return launch_wavefront_hoist_kernel(a, static_cast<cudaStream_t>(stream));
+  const int bn = plan[0], kt = plan[1];
+  const HoistFn fn = hoist_fn(bn);
+  if (P % 4 || Q % 4 || !fn || kt <= 0 || kt % 16 || kt > K || K % 16 ||
+      H1 % 4 || hoist_smem(bn, kt) > static_cast<size_t>(kMaxSmem))
+    return -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(fn),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((H1 + bn - 1) / bn, (npix + kBM - 1) / kBM);
+  fn<<<grid, kThreads, hoist_smem(bn, kt),
+       static_cast<cudaStream_t>(stream)>>>(
+      Pixels{static_cast<const float*>(pre), static_cast<const float*>(post),
+             P, Q, P},
+      static_cast<const float*>(w0pp), K, H1, kt, static_cast<float*>(base),
+      static_cast<const float*>(b0), npix);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One eye pass over every level, given hesic_ar_hoist's base.  w0c is
-// w0[P:P+2M] (2M, H1).  plan holds (tile width, chunk, k-step) for the
-// ctx, layer-0, layer-1 and layer-2 stages (ctx chunks of whole taps,
-// layer 2 in one chunk); the scratch part_ctx, part0 and part1 hold each
-// chunk's (B*p_max, N) partial sums.  Returns the cudaError_t of the
-// first failed launch (0 = success); -1 for an unsupported shape or plan.
+// w0[P:P+2M] (2M, H1).  plan holds (bm, cluster, kq, tile) for each level
+// (see level_plan_ok).  Returns the cudaError_t of the first failed launch
+// (0 = success); -1 for an unsupported shape or plan (nothing launched).
 int hesic_ar_wavefront(const void* base, const void* ytrue,
                        const void* cmask, const void* cval, const void* words,
                        void* x_st, void* p_st, const void* tapk,
                        const void* ctxb, const void* w0c, const void* w1,
                        const void* b1, const void* w2, const void* b2,
-                       void* part_ctx, void* part0, void* part1, void* g,
-                       void* starts, void* freqs, void* yhat, void* resid,
-                       int B, int hy, int wy, int M, int H1, int H2, int G,
-                       int mm, int cap, int p_max, int teacher,
+                       void* g, void* starts, void* freqs, void* yhat,
+                       void* resid, int B, int hy, int wy, int M, int H1,
+                       int H2, int G, int mm, int cap, int p_max, int teacher,
                        const int* plan, void* stream) {
+  const int n_levels = 3 * (hy - 1) + (wy - 1) + 1;
   if (M % G != 0 || kCoderThreads % G != 0 || 2 * mm + 1 > kMaxS ||
-      mm < 0 || cap < 1 || M % 4 || plan[1] % M || M % plan[2] ||
-      plan[10] < H2)
+      mm < 0 || cap < 1 || M % 4 || H1 % 4 || H2 % 4)
     return -1;
+  for (int s = 0; s < n_levels; ++s)
+    if (!level_plan_ok(M, H1, H2, plan[4 * s], plan[4 * s + 1],
+                       plan[4 * s + 2], plan[4 * s + 3]))
+      return -1;
+  int e;
+  if ((e = allow_level(4)) || (e = allow_level(8))) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int r_max = B * p_max;
   const int L = r_max * (M / G);
-  const int n_levels = 3 * (hy - 1) + (wy - 1) + 1;
-  float* fpc = static_cast<float*>(part_ctx);
-  float* fp0 = static_cast<float*>(part0);
-  float* fp1 = static_cast<float*>(part1);
-  const int64_t sc = static_cast<int64_t>(r_max) * 2 * M;
-  const int64_t s0 = static_cast<int64_t>(r_max) * H1;
-  const int64_t s1 = static_cast<int64_t>(r_max) * H2;
-  // chunks of stage i's K, which stage i + 1 sums
-  const auto chunks = [plan](int i, int K) {
-    return (K + plan[3 * i + 1] - 1) / plan[3 * i + 1];
-  };
-  Launch ctx{kTaps, plan[0],
-             Operand{static_cast<const float*>(yhat), nullptr, M, 0, 0, 1, 0,
-                     nullptr, 0, 0},
-             static_cast<const float*>(tapk), 12 * M, 2 * M, plan[1],
-             plan[2], Out{fpc, sc, 2 * M, nullptr, 0}, 0, Level{}};
-  Launch l0{kChunks, plan[3],
-            Operand{fpc, nullptr, 2 * M, 0, 0, chunks(0, 12 * M), sc,
-                    static_cast<const float*>(ctxb), 0, 0},
-            static_cast<const float*>(w0c), 2 * M, H1, plan[4], plan[5],
-            Out{fp0, s0, H1, nullptr, 0}, 0, Level{}};
-  Launch l1{kChunks, plan[6],
-            Operand{fp0, nullptr, H1, 0, 0, chunks(1, 2 * M), s0,
-                    static_cast<const float*>(base), 1, 1},
-            static_cast<const float*>(w1), H1, H2, plan[7], plan[8],
-            Out{fp1, s1, H2, nullptr, 0}, 0, Level{}};
-  Launch l2{kChunks, plan[9],
-            Operand{fp1, nullptr, H2, 0, 0, chunks(2, H1), s1,
-                    static_cast<const float*>(b1), 0, 1},
-            static_cast<const float*>(w2), H2, 2 * M, plan[10], plan[11],
-            Out{static_cast<float*>(g), 0, 2 * M,
-                static_cast<const float*>(b2), 1},
-            0, Level{}};
-  for (const Launch* a : {&ctx, &l0, &l1, &l2})
-    if (!plan_ok(*a)) return -1;
-  int e;
-  if ((e = allow_wavefront_ctx_kernel()) ||
-      (e = allow_wavefront_layer0_kernel()) ||
-      (e = allow_wavefront_layer1_kernel()) ||
-      (e = allow_wavefront_layer2_kernel()))
-    return e;
+  LevelArgs a{};
+  a.yhat = static_cast<const float*>(yhat);
+  a.base = static_cast<const float*>(base);
+  a.g = static_cast<float*>(g);
+  const float* w[4] = {static_cast<const float*>(tapk),
+                       static_cast<const float*>(w0c),
+                       static_cast<const float*>(w1),
+                       static_cast<const float*>(w2)};
+  const float* bias[4] = {static_cast<const float*>(ctxb), nullptr,
+                          static_cast<const float*>(b1),
+                          static_cast<const float*>(b2)};
+  const int kn[4][2] = {{12 * M, 2 * M}, {2 * M, H1}, {H1, H2}, {H2, 2 * M}};
+  a.M = M;
+  a.H1 = H1;
   for (int s = 0; s < n_levels; ++s) {
     // ar_device.schedule: i from ceil((s - wy + 1) / 3) to min(hy-1, s/3)
     const int lo = s - (wy - 1) > 0 ? (s - (wy - 1) + 2) / 3 : 0;
     const int hi = s / 3 < hy - 1 ? s / 3 : hy - 1;
     const int cnt = hi - lo + 1;
-    for (Launch* a : {&ctx, &l0, &l1, &l2}) {
-      a->R = B * cnt;
-      a->lv = Level{hy, wy, s, lo, cnt, p_max};
+    const int* p = plan + 4 * s;
+    a.lv = Level{hy, wy, s, lo, cnt, p_max};
+    a.R = B * cnt;
+    a.bm = p[0];
+    a.kq = p[2];
+    a.L = level_smem(M, H1, H2, p[0], p[1], p[2], p[3]);
+    const int src[4] = {a.L.tap, a.L.o0, a.L.o1, a.L.o0};
+    const int dst[4] = {a.L.o0, a.L.o1, a.L.o0, -1};
+    for (int i = 0; i < 4; ++i) {
+      a.w[i] = w[i];
+      a.bias[i] = bias[i];
+      a.k[i] = kn[i][0];
+      a.n[i] = kn[i][1];
+      a.src[i] = src[i];
+      a.dst[i] = dst[i];
     }
-    if ((e = launch_wavefront_ctx_kernel(ctx, st)) ||
-        (e = launch_wavefront_layer0_kernel(l0, st)) ||
-        (e = launch_wavefront_layer1_kernel(l1, st)) ||
-        (e = launch_wavefront_layer2_kernel(l2, st)))
-      return e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        level_config((a.R + p[0] - 1) / p[0], p[1], a.L.bytes, st, &attr);
+    e = static_cast<int>(cudaLaunchKernelEx(&cfg, level_fn(p[3]), a));
+    if (e) return e;
     const int lanes_per_block = kCoderThreads / G;
     wavefront_coder_kernel<<<(L + lanes_per_block - 1) / lanes_per_block,
                              kCoderThreads, 0, st>>>(
@@ -794,6 +1048,19 @@ int hesic_ar_wavefront(const void* base, const void* ytrue,
     if (e) return e;
   }
   return 0;
+}
+
+// *out = the most clusters of `c` level-kernel blocks (tile u), each with
+// `smem` bytes of dynamic shared memory, that the card holds at once
+// (cudaOccupancyMaxActiveClusters).  Returns the cudaError_t (0 =
+// success).
+int hesic_ar_level_clusters(int c, int smem, int u, int* out) {
+  const int e = allow_level(u);
+  if (e) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = level_config(1, c, smem, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      out, reinterpret_cast<const void*>(level_fn(u)), &cfg));
 }
 
 }  // extern "C"

@@ -61,9 +61,12 @@ is the host blocked on the device.  Counters: ``count/h2d_bytes``
 (``_upload``), ``count/d2h_bytes`` (the start's copies, the finish's
 words), ``count/latents`` and ``count/escapes`` (each finish),
 ``count/escape_fallbacks`` (each finish: its eyes that overflowed the
-slab) and ``count/scan_levels`` (each level scan: the levels it
-launched).  ``compress`` and ``decompress`` run the same chain, so its
-spans show there too.
+slab), ``count/scan_levels`` (each level scan: the levels it
+launched) and, inside each scan on the card,
+``count/wavefront_level_launches`` (``models/wavefront.py``: the levels
+the pass launched through ``wavefront_level_kernel``, counted once the
+launches were accepted).  ``compress`` and ``decompress`` run the same
+chain, so its spans show there too.
 
 Not carried over from the JAX codec: the TPU link devices
 (``DENSE_LINK_THRESHOLD``, ``compact_stream``, ``upload_words_auto``,
@@ -99,10 +102,14 @@ WARP_WIN = 64
 ESCAPE_CAP = 1024
 
 # Stream-format byte.  The JAX package's backends are 0 (lax.scan, XLA
-# erfc) and 2 (Pallas level scan); the port's two differ from both and
-# from each other (other product orders), so they take ids of their own.
+# erfc) and 2 (Pallas level scan); the port's differ from both and from
+# each other (other product orders), so they take ids of their own: 3 the
+# plain twin, 5 the CUDA kernel's cluster level scan.  4 was the CUDA
+# kernel's earlier stage design, whose sums ran in another order: its
+# containers are refused by name.
 BACKEND_NAMES = {0: "xla-scan", 2: "pallas-level-scan",
-                 3: "torch-plain-level-scan", 4: "cuda-level-scan"}
+                 3: "torch-plain-level-scan", 4: "cuda-level-scan",
+                 5: "cuda-level-scan-cluster"}
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -180,9 +187,9 @@ def wavefront_valid_mask(hy: int, wy: int, b: int, groups: int, m: int,
 
 
 def wavefront_backend_id(device) -> int:
-    """The backend byte for level scans on `device`: 4 = the CUDA kernel,
+    """The backend byte for level scans on `device`: 5 = the CUDA kernel,
     3 = the plain twin (CPU)."""
-    return 4 if torch.device(device).type == "cuda" else 3
+    return 5 if torch.device(device).type == "cuda" else 3
 
 
 def check_wavefront_backend(blob: bytes, device) -> int:
@@ -390,7 +397,7 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
     of images.  Images are (B, H, W, 3) float32 with H, W multiples of
     64; latents come out as (B, hy, wy, M) float32.
 
-    Container: backend byte (4 card, 3 CPU twin) | 5 x u32 (B, H, W, zh,
+    Container: backend byte (5 card, 3 CPU twin) | 5 x u32 (B, H, W, zh,
     zw) | escapes (u32 n | u32 flat NHWC index[n] | i32 value[n]) | B z
     strings (u32 length | bytes) | the packed stream."""
 

@@ -49,16 +49,19 @@ The kernel computes the first MLP layer in split form: the hoisted
 product ``base = pre @ w0[0:P] + post @ w0[P+2M:] + b0`` (twin
 ``hoisted_base_plain``) once per pass for every pixel, then per level
 ``base + ctx @ w0[P:P+2M]``.  It works on each level's compacted rows
-(``level_rows``) and tiles its four stage products by ``stage_plan``.
-The weights are packed for it once (``pack_weights``, kept by the codec),
-with the hidden widths H1, H2 padded with zeros to multiples of 16, which
-the stage products need (Cheng2020 at N=128 has H1 426, H2 341); the
-twin runs the real widths.
+(``level_rows``): one launch a level runs its four products, tiled by
+``level_plan`` from the level's rows, each sum in the order ``k_groups``
+fixes from its K alone.  The weights are packed for it once
+(``pack_weights``, kept by the codec), with the hidden widths H1, H2
+padded with zeros to multiples of 16, which the hoisted product's
+k-steps need (Cheng2020 at N=128 has H1 426, H2 341); the twin runs the
+real widths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -69,6 +72,7 @@ from ..codecs import build
 from ..codecs.det_math import (det_freq_rows, det_qscale, det_recip,
                                det_std_cdf, f32)
 from ..codecs.device_rans import PROB_BITS, RANS_L
+from ..utils.tracing import count
 from .ar_device import TAPS, schedule
 from .autoregressive import ArWeights
 
@@ -320,47 +324,20 @@ def level_rows(hy: int, wy: int, b: int, s: int):
     return bi, i, s - 3 * i
 
 
-# wavefront.cu's stage tiles: ROW_TILE rows (kBM) by one of TILE_WIDTHS
-# columns
-ROW_TILE = 64
+# the hoisted product (wavefront.cu's wavefront_hoist_kernel): tiles of
+# 64 rows by one of TILE_WIDTHS columns, in k-steps of a multiple of 16
 TILE_WIDTHS = (8, 16, 32, 64)
 
 
 class StagePlan(NamedTuple):
-    """A stage's tiles: `bn` columns, `kc` k per block (its chunk of K),
-    `kt` k per shared-memory step (multiples of 16)."""
+    """The hoisted product's tiles: `bn` columns, `kt` k per shared-memory
+    step (a multiple of 16)."""
 
     bn: int
-    kc: int
     kt: int
 
 
-def stage_shapes(m: int, h1: int, h2: int) -> dict:
-    """Each level stage's (K, N): the context product and the three
-    layers (layer 0 on its 2M context rows only)."""
-    return {"ctx": (12 * m, 2 * m), "layer0": (2 * m, h1),
-            "layer1": (h1, h2), "layer2": (h2, 2 * m)}
-
-
-def stage_plan(m: int, h1: int, h2: int) -> dict:
-    """The level stages' tiles, fixed by the layer widths alone (never by
-    the direction, so encode and decode sum in one order); h1, h2 are
-    the packed (padded) widths.  At M=192 (H1 640, H2 512) and a full
-    level of 121 rows (B=11, 32x32 latents) every launch has >= 96
-    blocks: ctx 12 column tiles x 4 chunks of 3 taps, layer 0 20 x 3,
-    layer 1 32 x 2, layer 2 48 x 1, times 2 row tiles.  Layer 2 is one
-    chunk: it writes g itself."""
-    def part(k, n):    # k / n rounded up to whole k-groups of float4s
-        return -(-k // (16 * n)) * 16
-
-    return {"ctx": StagePlan(32, 3 * m, m),
-            "layer0": StagePlan(32, part(2 * m, 3), part(2 * m, 3)),
-            "layer1": StagePlan(16, part(h1, 2), part(h1, 4)),
-            "layer2": StagePlan(8, h2, part(h2, 2))}
-
-
-# the hoisted product: one chunk of all P + Q rows (kc unused)
-HOIST_PLAN = StagePlan(32, 0, 192)
+HOIST_PLAN = StagePlan(32, 192)
 
 
 def hoist_plan(k: int) -> tuple:
@@ -371,16 +348,179 @@ def hoist_plan(k: int) -> tuple:
     return HOIST_PLAN.bn, min(HOIST_PLAN.kt, k)
 
 
-def stage_blocks(plan: dict, shapes: dict, rows: int) -> dict:
-    """Blocks of each stage launch on a level of `rows` compacted rows."""
-    return {name: (-(-rows // ROW_TILE)) * (-(-shapes[name][1] // p.bn))
-            * (-(-shapes[name][0] // p.kc)) for name, p in plan.items()}
+def stage_shapes(m: int, h1: int, h2: int) -> dict:
+    """Each level product's (K, N): the context product and the three
+    layers (layer 0 on its 2M context rows only)."""
+    return {"ctx": (12 * m, 2 * m), "layer0": (2 * m, h1),
+            "layer1": (h1, h2), "layer2": (h2, 2 * m)}
 
 
-def weight_bytes_per_level(shapes: dict, rows: int) -> int:
-    """float32 weight bytes the level stages read on a level of `rows`
-    rows: each row tile reads each weight element once."""
-    return sum(4 * k * n for k, n in shapes.values()) * -(-rows // ROW_TILE)
+# wavefront.cu's level kernel (wavefront_level_kernel): its limits
+K_GROUPS = 4             # k-groups of every sum: the fixed order of terms
+THREADS = 256            # a block
+TILES = (4, 8)           # register tiles, u x u sums a thread's item
+GATHER = 8               # float4s a thread gathers a k-step
+MAX_CLUSTER = 16         # blocks a cluster (non-portable above 8)
+MAX_ROWS = 64            # rows a tile
+LEVEL_SMEM = 225 * 1024  # dynamic shared memory a block
+# clusters of each size the H100 holds at once at one block an SM
+# (hesic_ar_level_clusters on the card: 132 SMs in GPCs of 16-18)
+CLUSTER_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# level_plan's cost model of a launch's time, in microseconds, fitted by
+# least squares to 9,500 level launches of 76 plans timed on an H100 (700
+# W; HESIC+ M=192 at B=64 and B=11; median error 2.5%): a block's loop
+# cycles (``_loop_cycles``) at this many microseconds per 1,980 cycles,
+# a k-step's latency, a megabyte of weights a block reads from L2 and of
+# activations it gathers from other blocks, and a launch's fixed cost
+LOOP_US, STEP_US, W_US_PER_MB, GATHER_US_PER_MB, LAUNCH_US = (
+    1.27, 1.06, 12.2, 68.8, 20.2)
+
+
+class LevelPlan(NamedTuple):
+    """A level's launch: tiles of `bm` rows, each one cluster of
+    `cluster` blocks, k-steps of `kq` k a group, and `tile` x `tile`
+    register tiles.  It decides who computes an output, never its order
+    of terms (``k_groups``)."""
+
+    bm: int
+    cluster: int
+    kq: int
+    tile: int
+
+
+def k_groups(k: int) -> tuple:
+    """The fixed order of a sum over k terms: K_GROUPS runs [g*k/4,
+    (g+1)*k/4), each summed k ascending, then added in order."""
+    return tuple((g * k // K_GROUPS, (g + 1) * k // K_GROUPS)
+                 for g in range(K_GROUPS))
+
+
+def column_slices(n: int, cluster: int, unit: int) -> list:
+    """The columns [lo, hi) of an n-column product that each block of a
+    cluster owns, by rank: whole units of `unit` columns (the plan's
+    tile), [q*rank/c, q*(rank+1)/c) of its q = n/unit units."""
+    q = n // unit
+    return [(unit * (q * r // cluster), unit * (q * (r + 1) // cluster))
+            for r in range(cluster)]
+
+
+def _max_cols(n: int, cluster: int, unit: int) -> int:
+    return unit * -(-(n // unit) // cluster)
+
+
+def level_smem(m: int, h1: int, h2: int, plan: LevelPlan) -> int:
+    """Dynamic shared memory of a level launch, in bytes (wavefront.cu
+    level_smem): the owner table, the block's tap share, output slices
+    and base rows, two k-steps of A and of W."""
+    bm, c, kq, u = plan
+    qmax = max(3 * m, m // 2, h1 // 4, h2 // 4)
+    nc = max(_max_cols(n, c, u) for n in (2 * m, h1, h2))
+    cols = (_max_cols(12 * m, c, 4)
+            + max(_max_cols(2 * m, c, u), _max_cols(h2, c, u))
+            + 2 * _max_cols(h1, c, u))
+    work = max(2 * 4 * kq * (bm + nc), K_GROUPS * bm * nc)
+    return 4 * (-(-qmax // 4) * 4 + cols * bm + work)
+
+
+def _items(m: int, h1: int, h2: int, plan: LevelPlan) -> list:
+    """The (K, items) of each product: an item is one k-group's u x u
+    tile of the block's output."""
+    bm, c, _, u = plan
+    return [(k, K_GROUPS * (bm // u) * (_max_cols(n, c, u) // u))
+            for k, n in stage_shapes(m, h1, h2).values()]
+
+
+def level_plan_ok(m: int, h1: int, h2: int, plan: LevelPlan) -> bool:
+    """wavefront.cu level_plan_ok: `plan` is built and fits."""
+    bm, c, kq, u = plan
+    if not (u in TILES and u <= bm <= MAX_ROWS and bm % u == 0
+            and 1 <= c <= MAX_CLUSTER and kq >= 4 and kq % 4 == 0
+            and kq * bm <= GATHER * THREADS):
+        return False
+    if any(n % u for n in (2 * m, h1, h2)):
+        return False
+    if any(i > THREADS * (64 // (u * u))
+           for _, i in _items(m, h1, h2, plan)):
+        return False
+    return level_smem(m, h1, h2, plan) <= LEVEL_SMEM
+
+
+def level_ctas(plan: LevelPlan, rows: int) -> int:
+    """Blocks of a level launch on `rows` rows."""
+    return -(-rows // plan.bm) * plan.cluster
+
+
+def _loop_cycles(items: int, u: int) -> int:
+    """Cycles of one k of a product's loop in a block holding `items`
+    items: item i on thread i % 256, warp w on scheduler w % 4; the
+    busiest scheduler's FMAs and loads, or the block's shared-memory
+    wavefronts (4 a float4 load of a warp), whichever is longer."""
+    warps = [0] * (THREADS // 32)
+    for start in range(0, items, THREADS):
+        for w in range(-(-min(THREADS, items - start) // 32)):
+            warps[w] += 1
+    sched = max(sum(warps[s::4]) for s in range(4)) * (u * u + u // 2)
+    return max(sched, sum(warps) * 2 * u)
+
+
+def level_cost(m: int, h1: int, h2: int, plan: LevelPlan,
+               rows: int) -> float:
+    """level_plan's model of a launch's time, in microseconds: the waves
+    of clusters times a block's time, the sum of its loops, k-steps,
+    weight bytes, gathered bytes and a fixed cost (the constants above)."""
+    bm, c, kq, u = plan
+    waves = -(-(-(-rows // bm)) // CLUSTER_SLOTS[c])
+    shapes = stage_shapes(m, h1, h2).values()
+    loop = sum(k // K_GROUPS * _loop_cycles(i, u)
+               for k, i in _items(m, h1, h2, plan)) / 1980
+    steps = sum(-(-(k // K_GROUPS) // kq) for k, _ in shapes)
+    wmb = sum(4 * k * _max_cols(n, c, u) for k, n in shapes) / 1e6
+    gmb = 4 * bm * sum(k for k, _ in shapes) * (c - 1) / c / 1e6
+    return waves * (LOOP_US * loop + STEP_US * steps + W_US_PER_MB * wmb
+                    + GATHER_US_PER_MB * gmb + LAUNCH_US)
+
+
+@functools.lru_cache(maxsize=None)
+def level_plan(m: int, h1: int, h2: int, rows: int) -> LevelPlan:
+    """The plan of a level of `rows` compacted rows: of the plans that
+    fit (each cluster size and tile, tile heights up to MAX_ROWS, the
+    longest k-step that fits), the least ``level_cost``, then the fewest
+    rows computed past the level.  Any plan gives the same g bit for
+    bit."""
+    best = None
+    for u in TILES:
+        for c in CLUSTER_SLOTS:
+            for bm in range(u, MAX_ROWS + 1, u):
+                for kq in range(64, 0, -4):
+                    plan = LevelPlan(bm, c, kq, u)
+                    if level_plan_ok(m, h1, h2, plan):
+                        key = (level_cost(m, h1, h2, plan, rows),
+                               -(-rows // bm) * bm - rows, -bm)
+                        if best is None or key < best[0]:
+                            best = (key, plan)
+                        break
+    if best is None:
+        raise ValueError(f"no level plan fits M={m}, H1={h1}, H2={h2}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(m: int, h1: int, h2: int, b: int, hy: int, wy: int):
+    """Every level's LevelPlan of a (B, hy, wy) pass, as the C entry
+    takes them: (bm, cluster, kq, tile) per level, a ctypes int array."""
+    _, _, count, _ = schedule(hy, wy)
+    flat = [v for n in count for v in level_plan(m, h1, h2, b * int(n))]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def level_clusters(cluster: int, smem: int, tile: int = 4) -> int:
+    """The most clusters of `cluster` level-kernel blocks (register tile
+    `tile`) with `smem` bytes of shared memory each that the current
+    card holds at once."""
+    out = ctypes.c_int(0)
+    build.check_status(_lib().hesic_ar_level_clusters(
+        cluster, smem, tile, ctypes.byref(out)), "ar_wavefront occupancy")
+    return out.value
 
 
 def _lib():
@@ -390,7 +530,10 @@ def _lib():
         lib.hesic_ar_hoist.restype = ci
         lib.hesic_ar_hoist.argtypes = [vp] * 5 + [ci] * 4 + [vp, vp]
         lib.hesic_ar_wavefront.restype = ci
-        lib.hesic_ar_wavefront.argtypes = [vp] * 22 + [ci] * 11 + [vp, vp]
+        lib.hesic_ar_wavefront.argtypes = [vp] * 19 + [ci] * 11 + [vp, vp]
+        lib.hesic_ar_level_clusters.restype = ci
+        lib.hesic_ar_level_clusters.argtypes = [ci, ci, ci,
+                                                   ctypes.POINTER(ci)]
         lib._hesic_typed = True
     return lib
 
@@ -433,8 +576,9 @@ def hoisted_base_cuda(pk: PackedArWeights, pre, post) -> torch.Tensor:
 def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
                       words, counts, states, teacher: bool, mm: int,
                       groups: int):
-    """Kernel 5 on the card: one eye pass, the hoisted product then 5
-    launches per level; same contract as ar_wavefront_plain.  `weights`
+    """Kernel 5 on the card: one eye pass, the hoisted product then 2
+    launches per level (the level kernel, planned by ``level_plan``, and
+    the coder); same contract as ar_wavefront_plain.  `weights`
     is a PackedArWeights (an ArWeights is packed on the spot).  Counts
     one launch per call."""
     q = 0 if post is None else post.shape[-1]
@@ -480,18 +624,7 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
         x_st = states.clone()
         p_st = counts.clone()
     base = hoisted_base_cuda(pk, pre, post)
-    plan = stage_plan(m, h1, h2)
-    shapes = stage_shapes(m, h1, h2)
-    r_max = b * p_max
-
-    def scratch(name):
-        k, n = shapes[name]
-        chunks = -(-k // plan[name].kc)
-        return torch.empty((chunks, r_max, n), dtype=torch.float32,
-                           device=dev)
-
-    parts = [scratch(name) for name in ("ctx", "layer0", "layer1")]
-    g = torch.empty((r_max, 2 * m), dtype=torch.float32, device=dev)
+    g = torch.empty((b * p_max, 2 * m), dtype=torch.float32, device=dev)
     starts = torch.zeros((n_levels * groups, lanes), dtype=torch.int32,
                          device=dev)
     freqs = torch.zeros_like(starts)
@@ -503,16 +636,16 @@ def ar_wavefront_cuda(weights, pre, post, y_true, corr_mask, corr_val,
         cval.data_ptr(), words.data_ptr(), x_st.data_ptr(), p_st.data_ptr(),
         pk.tapk.data_ptr(), raw.ctx_bias.data_ptr(), pk.w0_ctx.data_ptr(),
         pk.w1.data_ptr(), pk.b1.data_ptr(), pk.w2.data_ptr(),
-        raw.ep_biases[2].data_ptr(),
-        *[t.data_ptr() for t in parts], g.data_ptr(), starts.data_ptr(),
+        raw.ep_biases[2].data_ptr(), g.data_ptr(), starts.data_ptr(),
         freqs.data_ptr(), y_hat.data_ptr(), resid.data_ptr(),
         b, hy, wy, m, h1, h2, groups, mm, cap, p_max, 1 if teacher else 0,
-        _plan_arg(*plan.values()),
+        scan_plan(m, h1, h2, b, hy, wy),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_status(rc, _NAME, "groups dividing 128, mm <= 32, M a "
-                       "multiple of 16, a stage plan that fits shared "
+                       "multiple of 4, a level plan that fits shared "
                        "memory")
     build.count_launch(_NAME)
+    count("wavefront_level_launches", n_levels)
     return starts, freqs, y_hat, resid
 
 

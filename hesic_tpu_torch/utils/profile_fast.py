@@ -35,8 +35,8 @@ PyTorch kernels), the device's busy and idle shares of the traced wall
 time, the codec's host spans (HESIC's ``codec/...``, ``enc/...`` and
 ``dec/...``), and the ten longest kernels by name, then one JSON line with
 the same numbers.  Kernel 5's
-launches group as its hoisted product, its context stage, its three MLP
-stages and its coder.  Device time is the sum of the kernels' own times
+launches group as its hoisted product, its level kernel (the context
+product and the MLP, one cluster launch a level) and its coder.  Device time is the sum of the kernels' own times
 on the card (one stream, so kernels do not overlap).
 
 ``--model train`` builds HESIC N=128/M=192/K=5 with bf16 transforms (seed
@@ -113,10 +113,7 @@ _GROUPS = (("kernel 1 gmm_freq", ("gmm_freq_kernel",)),
            ("kernel 3 grid_rans_decode", ("grid_rans_decode_kernel",)),
            ("kernel 4 pairs_rans_encode", ("pairs_rans_encode_kernel",)),
            ("kernel 5 hoisted product", ("wavefront_hoist_kernel",)),
-           ("kernel 5 ctx", ("wavefront_ctx_kernel",)),
-           ("kernel 5 MLP", ("wavefront_layer0_kernel",
-                             "wavefront_layer1_kernel",
-                             "wavefront_layer2_kernel")),
+           ("kernel 5 level", ("wavefront_level_kernel",)),
            ("kernel 5 coder", ("wavefront_coder_kernel",)),
            ("cuDNN convolutions", ("conv", "cudnn", "xmma", "gemm",
                                    "fprop", "dgrad", "wgrad")))

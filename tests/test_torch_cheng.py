@@ -33,7 +33,7 @@ Tolerances:
 * kernel 5's weight packing at N=16's ragged widths (H1 53, H2 42,
   padded to 64 and 48): the MLP in a fixed summation order gives
   bit-equal outputs with and without the padding, the padded hidden
-  units are exactly 0, and the stage plans at the padded widths of
+  units are exactly 0, and the level plans at the padded widths of
   N=16, 128 and 192 keep the C entry's rules.
 """
 
@@ -66,8 +66,8 @@ from hesic_tpu_torch.models.waseda import Cheng2020Anchor, Cheng2020Attention
 from hesic_tpu_torch.models.wavefront import (ar_wavefront,
                                               ar_wavefront_plain,
                                               hoisted_base_plain,
-                                              pack_weights, stage_plan,
-                                              stage_shapes)
+                                              pack_weights)
+from test_torch_wavefront import check_level_plans
 from hesic_tpu_torch.utils.from_jax import hesic_from_jax
 from test_torch_training import Noise
 
@@ -429,21 +429,15 @@ def test_padded_packing_is_exact_at_ragged_widths():
 
 
 @pytest.mark.parametrize("n", [16, 128, 192])
-def test_stage_plans_at_padded_widths_keep_the_c_rules(n):
-    """wavefront.cu's plan_ok and entry checks at Cheng2020's padded
-    widths: K a multiple of 16 for every stage, k-steps and chunks whole
-    16-multiples with kt <= kc, ctx chunks of whole taps, layer 2 one
-    chunk."""
+def test_level_plans_at_padded_widths_keep_the_c_rules(n):
+    """wavefront.cu's level_plan_ok and shared memory at Cheng2020's
+    padded widths (N=128: H1 426 -> 432, H2 341 -> 352): every level's
+    plan at B=64 and B=11 fits, and each product's columns are owned by
+    exactly one block of a cluster."""
     pk_h1, pk_h2 = pack_weights(_ragged_weights(n)).w1.shape
     assert pk_h1 == -(-n * 10 // 3 // 16) * 16
     assert pk_h2 == -(-n * 8 // 3 // 16) * 16
-    plan = stage_plan(n, pk_h1, pk_h2)
-    for name, (k, cols) in stage_shapes(n, pk_h1, pk_h2).items():
-        p = plan[name]
-        assert k % 16 == 0 and cols % 4 == 0, name
-        assert p.kc % 16 == 0 and p.kt % 16 == 0 and p.kt <= p.kc, name
-    assert plan["ctx"].kc % n == 0 and n % plan["ctx"].kt == 0
-    assert plan["layer2"].kc >= pk_h2
+    check_level_plans(n, pk_h1, pk_h2)
 
 
 def test_multiple_of_16_widths_pack_unchanged():

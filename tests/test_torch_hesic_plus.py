@@ -250,9 +250,10 @@ def test_matches_jax_codec(models, codec, deg):
         np.testing.assert_allclose(ty[keep], jy[keep], atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("tag", [0, 2, 4])
+@pytest.mark.parametrize("tag", [0, 2, 4, 5])
 def test_backend_mismatch_raises(codec, tag):
-    names = {0: "xla-scan", 2: "pallas-level-scan", 4: "cuda-level-scan"}
+    names = {0: "xla-scan", 2: "pallas-level-scan", 4: "cuda-level-scan",
+             5: "cuda-level-scan-cluster"}
     blob = bytes([tag]) + b"\0" * 40
     with pytest.raises(ValueError) as err:
         codec.decompress([blob])

@@ -17,8 +17,8 @@ JAX package on the CPU.
 * The CUDA kernel's arithmetic layout, in plain torch: the packed weights,
   the compacted row map of every level, the split form of the first MLP
   layer (the hoisted product plus the context rows) against JAX's
-  concatenated form and against JAX's level scan, and the stage tile plan
-  against the design's rules at HESIC+'s shapes.
+  concatenated form and against JAX's level scan, and the level plans
+  against the design's rules at HESIC+'s and the dry run's widths.
 """
 
 import numpy as np
@@ -40,10 +40,11 @@ from hesic_tpu_torch.models.ar_device import (TAPS, schedule,
                                               wavefront_valid_mask)
 from hesic_tpu_torch.models.autoregressive import ArWeights
 from hesic_tpu_torch.models.wavefront import (
-    HOIST_PLAN, ROW_TILE, TILE_WIDTHS, PackedArWeights, ar_wavefront,
-    ar_wavefront_cuda, freq_rows, hoisted_base_plain, level_pixels,
-    level_rows, pack_weights, raw_weights, stage_blocks, stage_plan,
-    stage_shapes, tap_kernel, weight_bytes_per_level)
+    HOIST_PLAN, TILE_WIDTHS, PackedArWeights, ar_wavefront,
+    ar_wavefront_cuda, column_slices, freq_rows, hoisted_base_plain,
+    k_groups, level_ctas, level_pixels, level_plan, level_plan_ok,
+    level_rows, level_smem, pack_weights, raw_weights, stage_shapes,
+    tap_kernel)
 
 torch.set_num_threads(2)
 
@@ -280,31 +281,64 @@ def test_packed_weights_run_the_plain_twin():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_stage_plan_meets_design_rules():
-    """HESIC+ at M=192 (H1 640, H2 512), B=11, 32x32 latents: every stage
-    launch of a full level (121 rows) has >= 96 blocks; rows come in tiles
-    of >= 64, so each weight element is read by <= 2 blocks per level;
-    the context chunks are whole taps; layer 2 is one chunk (it writes
-    g); every level's launches have blocks; the hoisted product is one
-    chunk per column tile."""
-    m, h1, h2, b = 192, 640, 512, 11
-    plan = stage_plan(m, h1, h2)
-    shapes = stage_shapes(m, h1, h2)
-    assert list(plan) == ["ctx", "layer0", "layer1", "layer2"]
-    assert ROW_TILE >= 64
-    _, _, count, p_max = schedule(32, 32)
+# (M, H1, H2) packed: HESIC+ and mbt2018 at M=192, and the split codec's
+# dry run at HESIC+ N=8/M=16 (H1 53 -> 64, H2 42 -> 48)
+LEVEL_WIDTHS = [(192, 640, 512), (16, 64, 48)]
+# a block's shared memory on Hopper: 227 KB
+SMEM_BLOCK = 232448
+
+
+def check_level_plans(m, h1, h2):
+    """Every level plan of a 32x32 pass at B=64 and B=11 (each distinct
+    row count): built and fitting, in 227 KB, clusters of at most 16, at
+    least one block; every output column of every product owned by
+    exactly one block of a cluster, and the taps' input quads shared
+    out the same way."""
+    _, _, count, _ = schedule(32, 32)
+    for b in (64, 11):
+        for rows in sorted({b * int(n) for n in count}):
+            plan = level_plan(m, h1, h2, rows)
+            assert level_plan_ok(m, h1, h2, plan), (rows, plan)
+            assert level_smem(m, h1, h2, plan) <= SMEM_BLOCK
+            assert 1 <= plan.cluster <= 16
+            assert level_ctas(plan, rows) >= 1
+            assert plan.bm % plan.tile == 0 and plan.tile in (4, 8)
+            cuts = [(12 * m, 4)] + [(n, plan.tile) for n in (2 * m, h1, h2)]
+            for n, unit in cuts:
+                slices = column_slices(n, plan.cluster, unit)
+                assert len(slices) == plan.cluster
+                owned = [c for lo, hi in slices for c in range(lo, hi)]
+                assert owned == list(range(n)), (n, plan)
+                assert all(lo % unit == 0 for lo, _ in slices)
+
+
+@pytest.mark.parametrize("widths", LEVEL_WIDTHS)
+def test_level_plans_meet_design_rules(widths):
+    check_level_plans(*widths)
+
+
+@pytest.mark.parametrize("b", [64, 11])
+def test_full_levels_fill_the_card(b):
+    """HESIC+ at M=192 (H1 640, H2 512), 32x32 latents: a full level
+    (704 rows at B=64, 121 at B=11) launches close to the 128 blocks
+    the card holds in one wave of clusters (15 clusters of 8 or 7 of
+    16), and no more than one wave."""
+    _, _, _, p_max = schedule(32, 32)
     full = b * p_max
-    assert full == 121 and -(-full // ROW_TILE) <= 2
-    assert min(stage_blocks(plan, shapes, full).values()) >= 96
-    for rows in b * np.unique(count):
-        assert min(stage_blocks(plan, shapes, int(rows)).values()) >= 1
-    for name, p in plan.items():
-        k, _ = shapes[name]
-        assert p.bn in TILE_WIDTHS
-        assert p.kc % 16 == 0 and p.kt % 16 == 0 and p.kt <= p.kc
-    assert plan["ctx"].kc % m == 0 and m % plan["ctx"].kt == 0
-    assert plan["layer2"].kc >= h2
+    plan = level_plan(192, 640, 512, full)
+    assert 0.85 * 128 <= level_ctas(plan, full) <= 132, plan
+
+
+def test_k_order_depends_on_k_alone():
+    """The order of every sum is k_groups(K): four runs of whole
+    quarters, k ascending, fixed by K alone.  No plan field names a k
+    order, so any row count's plan sums every product in that order."""
+    for m, h1, h2 in LEVEL_WIDTHS:
+        for k, _ in stage_shapes(m, h1, h2).values():
+            groups = k_groups(k)
+            assert [lo for lo, _ in groups] == [g * k // 4 for g in range(4)]
+            assert groups[-1][1] == k
+            assert all(hi - lo == k // 4 for lo, hi in groups)
+    assert set(level_plan(192, 640, 512, 704)._fields) == {
+        "bm", "cluster", "kq", "tile"}
     assert HOIST_PLAN.bn in TILE_WIDTHS and HOIST_PLAN.kt % 16 == 0
-    weights = sum(4 * k * n for k, n in shapes.values())
-    assert weight_bytes_per_level(shapes, full) == 2 * weights
-    assert weight_bytes_per_level(shapes, b) == weights
