@@ -16,8 +16,10 @@ image of the batch, decode in parallel.  The level scan is kernel 5
 per level scan.  Residual symbols round(y - means) are coded on the grid
 [-mm, mm]; residuals beyond it ride an exact escape side-channel that the
 decode scan applies in place (the recursion needs the corrected value at
-once).  The two codecs share the container's parts (``_WavefrontCodec``:
-escapes, z strings, the packed streams and the decoder's word buffers).
+once).  The two codecs share ``_WavefrontCodec``: the grid, the z
+symbols, the level scan's validity mask, the escape gather, the header
+and the decoder's one pinned upload (the word buffers and escape maps
+rebuilt on the device); the container's pieces are models/base.py's.
 
 Bit-exactness invariant: encoder and decoder run the same chain (each
 codec's ``_chain``: hyper-synthesis -> level scan, and for HESIC+ then
@@ -27,8 +29,9 @@ codec's determinism policy (deterministic cuDNN, no TF32); the level
 scan's parameters come from a fixed-order kernel that encode and decode
 both launch.  Only integers cross between the directions.
 
-HESIC+'s fast protocol (the fast codecs' serving path, as
-models/hesic_fast.py names it): ``compress_fast`` (one batch container,
+HESIC+'s fast protocol (the fast codecs' serving path: models/base.py's
+``PipelinedCodec``, which HESIC's and DSIC's codec share; this codec
+gives its hooks): ``compress_fast`` (one batch container,
 synchronously), ``compress_fast_start`` (dispatch only: the transforms,
 both eyes' teacher chains, kernel 4 once per eye, the escapes gathered
 into a fixed-capacity slab (ESCAPE_CAP a eye) with a device count,
@@ -59,7 +62,8 @@ and re-encode; eye 2's), ``enc/pairs-rans``, ``enc/fetch``,
 ``dec/reencode``, ``dec/scan2``, ``dec/synthesis``.  A ``wait`` stage
 is the host blocked on the device.  Counters: ``count/h2d_bytes``
 (``_upload``), ``count/d2h_bytes`` (the start's copies, the finish's
-words), ``count/latents`` and ``count/escapes`` (each finish),
+words: PipelinedCodec's ``_fetch`` and ``_fetch_words``),
+``count/latents`` and ``count/escapes`` (each finish),
 ``count/escape_fallbacks`` (each finish: its eyes that overflowed the
 slab), ``count/scan_levels`` (each level scan: the levels it
 launched) and, inside each scan on the card,
@@ -76,18 +80,20 @@ switch (the tensor's device selects the backend).
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
 import torch
 
 from ..codecs.device_rans import (PROB_BITS, pack_stream, pack_stream_dense,
-                                  unpack_stream, unpack_stream_dense)
+                                  unpack_stream_dense)
 from ..geometry import warp_perspective
-from ..utils.tracing import call, count, span
+from ..utils.tracing import count, span
 from .autoregressive import extract_ar_weights
-from .base import CompressionModel, counted_flops, deterministic_backends
+from .base import (CompressionModel, PipelinedCodec, correction_maps,
+                   counted_flops, deterministic_backends, escape_record,
+                   expand_lanes, length_prefixed, pack_parts,
+                   prefixed_extents, read_escape_record, split_parts, u16)
 
 # mask-A taps of the 5x5 context kernel: two rows above (all columns)
 # plus the two left neighbours in the centre row
@@ -121,11 +127,6 @@ def _levels(pre: torch.Tensor) -> int:
     return 3 * (pre.shape[1] - 1) + pre.shape[2]
 
 
-def _u16(w: torch.Tensor) -> torch.Tensor:
-    """int32 u16 values -> int16 tensors of their bit patterns."""
-    return (w - ((w >> 15) << 16)).to(torch.int16)
-
-
 def _compact_lanes(words, counts, total: int) -> torch.Tensor:
     """Kernel 4's (L, cap) word buffer and its (L,) counts -> the `total`
     = sum(counts) counted words, lane-major (each lane's first `count`
@@ -135,29 +136,7 @@ def _compact_lanes(words, counts, total: int) -> torch.Tensor:
     ends = torch.cumsum(c, 0)
     k = torch.arange(total, device=words.device)
     lane = torch.searchsorted(ends, k, right=True)
-    return _u16(words[lane, k - (ends - c)[lane]])
-
-
-def _expand_lanes(flat, counts, cap: int) -> torch.Tensor:
-    """Inverse of _compact_lanes: lane-major u16 words (int32 values) and
-    (L,) counts -> the (L, cap) int32 buffer kernel 5's decode reads, zero
-    past each lane's count (unpack_stream's buffer, built on the
-    device)."""
-    c = counts.to(torch.int64)
-    start = torch.cumsum(c, 0) - c
-    j = torch.arange(cap, device=flat.device)
-    keep = j[None, :] < c[:, None]
-    src = torch.where(keep, start[:, None] + j[None, :], 0)
-    padded = torch.cat([flat, flat.new_zeros(1)])
-    return torch.where(keep, padded[src], 0)
-
-
-def _escape_record(idx: np.ndarray, vals: np.ndarray) -> bytes:
-    """An eye's escapes as the container holds them: u32 n | u32 flat NHWC
-    index[n] | i32 value[n]."""
-    return (np.array([idx.size], np.uint32).tobytes()
-            + idx.astype(np.uint32).tobytes()
-            + vals.astype(np.int32).tobytes())
+    return u16(words[lane, k - (ends - c)[lane]])
 
 
 def schedule(hy: int, wy: int):
@@ -256,9 +235,10 @@ def wavefront_decode(weights, pre, words, counts, states, post=None,
 
 class _WavefrontCodec(CompressionModel):
     """What the two wavefront codecs share: the determinism policy, the
-    grid (``mm``) and channel groups, z symbols and strings, one kernel 4
-    launch per level scan, the escape side-channel, the packed streams
-    and the decoder's word buffers."""
+    grid (``mm``) and channel groups, z symbols, the level scan's validity
+    mask, the synchronous escape gather, the header, and the decoder's
+    one pinned upload with the word buffers and escape maps rebuilt on
+    the device."""
 
     def __init__(self, model, mm: int, groups: int):
         super().__init__(model)
@@ -295,37 +275,6 @@ class _WavefrontCodec(CompressionModel):
             ).numpy())
         return self._valid_masks[key]
 
-    def _encode_level_scan(self, starts, freqs, valid) -> bytes:
-        """Pairs-encode one level scan's slot stream in one launch and
-        pack it for the container.  A valid slot emits at most one word
-        (below 2^32 before the renorm, the state is below 2^16 <= f * 2^16
-        after one shift), so no lane's count can pass T, the cap of that
-        launch."""
-        from ..codecs.pairs_rans import rans_encode_pairs
-        cap = starts.shape[0]
-        words, counts, states = rans_encode_pairs(starts, freqs, valid, cap)
-        c = counts.cpu().numpy()
-        cmax = max(int(c.max()), 1)
-        if cmax > cap:
-            raise RuntimeError(f"pairs encoder counted {cmax} words in a "
-                               f"lane of {cap} slots")
-        return pack_stream(words[:, :cmax].cpu().numpy(), c,
-                           states.cpu().numpy().astype(np.uint32))
-
-    def _decoder_stream(self, blob: bytes, off: int):
-        """One packed stream -> ((words, counts, states) on the codec
-        device, next offset); the word buffer is as wide as the largest
-        count."""
-        words, counts, states, off = unpack_stream(blob, off)
-        return (self._upload(words), self._upload(counts.astype(np.int32)),
-                self._upload(states.astype(np.int64))), off
-
-    def _pack_escapes(self, resid: torch.Tensor):
-        """Residuals beyond the grid -> (container bytes: u32 n | u32 flat
-        NHWC index[n] | i32 value[n], n)."""
-        idx, vals = self._gather_escapes(resid)
-        return _escape_record(idx, vals), int(idx.size)
-
     def _gather_escapes(self, resid: torch.Tensor):
         """Residuals beyond the grid -> (flat NHWC indices, values) as
         numpy arrays; waits for the device."""
@@ -333,48 +282,40 @@ class _WavefrontCodec(CompressionModel):
         idx = torch.nonzero(torch.abs(flat) > self.mm)[:, 0]
         return idx.cpu().numpy(), flat[idx].cpu().numpy()
 
-    def _parse_escapes(self, blob: bytes, off: int, shape):
-        """Inverse of _pack_escapes -> ((mask, value) int32 maps of
-        `shape` on the codec device, or None without escapes; next
-        offset)."""
-        (n,) = np.frombuffer(blob, np.uint32, 1, off)
-        off += 4
-        idx = np.frombuffer(blob, np.uint32, int(n), off)
-        off += 4 * int(n)
-        val = np.frombuffer(blob, np.int32, int(n), off)
-        off += 4 * int(n)
-        if n == 0:
-            return None, off
-        cm = np.zeros(int(np.prod(shape)), np.int32)
-        cv = np.zeros(int(np.prod(shape)), np.int32)
-        cm[idx] = 1
-        cv[idx] = val
-        return (self._upload(cm.reshape(shape)),
-                self._upload(cv.reshape(shape))), off
-
-    def _z_bytes(self, name: str, z_sym) -> bytes:
-        """One bottleneck's z strings, each behind its u32 length, from
-        (B, C, zh, zw) symbols on the device."""
-        return self._z_strings(name, z_sym.permute(0, 2, 3, 1).cpu().numpy())
-
-    def _z_strings(self, name: str, z_nhwc: np.ndarray) -> bytes:
-        """_z_bytes of (B, zh, zw, C) host symbols."""
-        strs = self.eb_encode_symbols(name, z_nhwc)
-        return b"".join(np.array([len(s)], np.uint32).tobytes() + s
-                        for s in strs)
-
-    def _parse_z(self, blob: bytes, off: int, name: str, b: int, zh: int,
-                 zw: int):
-        """Inverse of _z_bytes for `b` strings -> ((B, C, zh, zw) int32 z
-        symbols on the codec device, next offset)."""
-        extents = []
-        for _ in range(b):
-            (length,) = np.frombuffer(blob, np.uint32, 1, off)
-            extents.append((off + 4, off + 4 + int(length)))
-            off += 4 + int(length)
-        z = self.eb_decode_streams(name, blob, extents, (zh, zw))
-        z = np.ascontiguousarray(z.transpose(0, 3, 1, 2))
-        return self._upload(z), off
+    def _upload_decode(self, z, h_np, streams, escapes, shape):
+        """The decoder's inputs on the device, in one pinned upload
+        (pack_parts): each bottleneck's (B, zh, zw, C) z symbols, the
+        (B x 9,) f32 homographies (or None), per eye its packed stream
+        (lane-major u16 words, counts, u32 states) and its escapes (flat
+        NHWC indices, values).  Returns (the z symbols (B, C, zh, zw) per
+        bottleneck, h (B, 3, 3) or None, per eye (words (L, cap), counts,
+        states) with the word buffer rebuilt on the device, per eye the
+        escape (mask, value) maps of `shape`, or None without escapes)."""
+        with span("dec/upload"):
+            parts = list(z) + ([] if h_np is None else [h_np])
+            for flat, counts, states in streams:
+                parts += [counts, states, flat]
+            for idx, vals in escapes:
+                parts += [idx, vals]
+            packed, sizes = pack_parts(parts)
+            buf = self._upload(packed)
+        with span("dec/expand"):
+            got = iter(split_parts(buf, parts, sizes))
+            z_sym = [next(got).reshape(zz.shape).permute(0, 3, 1, 2)
+                     for zz in z]
+            h = None if h_np is None else next(got).reshape(-1, 3, 3)
+            dev = []
+            for _, counts, _ in streams:
+                c, st, w = next(got), next(got), next(got)
+                dev.append((expand_lanes(w, c, max(int(counts.max()), 1)),
+                            c, st))
+            corr = []
+            for idx, _ in escapes:
+                at, vals = next(got), next(got)
+                corr.append(None if idx.size == 0 else tuple(
+                    t.reshape(shape) for t in correction_maps(
+                        at, vals, int(np.prod(shape)))))
+        return z_sym, h, dev, corr
 
     def _header(self, b: int, h_img: int, w_img: int, zh: int,
                 zw: int) -> bytes:
@@ -439,13 +380,34 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
                                            teacher=True)
         stream = self._encode_level_scan(st, fr,
                                          self._valid(b, h_img, w_img))
-        escapes, n_esc = self._pack_escapes(resid)
-        blob = (self._header(b, h_img, w_img, *z_sym.shape[2:]) + escapes
-                + self._z_bytes("entropy_bottleneck", z_sym) + stream)
+        idx, vals = self._gather_escapes(resid)
+        z_strs = self.eb_encode_symbols(
+            "entropy_bottleneck", z_sym.permute(0, 2, 3, 1).cpu().numpy())
+        blob = (self._header(b, h_img, w_img, *z_sym.shape[2:])
+                + escape_record(idx, vals) + length_prefixed(z_strs)
+                + stream)
         return {"strings": [blob], "shape": tuple(z_sym.shape[2:]),
                 "y_hat": y_hat, "bpp_real": len(blob) * 8 / (b * h_img
                                                              * w_img),
-                "enctime": time.perf_counter() - start, "escapes": n_esc}
+                "enctime": time.perf_counter() - start,
+                "escapes": int(idx.size)}
+
+    def _encode_level_scan(self, starts, freqs, valid) -> bytes:
+        """Pairs-encode one level scan's slot stream in one launch and
+        pack it for the container.  A valid slot emits at most one word
+        (below 2^32 before the renorm, the state is below 2^16 <= f * 2^16
+        after one shift), so no lane's count can pass T, the cap of that
+        launch."""
+        from ..codecs.pairs_rans import rans_encode_pairs
+        cap = starts.shape[0]
+        words, counts, states = rans_encode_pairs(starts, freqs, valid, cap)
+        c = counts.cpu().numpy()
+        cmax = max(int(c.max()), 1)
+        if cmax > cap:
+            raise RuntimeError(f"pairs encoder counted {cmax} words in a "
+                               f"lane of {cap} slots")
+        return pack_stream(words[:, :cmax].cpu().numpy(), c,
+                           states.cpu().numpy().astype(np.uint32))
 
     @torch.no_grad()
     def decompress(self, strings, shape=None) -> dict:
@@ -455,11 +417,13 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
         start = time.perf_counter()
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
         (b, h_img, w_img, zh, zw), off = self._parse_header(blob)
-        corr, off = self._parse_escapes(
-            blob, off, (b, h_img // 16, w_img // 16, self.latent_ch))
-        z_sym, off = self._parse_z(blob, off, "entropy_bottleneck", b, zh,
-                                   zw)
-        stream, off = self._decoder_stream(blob, off)
+        *escapes, off = read_escape_record(blob, off)
+        ext, off = prefixed_extents(blob, off, b)
+        stream = unpack_stream_dense(blob, off)[:3]
+        z = self.eb_decode_streams("entropy_bottleneck", blob, ext, (zh, zw))
+        (z_sym,), _, (stream,), (corr,) = self._upload_decode(
+            [z], None, [stream], [escapes],
+            (b, h_img // 16, w_img // 16, self.latent_ch))
         y_hat = self._chain(z_sym, None, stream, corr, teacher=False)[2]
         x_hat = torch.clamp(self.model.synthesis(y_hat.permute(0, 3, 1, 2)),
                             0.0, 1.0)
@@ -470,7 +434,7 @@ class JointAutoregressiveDeviceCodec(_WavefrontCodec):
         return out
 
 
-class HESICPlusDeviceCodec(_WavefrontCodec):
+class HESICPlusDeviceCodec(_WavefrontCodec, PipelinedCodec):
     """Wavefront device codec for HESIC+ (both eyes autoregressive; the
     right eye's entropy parameters also condition on the re-encoded
     decoded-left prior, the ``post`` input of the level scan).  One blob
@@ -479,25 +443,22 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
     ``cap`` is the JAX class's word-buffer argument; here it reaches
     neither the container nor the codec's work (the encoder launches once
     per eye with room for every word, and the decoder's buffer is as wide
-    as the largest count).  Images are (B, H, W, 3) float32 with H, W multiples of 64;
-    homographies (B, 3, 3) or (1, 3, 3); latents come out as (B, hy, wy,
-    M) float32.
+    as the largest count).  Images are (B, H, W, 3) float32 with H, W
+    multiples of 64; homographies (B, 3, 3) or (1, 3, 3); latents come out
+    as (B, hy, wy, M) float32.
 
     Container: backend byte | 5 x u32 (B, H, W, zh, zw) | escapes of eye
     1, of eye 2 | B z1 strings | B z2 strings | B x 9 f32 homographies |
     eye 1's packed stream | eye 2's (``_finish`` packs it, ``_parse``
-    reads it)."""
+    reads it).  The fast protocol is models/base.py's PipelinedCodec;
+    ``decompress_fast_batch`` decodes the whole batch (``pairs`` None):
+    the level scan folds every pair into its lanes."""
 
     def __init__(self, model, mm: int = 16, groups: int = 8,
                  cap: int = 256):
         super().__init__(model, mm, groups)
         self.cap = cap
         self.latent_ch = model.M
-        self._side_streams = None
-        # encodes and decodes begun: the next one's sequence number, which
-        # its trace's count/batch carries
-        self._encodes = 0
-        self._decodes = 0
         self._weights_loaded()
 
     def _weights_loaded(self) -> None:
@@ -641,6 +602,7 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         W, 3), 'y1_hat', 'y2_hat' (B, hy, wy, M), 'dectime'}."""
         start = time.perf_counter()
         blob = strings[0] if isinstance(strings, (list, tuple)) else strings
+        self._decodes += 1
         out = self._decompress_fast_batch(blob)
         if out["x2_hat"].is_cuda:
             torch.cuda.synchronize(out["x2_hat"].device)
@@ -648,51 +610,6 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         return out
 
     # ---- the fast protocol (module docstring) ----
-
-    def _streams(self):
-        """(start stream, finish stream) of the codec's card, made once:
-        the start's copies go on the first; the finish gathers and copies
-        its words, and any escape fallback, on the second, so they never
-        queue behind a later start's copies."""
-        if self._side_streams is None:
-            self._side_streams = (torch.cuda.Stream(self.device),
-                                  torch.cuda.Stream(self.device))
-        return self._side_streams
-
-    def _fetch(self, dev: dict) -> dict:
-        """Start the device -> host copies of `dev` ({name: tensor}).  On
-        the card: an event on the compute stream, then the copies into
-        pinned buffers on the start stream.  Returns {"ready": the compute
-        event, "copied": the copies' event, "host": {name: host tensor}};
-        on the CPU the tensors themselves, and no events."""
-        count("d2h_bytes", sum(t.nbytes for t in dev.values()))
-        if self.device.type != "cuda":
-            return {"ready": None, "copied": None, "host": dict(dev)}
-        ready = torch.cuda.Event()
-        ready.record()
-        stream = self._streams()[0]
-        stream.wait_event(ready)
-        host = {}
-        with torch.cuda.stream(stream):
-            for name, t in dev.items():
-                t.record_stream(stream)
-                host[name] = torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True)
-                host[name].copy_(t, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(stream)
-        return {"ready": ready, "copied": copied, "host": host}
-
-    def _on_finish_stream(self, handle, tensors):
-        """A context that runs on the finish stream after the handle's
-        compute event, `tensors` kept for it (the CPU: no context)."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        stream = self._streams()[1]
-        stream.wait_event(handle["ready"])
-        for t in tensors:
-            t.record_stream(stream)
-        return torch.cuda.stream(stream)
 
     def _escape_slab(self, resid: torch.Tensor) -> torch.Tensor:
         """(2 ESCAPE_CAP + 1,) int64: the number of residuals beyond the
@@ -754,30 +671,6 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
                 "resid": [e[3] for e in eyes],
                 "y_hat": [e[2] for e in eyes], **fetched}
 
-    def _fetch_words(self, handle, totals) -> list:
-        """Each eye's counted words (`totals` of them), lane-major, as
-        numpy u16: gathered and copied on the finish stream after the
-        handle's compute event."""
-        count("d2h_bytes", 2 * sum(totals))
-        pairs = list(zip(handle["words"], handle["counts"], totals))
-        with span("enc/words-d2h"):
-            with self._on_finish_stream(handle, handle["words"]
-                                        + handle["counts"]):
-                flats = [_compact_lanes(w, c, n) for w, c, n in pairs]
-                if self.device.type == "cuda":
-                    host = [torch.empty(n, dtype=torch.int16,
-                                        pin_memory=True) for n in totals]
-                    for dst, f in zip(host, flats):
-                        dst.copy_(f, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    host, done = flats, None
-        with span("enc/wait-words"):
-            if done is not None:
-                done.synchronize()
-        return [t.numpy().view(np.uint16) for t in host]
-
     def _escapes(self, handle, eye: int, slab: np.ndarray):
         """An eye's (indices, values) from its fetched slab; past
         ESCAPE_CAP, a synchronous gather on the finish stream.  Returns
@@ -793,15 +686,16 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
                                f"beyond the grid, the device counted {n}")
         return idx, vals, True
 
-    def _finish(self, handle) -> dict:
+    def _finish(self, handle, batch_container: bool = True) -> dict:
         """The encoder's host half: wait for the handle's copies, fetch
-        the counted words, the escapes, the z strings, the container."""
+        the counted words (gathered lane-major on the finish stream), the
+        escapes, the z strings, the container.  The container is always
+        the batch's (``batch_container`` is the fast codecs' argument;
+        this codec has no per-pair container)."""
         b, lanes = handle["b"], handle["counts"][0].shape[0]
         with span("enc/wait-counts"):
-            if handle["copied"] is not None:
-                handle["copied"].synchronize()
-            meta = handle["host"]["meta"].numpy()
-            z = handle["host"]["z"].numpy()
+            host = self._fetched(handle)
+            meta, z = host["meta"], host["z"]
         slab = 2 * ESCAPE_CAP + 1
         c1, c2, st1, st2, esc1, esc2 = np.split(meta, np.cumsum(
             [lanes] * 4 + [slab])[:5])
@@ -809,20 +703,25 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         if cmax > handle["slots"]:
             raise RuntimeError(f"pairs encoder counted {cmax} words in a "
                                f"lane of {handle['slots']} slots")
-        flats = self._fetch_words(handle, [int(c1.sum()), int(c2.sum())])
+        totals = [int(c1.sum()), int(c2.sum())]
+        flats = self._fetch_words(
+            handle, totals, handle["words"] + handle["counts"],
+            lambda: [_compact_lanes(w, c, n) for w, c, n in
+                     zip(handle["words"], handle["counts"], totals)])
         with span("enc/escapes"):
             escapes = [self._escapes(handle, e, slab_e)
                        for e, slab_e in enumerate((esc1, esc2))]
-            records = [_escape_record(idx, vals) for idx, vals, _ in escapes]
+            records = [escape_record(idx, vals) for idx, vals, _ in escapes]
             n_esc = tuple(int(idx.size) for idx, _, _ in escapes)
         count("latents", 2 * handle["resid"][0].numel())
         count("escapes", sum(n_esc))
         count("escape_fallbacks", sum(fb for _, _, fb in escapes))
         with span("enc/z-rans"):
             zn = z.size // 2
-            zb = [self._z_strings(name, part.reshape(handle["z_shape"]))
-                  for name, part in (("entropy_bottleneck1", z[:zn]),
-                                     ("entropy_bottleneck2", z[zn:]))]
+            zb = [length_prefixed(self.eb_encode_symbols(
+                name, part.reshape(handle["z_shape"])))
+                for name, part in (("entropy_bottleneck1", z[:zn]),
+                                   ("entropy_bottleneck2", z[zn:]))]
         with span("enc/pack"):
             h_img, w_img = handle["shape"]
             zh, zw = handle["z_shape"][1:3]
@@ -837,45 +736,6 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
                 "enctime": time.perf_counter() - handle["t0"],
                 "escapes": n_esc, "fallback": False}
 
-    @torch.no_grad()
-    def compress_fast(self, x1, x2, h_matrix, batch_container: bool = True
-                      ) -> dict:
-        """Compress a batch of pairs into one container, synchronously:
-        {'blob', 'blobs' ([blob]), 'bpp_real', 'enctime', 'escapes':
-        per-eye counts, 'fallback' (False)}.  The container is always the
-        batch's (``batch_container`` is the fast codecs' argument; this
-        codec has no per-pair container)."""
-        with call("codec/compress_fast", self._encodes, self.device):
-            return self._finish(self._encode_device(x1, x2, h_matrix))
-
-    @torch.no_grad()
-    def compress_fast_start(self, x1, x2, h_matrix) -> dict:
-        """Dispatch-only half of a pipelined batch encode: nothing waits
-        for the device.  Returns the handle (its "mm": the grids, (mm,
-        mm)) for compress_fast_finish."""
-        with call("codec/compress_fast_start", self._encodes, self.device):
-            return self._encode_device(x1, x2, h_matrix)
-
-    @torch.no_grad()
-    def compress_fast_finish(self, handle) -> dict:
-        """The container of a compress_fast_start handle (compress_fast's
-        keys): waits for that batch's copies only."""
-        with call("codec/compress_fast_finish", handle["seq"], self.device):
-            return self._finish(handle)
-
-    @torch.no_grad()
-    def decompress_fast_batch(self, blob: bytes) -> dict:
-        """Decode a container: {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat',
-        'y2_hat' (B, hy, wy, M), 'dectime'}.  The z strings decode on the
-        host; z symbols, homographies, counts, states, words and escapes
-        go up in one pinned upload; the word buffers and escape maps are
-        rebuilt on the device.  Only dispatches: ``dectime`` is the
-        dispatch time, and the caller synchronises when it needs the
-        results."""
-        with call("codec/decompress_fast_batch", self._decodes,
-                  self.device):
-            return self._decompress_fast_batch(blob)
-
     def _parse(self, blob: bytes) -> dict:
         """The container's parts, on the host (views of `blob`): {"dims":
         (B, H, W, zh, zw), "escapes": per eye (flat NHWC indices, values),
@@ -887,81 +747,45 @@ class HESICPlusDeviceCodec(_WavefrontCodec):
         b = dims[0]
         escapes = []
         for _ in range(2):
-            n = int(np.frombuffer(blob, np.uint32, 1, off)[0])
-            escapes.append((np.frombuffer(blob, np.uint32, n, off + 4),
-                            np.frombuffer(blob, np.int32, n, off + 4 + 4 * n)))
-            off += 4 + 8 * n
-        extents = []
-        for _ in range(2):
-            ext = []
-            for _ in range(b):
-                length = int(np.frombuffer(blob, np.uint32, 1, off)[0])
-                ext.append((off + 4, off + 4 + length))
-                off += 4 + length
-            extents.append(ext)
+            *record, off = read_escape_record(blob, off)
+            escapes.append(record)
+        extents, off = prefixed_extents(blob, off, 2 * b)
         h_np = np.frombuffer(blob, np.float32, 9 * b, off)
         off += 36 * b
         streams = []
         for _ in range(2):
-            flat, counts, states, off = unpack_stream_dense(blob, off)
-            streams.append((flat, counts, states))
+            *stream, off = unpack_stream_dense(blob, off)
+            streams.append(stream)
         if off != len(blob):
             raise ValueError(f"wavefront container: the parse ends at byte "
                              f"{off} of {len(blob)}")
-        return {"dims": dims, "escapes": escapes, "z": extents, "h": h_np,
+        return {"dims": dims, "escapes": escapes,
+                "z": [extents[:b], extents[b:]], "h": h_np,
                 "streams": streams}
 
-    def _decompress_fast_batch(self, blob: bytes) -> dict:
-        """decompress_fast_batch inside its span."""
+    def _decompress_fast_batch(self, blob: bytes, pairs: slice = None
+                               ) -> dict:
+        """decompress_fast_batch (PipelinedCodec) inside its span: the
+        z strings decode on the host; z symbols, homographies, counts,
+        states, words and escapes go up in one pinned upload; the word
+        buffers and escape maps are rebuilt on the device.  Returns
+        {'x1_hat', 'x2_hat' (B, H, W, 3), 'y1_hat', 'y2_hat' (B, hy, wy,
+        M), 'dectime'}."""
+        if pairs is not None:
+            raise ValueError("a wavefront container codes its pairs as one "
+                             "batch: decode it whole (pairs=None)")
         start = time.perf_counter()
-        self._decodes += 1
         with span("dec/parse"):
             parts = self._parse(blob)
             b, h_img, w_img, zh, zw = parts["dims"]
-            escapes, streams = parts["escapes"], parts["streams"]
         with span("dec/z-rans"):
             z = [self.eb_decode_streams(name, blob, ext, (zh, zw))
                  for name, ext in zip(("entropy_bottleneck1",
                                        "entropy_bottleneck2"), parts["z"])]
-        with span("dec/upload"):
-            up = [z[0], z[1], parts["h"].view(np.int32)]
-            for flat, counts, states in streams:
-                even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
-                even[:flat.size] = flat
-                up += [counts, states.view(np.int32), even.view(np.int32)]
-            for idx, vals in escapes:
-                up += [idx.view(np.int32), vals]
-            sizes = [p.size for p in up]
-            buf = self._upload(np.concatenate(
-                [p.astype(np.int32, copy=False).reshape(-1) for p in up]))
-        with span("dec/expand"):
-            got = torch.split(buf, sizes)
-            z1_sym, z2_sym = (t.reshape(zz.shape).permute(0, 3, 1, 2)
-                              for t, zz in zip(got[:2], z))
-            h = got[2].view(torch.float32).reshape(b, 3, 3)
-            dev_streams = []
-            for e, (flat, counts, _) in enumerate(streams):
-                c_d, st_d, w_d = got[3 + 3 * e:6 + 3 * e]
-                words = w_d.view(torch.int16)[:flat.size].to(torch.int32)
-                dev_streams.append((
-                    _expand_lanes(words & 0xFFFF, c_d,
-                                  max(int(counts.max()), 1)),
-                    c_d, st_d.to(torch.int64) & 0xFFFFFFFF))
-            shape = (b, h_img // 16, w_img // 16, self.latent_ch)
-            corr = []
-            for e, (idx, _) in enumerate(escapes):
-                if idx.size == 0:
-                    corr.append(None)
-                    continue
-                # scatters: an indexed store of a Python number would
-                # copy it up from pageable memory and wait
-                at = got[9 + 2 * e].to(torch.int64)
-                mask = torch.zeros(int(np.prod(shape)), dtype=torch.int32,
-                                   device=self.device)
-                val = torch.zeros_like(mask).scatter_(0, at, got[10 + 2 * e])
-                corr.append((mask.scatter_(0, at, 1).reshape(shape),
-                             val.reshape(shape)))
-        out = self._decode_device(z1_sym, z2_sym, h, dev_streams, corr)
+        (z1_sym, z2_sym), h, streams, corr = self._upload_decode(
+            z, parts["h"], parts["streams"], parts["escapes"],
+            (b, h_img // 16, w_img // 16, self.latent_ch))
+        out = self._decode_device(z1_sym, z2_sym, h, streams, corr)
         out["dectime"] = time.perf_counter() - start
         return out
 

@@ -17,6 +17,18 @@ policy.  ``counted_flops`` runs a program under PyTorch's FLOP counter
 (the codecs' ``device_flops``).  ``TogetherCodec`` is the codec of the
 stage-2 models: an inner codec, then the enhancement.
 
+The device codecs' shared parts.  ``PipelinedCodec`` is the fast codecs'
+pipelined serving protocol (``compress_fast``, ``compress_fast_start``,
+``compress_fast_finish``, ``decompress_fast_batch``; the side streams,
+the pinned fetch, the words' copy on the finish stream, the sequence
+numbers), which HESIC's and DSIC's ``HESICFastCodec`` and HESIC+'s
+``HESICPlusDeviceCodec`` inherit.  The container pieces are module
+functions: the escape record (``escape_record``/``read_escape_record``),
+length-prefixed strings (``length_prefixed``/``prefixed_extents``), the
+decoder's one pinned upload (``pack_parts``/``split_parts``), the u16
+cast (``u16``), the lane-major word rebuild (``expand_lanes``) and the
+escape correction maps (``correction_maps``).
+
 Persistence (``state_dict``, ``save``, ``load_state_dict``, ``load``) is
 one pickle with the JAX file's top-level keys (``module_class``,
 ``config``, ``params``, ``tables``, ``scale_table``) plus ``"layout":
@@ -29,6 +41,7 @@ else (loading a JAX file imports no JAX).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Dict, Optional
 
@@ -41,7 +54,7 @@ from ..entropy_models import (CdfTables, compress_with_indexes,
                               tables_from_pmf)
 from ..utils.persist import load_params, params_of, read_pickle, \
     write_pickle
-from ..utils.tracing import count
+from ..utils.tracing import call, count, span
 
 
 def deterministic_backends():
@@ -64,6 +77,104 @@ def counted_flops(fn, *args, **kwargs) -> tuple:
     with FlopCounterMode(display=False) as counter:
         out = fn(*args, **kwargs)
     return out, float(counter.get_total_flops())
+
+
+# ---- the device codecs' container pieces ----
+
+def escape_record(idx: np.ndarray, vals: np.ndarray) -> bytes:
+    """An eye's escapes (latents coded outside the grid) as the containers
+    hold them: u32 n | u32 flat NHWC index[n] | i32 value[n]."""
+    return (np.array([idx.size], np.uint32).tobytes()
+            + idx.astype(np.uint32).tobytes()
+            + vals.astype(np.int32).tobytes())
+
+
+def read_escape_record(blob: bytes, off: int):
+    """Inverse of escape_record at byte `off` of `blob` -> (u32 indices,
+    i32 values, both views of `blob`; the next offset)."""
+    n = int(np.frombuffer(blob, np.uint32, 1, off)[0])
+    idx = np.frombuffer(blob, np.uint32, n, off + 4)
+    vals = np.frombuffer(blob, np.int32, n, off + 4 + 4 * n)
+    return idx, vals, off + 4 + 8 * n
+
+
+def length_prefixed(strings) -> bytes:
+    """Byte strings, each behind its u32 length."""
+    return b"".join(np.array([len(s)], np.uint32).tobytes() + s
+                    for s in strings)
+
+
+def prefixed_extents(blob: bytes, off: int, n: int):
+    """The (start, end) byte extents of the `n` length-prefixed strings at
+    byte `off` of `blob`, and the offset after them."""
+    extents = []
+    for _ in range(n):
+        length = int(np.frombuffer(blob, np.uint32, 1, off)[0])
+        extents.append((off + 4, off + 4 + length))
+        off += 4 + length
+    return extents, off
+
+
+def pack_parts(parts) -> tuple:
+    """Host arrays -> (one int32 array holding them all, each part's int32
+    count in it), for a single upload: u16 parts two to an int (padded to
+    an even count), u32 and f32 parts as their bit patterns, every other
+    part cast to int32.  split_parts takes it apart on the device."""
+    flat = []
+    for p in parts:
+        if p.dtype == np.uint16:
+            even = np.zeros(-(-p.size // 2) * 2, np.uint16)
+            even[:p.size] = p.reshape(-1)
+            p = even
+        if p.dtype in (np.uint16, np.uint32, np.float32):
+            p = p.view(np.int32)
+        flat.append(p.astype(np.int32, copy=False).reshape(-1))
+    return np.concatenate(flat), [p.size for p in flat]
+
+
+def split_parts(buf: torch.Tensor, parts, sizes) -> list:
+    """pack_parts's array uploaded -> each part flat on the device, with
+    its values: u16 parts as int32, u32 parts as int64, f32 parts as
+    float32, the others as int32."""
+    out = []
+    for p, t in zip(parts, torch.split(buf, sizes)):
+        if p.dtype == np.uint16:
+            t = t.view(torch.int16)[:p.size].to(torch.int32) & 0xFFFF
+        elif p.dtype == np.uint32:
+            t = t.to(torch.int64) & 0xFFFFFFFF
+        elif p.dtype == np.float32:
+            t = t.view(torch.float32)
+        out.append(t)
+    return out
+
+
+def u16(w: torch.Tensor) -> torch.Tensor:
+    """int32 u16 values -> int16 tensors of their bit patterns."""
+    return (w - ((w >> 15) << 16)).to(torch.int16)
+
+
+def expand_lanes(flat: torch.Tensor, counts: torch.Tensor,
+                 cap: int) -> torch.Tensor:
+    """Lane-major u16 words (int32 values: each lane's first `count`
+    words, lane after lane) and (L,) counts -> the (L, cap) int32 buffer
+    a decoder kernel reads, zero past each lane's count.  A gather, where
+    the words are."""
+    c = counts.to(torch.int64)
+    start = torch.cumsum(c, 0) - c
+    j = torch.arange(cap, device=flat.device)
+    keep = j[None, :] < c[:, None]
+    src = torch.where(keep, start[:, None] + j[None, :], 0)
+    padded = torch.cat([flat, flat.new_zeros(1)])
+    return torch.where(keep, padded[src], 0)
+
+
+def correction_maps(at: torch.Tensor, vals: torch.Tensor, size: int):
+    """Escape corrections on the device: int64 flat indices and int32
+    values -> (mask, value) int32 vectors of `size`, by scatter (nothing
+    is read back or stored by index from the host)."""
+    mask = torch.zeros(size, dtype=torch.int32, device=at.device)
+    val = torch.zeros_like(mask).scatter_(0, at, vals)
+    return mask.scatter_(0, at, 1), val
 
 
 def _load_weights(model, state: dict) -> None:
@@ -312,6 +423,154 @@ class CompressionModel:
         if means is not None:
             out = out + means.detach().float().cpu().numpy()
         return self._upload(out)
+
+
+class PipelinedCodec(CompressionModel):
+    """The fast codecs' pipelined serving protocol (HESIC's and DSIC's
+    ``HESICFastCodec``, HESIC+'s ``HESICPlusDeviceCodec``).
+
+    ``compress_fast`` codes a batch synchronously; ``compress_fast_start``
+    only dispatches its device half, and ``compress_fast_finish`` waits
+    for that batch's copies alone and writes its batch container;
+    ``decompress_fast_batch`` only dispatches a decode.  Each is a span
+    ``codec/<method>`` holding the encode's or decode's sequence number
+    (``count/batch``).  A codec supplies the hooks: ``_encode_device(x1,
+    x2, h_matrix)`` the dispatched device half (a handle: its "mode"
+    "async", "seq", and ``_fetch``'s keys), ``_finish(handle,
+    batch_container)`` the host half, ``_decompress_fast_batch(blob,
+    pairs)`` the decode, and ``_start`` where its first start differs.
+
+    The streams (the card only): all compute runs on the current stream.
+    ``_fetch`` copies what the host half reads into pinned buffers on the
+    start stream, after an event on the compute stream; the finish's work
+    (the counted words, any gather it needs) runs on the finish stream
+    after that event, so it never queues behind a later start's copies.
+    Nothing on the two dispatch paths reads a device value back."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self._side_streams = None
+        # encodes and decodes begun: the next one's sequence number, which
+        # its trace's count/batch carries
+        self._encodes = 0
+        self._decodes = 0
+
+    def _streams(self):
+        """(start stream, finish stream) of the codec's card, made once."""
+        if self._side_streams is None:
+            self._side_streams = (torch.cuda.Stream(self.device),
+                                  torch.cuda.Stream(self.device))
+        return self._side_streams
+
+    def _fetch(self, dev: dict) -> dict:
+        """Start the device -> host copies of `dev` ({name: tensor}).  On
+        the card: an event on the compute stream, then the copies into
+        pinned buffers on the start stream.  Returns {"ready": the compute
+        event, "copied": the copies' event, "host": {name: host tensor}};
+        on the CPU the tensors themselves, and no events."""
+        count("d2h_bytes", sum(t.nbytes for t in dev.values()))
+        if self.device.type != "cuda":
+            return {"ready": None, "copied": None, "host": dict(dev)}
+        ready = torch.cuda.Event()
+        ready.record()
+        stream = self._streams()[0]
+        stream.wait_event(ready)
+        host = {}
+        with torch.cuda.stream(stream):
+            for name, t in dev.items():
+                t.record_stream(stream)
+                host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                host[name].copy_(t, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return {"ready": ready, "copied": copied, "host": host}
+
+    @staticmethod
+    def _fetched(handle) -> dict:
+        """Wait for the handle's copies: {name: numpy array}."""
+        if handle["copied"] is not None:
+            handle["copied"].synchronize()
+        return {k: t.numpy() for k, t in handle["host"].items()}
+
+    def _on_finish_stream(self, handle, tensors):
+        """A context that runs on the finish stream after the handle's
+        compute event, `tensors` kept for it (the CPU: no context)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        stream = self._streams()[1]
+        stream.wait_event(handle["ready"])
+        for t in tensors:
+            t.record_stream(stream)
+        return torch.cuda.stream(stream)
+
+    def _fetch_words(self, handle, totals, tensors, flatten) -> list:
+        """Each eye's counted words (`totals` of them) as numpy u16, copied
+        on the finish stream after the handle's compute event: `flatten()`
+        gives the eyes' flat int16 words there, from `tensors`."""
+        count("d2h_bytes", 2 * sum(totals))
+        with span("enc/words-d2h"):
+            with self._on_finish_stream(handle, tensors):
+                flats = flatten()
+                if self.device.type == "cuda":
+                    host = [torch.empty(n, dtype=torch.int16,
+                                        pin_memory=True) for n in totals]
+                    for dst, f in zip(host, flats):
+                        dst.copy_(f, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host, done = flats, None
+        with span("enc/wait-words"):
+            if done is not None:
+                done.synchronize()
+        return [t.numpy().view(np.uint16) for t in host]
+
+    def _start(self, x1, x2, h_matrix) -> dict:
+        """compress_fast_start's handle: the device half, dispatched."""
+        return self._encode_device(x1, x2, h_matrix)
+
+    @torch.no_grad()
+    def compress_fast(self, x1, x2, h_matrix=None,
+                      batch_container: bool = False) -> dict:
+        """Compress a batch of pairs.  x1/x2: (B, H, W, 3); h: (B, 3, 3) or
+        (1, 3, 3), or None for a model that takes none.  Returns {'blobs':
+        the containers, 'blob': the first, 'bpp_real', 'enctime', and the
+        codec's escape counts}; a codec with per-pair containers writes
+        the batch's one with batch_container=True."""
+        with call("codec/compress_fast", self._encodes, self.device):
+            return self._finish(self._encode_device(x1, x2, h_matrix),
+                                batch_container)
+
+    @torch.no_grad()
+    def compress_fast_start(self, x1, x2, h_matrix=None) -> dict:
+        """Dispatch-only half of a pipelined batch encode: nothing waits
+        for the device.  Returns the handle for compress_fast_finish."""
+        with call("codec/compress_fast_start", self._encodes, self.device):
+            return self._start(x1, x2, h_matrix)
+
+    @torch.no_grad()
+    def compress_fast_finish(self, handle) -> dict:
+        """The batch container of a compress_fast_start handle
+        (compress_fast's keys): waits for that batch's copies only.
+        ``fallback`` is always False: the port's pipelined encode has
+        nothing to fall back from."""
+        with call("codec/compress_fast_finish", handle["seq"], self.device):
+            if handle["mode"] == "sync":
+                return handle["out"]
+            out = self._finish(handle, True)
+            out["fallback"] = False
+            return out
+
+    @torch.no_grad()
+    def decompress_fast_batch(self, blob: bytes, pairs: slice = None) -> dict:
+        """Decode a batch container, or only its `pairs` (a contiguous
+        slice of the batch, where the codec's layout allows one).  Only
+        dispatches: ``dectime`` is the dispatch time, and the caller
+        synchronises when it needs the results."""
+        with call("codec/decompress_fast_batch", self._decodes, self.device):
+            self._decodes += 1
+            return self._decompress_fast_batch(blob, pairs)
 
 
 class TogetherCodec(CompressionModel):

@@ -35,7 +35,12 @@ the grid travel as escapes, so every container stays exact.
 runs on the current stream, in issue order, so a pipelined container is
 the synchronous one of the same batch and grids, byte for byte.
 ``decompress_fast_batch`` only dispatches; ``decompress_fast``
-synchronises before it returns.
+synchronises before it returns.  The four protocol methods, the side
+streams and the copies are models/base.py's ``PipelinedCodec``, which
+HESIC+'s wavefront device codec shares; so are the container pieces
+(escape records, length-prefixed z strings, the decoder's packed upload,
+the lane-major word rebuild, the correction maps).  Both decoders parse
+into one form and share the tail after it (``_decode_parsed``).
 
 Tracing (utils/tracing.py; entered only while a profiler records).  Each
 public call is a span ``codec/<method>`` holding ``count/batch`` (the
@@ -49,8 +54,8 @@ encode's sequence number, carried in its handle, or the decode's) and
 ``dec/expand-words``, ``dec/corr-map``, ``dec/cond1``, ``dec/rans``,
 ``dec/cond2``, ``dec/synthesis``, ``dec/wait``.  A ``wait`` stage is the
 host blocked on the device.  Counters: ``count/h2d_bytes`` (``_upload``),
-``count/d2h_bytes`` (``_fetch``, ``_fetch_words``), ``count/latents`` and
-``count/escapes`` (``_host_pieces``).
+``count/d2h_bytes`` (PipelinedCodec's ``_fetch`` and ``_fetch_words``),
+``count/latents`` and ``count/escapes`` (``_host_pieces``).
 
 Bit-exactness invariant: everything that parameterizes the coder (GMM
 heads -> frequency rows, including the decoded-left re-encoding chain)
@@ -110,7 +115,9 @@ from ..codecs.grid_rans import (default_cap, rans_decode_grid_rows,
 from ..codecs.pmf import gmm_freq
 from ..geometry import pick_warp_win, pick_warp_xwin, warp_perspective
 from ..utils.tracing import call, count, span
-from .base import counted_flops
+from .base import (PipelinedCodec, correction_maps, counted_flops,
+                   escape_record, expand_lanes, length_prefixed, pack_parts,
+                   prefixed_extents, read_escape_record, split_parts, u16)
 from .hesic_codec import HESICCodec
 
 MM_DEFAULT = 32
@@ -215,8 +222,7 @@ def compact_words(words, counts) -> torch.Tensor:
     j = torch.arange(cap, device=words.device)
     dest = torch.where(j[None, :] < c[:, None], start[:, None] + j[None, :],
                        n + torch.arange(n, device=words.device).view(-1, cap))
-    w = words.permute(0, 2, 1).reshape(b * ls, cap)
-    w16 = (w - ((w >> 15) << 16)).to(torch.int16)
+    w16 = u16(words.permute(0, 2, 1).reshape(b * ls, cap))
     flat = torch.empty(2 * n, dtype=torch.int16, device=words.device)
     flat.scatter_(0, dest.reshape(-1), w16.reshape(-1))
     return flat[:n]
@@ -225,15 +231,10 @@ def compact_words(words, counts) -> torch.Tensor:
 def expand_words(flat, counts, cap: int) -> torch.Tensor:
     """Inverse of compact_words: exact-dense u16 words (int32 values) and
     (B, ls) counts -> the cap-major (B, cap, ls) int32 buffer kernel 3
-    reads (zero past each lane's count).  A gather, where the words are."""
+    reads (zero past each lane's count): the lane-major rebuild over the
+    batch's (pair, lane) lanes, made cap-major."""
     b, ls = counts.shape
-    c = counts.reshape(-1).to(torch.int64)
-    start = torch.cumsum(c, 0) - c
-    j = torch.arange(cap, device=flat.device)
-    keep = j[None, :] < c[:, None]
-    src = torch.where(keep, start[:, None] + j[None, :], 0)
-    padded = torch.cat([flat, flat.new_zeros(1)])
-    out = torch.where(keep, padded[src], 0)
+    out = expand_lanes(flat, counts.reshape(-1), cap)
     return out.reshape(b, ls, cap).permute(0, 2, 1).contiguous()
 
 
@@ -272,12 +273,13 @@ def _check_shape(h_img: int, w_img: int, lanes: int, what: str):
                          f"lanes is not a valid layout")
 
 
-class HESICFastCodec(HESICCodec):
+class HESICFastCodec(HESICCodec, PipelinedCodec):
     """HESIC with the fused on-device coder: ``compress_fast`` /
     ``decompress_fast`` over per-pair v3 containers, the batch container
     (``decompress_fast_batch``) and the pipelined batch encode
-    (``compress_fast_start`` / ``compress_fast_finish``); ``compress`` /
-    ``decompress`` keep HESICCodec's reference-layout container."""
+    (``compress_fast_start`` / ``compress_fast_finish``), on the protocol
+    of models/base.py's PipelinedCodec; ``compress`` / ``decompress`` keep
+    HESICCodec's reference-layout container."""
 
     def __init__(self, model, mm: int = MM_DEFAULT, codec_batch: int = 8):
         super().__init__(model)    # sets the determinism policy
@@ -286,11 +288,6 @@ class HESICFastCodec(HESICCodec):
         # the grid widths (mm1, mm2) the last finished encode picked: the
         # pipelined encode's one piece of sticky state
         self._next_mm = None
-        self._side_streams = None
-        # encodes and decodes begun: the next one's sequence number, which
-        # its trace's count/batch carries
-        self._encodes = 0
-        self._decodes = 0
 
     # ---- shared conditioning programs (identical on both sides) ----
 
@@ -398,70 +395,6 @@ class HESICFastCodec(HESICCodec):
                  + per["synth_out"])
         return {"flops_total": total, "flops_per_pair": total / b,
                 "per_program": per}
-
-    # ---- side streams (the card only) ----
-
-    def _streams(self):
-        """(start stream, finish stream) of the codec's card, made once.
-        compress_fast_start's copies go on the first; compress_fast_finish
-        issues its words copy and outlier collection on the second, so
-        they never queue behind a later start's copies, which wait for
-        that later encode."""
-        if self._side_streams is None:
-            self._side_streams = (torch.cuda.Stream(self.device),
-                                  torch.cuda.Stream(self.device))
-        return self._side_streams
-
-    def _fetch(self, dev: dict) -> dict:
-        """Start the device -> host copies of `dev` ({name: tensor}).  On
-        the card: an event on the compute stream, then the copies into
-        pinned buffers on the copy stream.  Returns {"ready": the compute
-        event, "copied": the copies' event, "host": {name: host tensor}};
-        on the CPU the tensors themselves, and no events."""
-        count("d2h_bytes", sum(t.nbytes for t in dev.values()))
-        if self.device.type != "cuda":
-            return {"ready": None, "copied": None, "host": dict(dev)}
-        ready = torch.cuda.Event()
-        ready.record()
-        stream = self._streams()[0]
-        stream.wait_event(ready)
-        host = {}
-        with torch.cuda.stream(stream):
-            for name, t in dev.items():
-                t.record_stream(stream)
-                host[name] = torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True)
-                host[name].copy_(t, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(stream)
-        return {"ready": ready, "copied": copied, "host": host}
-
-    def _fetch_words(self, handle, totals) -> list:
-        """Each eye's exact-dense words (the first `total` entries of its
-        compacted vector) as numpy u16, copied on the finish stream after
-        the handle's compute event."""
-        words = handle["words"]
-        count("d2h_bytes", 2 * sum(totals))
-        if self.device.type != "cuda":
-            with span("enc/words-d2h"):
-                out = [w[:n].numpy().view(np.uint16)
-                       for w, n in zip(words, totals)]
-            with span("enc/wait-words"):     # nothing to wait for here
-                return out
-        with span("enc/words-d2h"):
-            stream = self._streams()[1]
-            host = [torch.empty(n, dtype=torch.int16, pin_memory=True)
-                    for n in totals]
-            with torch.cuda.stream(stream):
-                stream.wait_event(handle["ready"])
-                for dst, w, n in zip(host, words, totals):
-                    w.record_stream(stream)
-                    dst.copy_(w[:n], non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-        with span("enc/wait-words"):
-            done.synchronize()
-        return [dst.numpy().view(np.uint16) for dst in host]
 
     # ---- encoder side ----
 
@@ -580,25 +513,11 @@ class HESICFastCodec(HESICCodec):
         so they do not queue behind work issued after the encode."""
         (y1, y2), (c1, c2) = handle["y"], handle["dc"]
         mm1, mm2 = handle["mm"]
-        ctx = contextlib.nullcontext()
-        if self.device.type == "cuda" and (over1.any() or over2.any()):
-            side = self._streams()[1]
-            side.wait_event(handle["ready"])
-            for t in (y1, y2, c1, c2):
-                t.record_stream(side)
-            ctx = torch.cuda.stream(side)
+        ctx = (self._on_finish_stream(handle, (y1, y2, c1, c2))
+               if over1.any() or over2.any() else contextlib.nullcontext())
         with ctx:
             return (self._collect_outliers(y1, over1, c1, mm1),
                     self._collect_outliers(y2, over2, c2, mm2))
-
-    @staticmethod
-    def _pack_outliers(o1, o2) -> bytes:
-        out = bytearray()
-        for idx, val in (o1, o2):
-            out += np.array([idx.size], np.uint32).tobytes()
-            out += idx.astype(np.uint32).tobytes()
-            out += val.astype(np.int32).tobytes()
-        return bytes(out)
 
     def _finish(self, handle, batch_container: bool) -> dict:
         """The encoder's host half: the host pieces (_host_pieces), then
@@ -618,10 +537,8 @@ class HESICFastCodec(HESICCodec):
         b = len(handle["y"][0])
         ls, m = handle["lanes"], self.model.M
         with span("enc/wait-copies"):
-            if handle["copied"] is not None:
-                handle["copied"].synchronize()
-            meta = handle["host"]["meta"].numpy()
-            z = handle["host"]["z"].numpy()
+            host = self._fetched(handle)
+            meta, z = host["meta"], host["z"]
         n = b * ls
         sizes = (n, n, n, n, b * m, b * m, 1, 1, b, b, b * m, b * m)
         (c1, c2, st1, st2, dc1, dc2, sp1, sp2, over1, over2, dead1,
@@ -634,8 +551,10 @@ class HESICFastCodec(HESICCodec):
         # the next pipelined batch's grids, from this batch's spreads
         self._next_mm = (pick_mm(int(sp1[0]), self.mm),
                          pick_mm(int(sp2[0]), self.mm))
-        flat1, flat2 = self._fetch_words(handle, [int(c1.sum()),
-                                                  int(c2.sum())])
+        totals = [int(c1.sum()), int(c2.sum())]
+        flat1, flat2 = self._fetch_words(
+            handle, totals, handle["words"],
+            lambda: [w[:n] for w, n in zip(handle["words"], totals)])
         with span("enc/outliers"):
             out1, out2 = self._outliers(handle, over1, over2)
         count("latents", 2 * handle["y"][0].numel())
@@ -655,7 +574,9 @@ class HESICFastCodec(HESICCodec):
 
     def _containers(self, handle, p: dict, batch_container: bool) -> dict:
         """Containers from the host pieces: one per pair (format v3), or
-        one for the batch (the JAX package's batch layout)."""
+        one for the batch (the JAX package's batch layout).  Each pair's
+        fields are written once; the batch layout joins them field by
+        field, the per-pair layout pair by pair."""
         with span("enc/z-rans"):
             z_strs = list(zip(
                 self.eb_encode_symbols("entropy_bottleneck1", p["z"][0]),
@@ -668,96 +589,56 @@ class HESICFastCodec(HESICCodec):
             lead = bytes([writer_id(self.device), mm1, mm2, handle["win"],
                           0 if xw is None else xw // 16])
             (o1, o2), (d1, d2) = p["outliers"], p["dead"]
-            (dc1, dc2), h_np = p["centres"], handle["h_np"]
+            fields = [
+                [length_prefixed(pair) for pair in z_strs],
+                [escape_record(*o1[i]) + escape_record(*o2[i])
+                 for i in range(b)],
+                [np.packbits(d1[i]).tobytes() + np.packbits(d2[i]).tobytes()
+                 for i in range(b)],
+                *([row.tobytes() for row in c.astype(np.int8)]
+                  for c in p["centres"]),
+                [row.tobytes() for row in
+                 handle["h_np"].astype(np.float32).reshape(b, 9)]]
             if batch_container:
-                head = bytearray(lead)
-                head += np.array([h_img, w_img, b, handle["lanes"]],
-                                 np.uint32).tobytes()
-                for pair in z_strs:
-                    for s in pair:
-                        head += np.array([len(s)], np.uint32).tobytes() + s
-                for i in range(b):
-                    head += self._pack_outliers(o1[i], o2[i])
-                for i in range(b):
-                    head += np.packbits(d1[i]).tobytes()
-                    head += np.packbits(d2[i]).tobytes()
-                head += dc1.astype(np.int8).tobytes()
-                head += dc2.astype(np.int8).tobytes()
-                head += h_np.reshape(-1).astype(np.float32).tobytes()
-                for flat, c, st in p["streams"]:
-                    head += pack_counts(c.reshape(-1))
-                    head += st.tobytes() + flat.tobytes()
-                blobs = [bytes(head)]
+                head = lead + np.array([h_img, w_img, b, handle["lanes"]],
+                                       np.uint32).tobytes()
+                body = b"".join(pack_counts(c.reshape(-1)) + st.tobytes()
+                                + flat.tobytes()
+                                for flat, c, st in p["streams"])
+                blobs = [head + b"".join(b"".join(f) for f in fields)
+                         + body]
             else:
-                (f1, c1, st1), (f2, c2, st2) = p["streams"]
-                pt1 = np.concatenate([[0], np.cumsum(c1.sum(axis=1))])
-                pt2 = np.concatenate([[0], np.cumsum(c2.sum(axis=1))])
-                blobs = []
-                for i in range(b):
-                    head = bytearray(lead)
-                    head += np.array([h_img, w_img], np.uint16).tobytes()
-                    for s in z_strs[i]:
-                        head += np.array([len(s)], np.uint32).tobytes() + s
-                    head += self._pack_outliers(o1[i], o2[i])
-                    head += np.packbits(d1[i]).tobytes()
-                    head += np.packbits(d2[i]).tobytes()
-                    head += dc1[i].astype(np.int8).tobytes()
-                    head += dc2[i].astype(np.int8).tobytes()
-                    head += h_np[i].reshape(-1).astype(np.float32).tobytes()
-                    body = (pack_stream_dense(f1[pt1[i]:pt1[i + 1]], c1[i],
-                                              st1[i])
-                            + pack_stream_dense(f2[pt2[i]:pt2[i + 1]],
-                                                c2[i], st2[i]))
-                    blobs.append(bytes(head) + body)
+                ends = [np.concatenate([[0], np.cumsum(c.sum(axis=1))])
+                        for _, c, _ in p["streams"]]
+                hw = np.array([h_img, w_img], np.uint16).tobytes()
+                blobs = [lead + hw + b"".join(f[i] for f in fields)
+                         + b"".join(pack_stream_dense(flat[e[i]:e[i + 1]],
+                                                      c[i], st[i])
+                                    for (flat, c, st), e in zip(p["streams"],
+                                                                ends))
+                         for i in range(b)]
         total = sum(len(bl) for bl in blobs)
         return {"blobs": blobs, "blob": blobs[0],
                 "bpp_real": total * 8 / (2 * h_img * w_img * b)}
 
-    @torch.no_grad()
-    def compress_fast(self, x1, x2, h_matrix=None,
-                      batch_container: bool = False) -> dict:
-        """Compress a batch of pairs.  x1/x2: (B, H, W, 3); h: (B, 3, 3) or
-        (1, 3, 3), or None for a model that takes none.  Returns {'blobs': per-pair bytes, or the one batch
-        container with batch_container=True, 'blob', 'bpp_real',
-        'enctime', 'outliers': (eye1, eye2) latent counts beyond the
-        grids}."""
-        with call("codec/compress_fast", self._encodes, self.device):
-            return self._finish(self._encode_device(x1, x2, h_matrix),
-                                batch_container)
-
-    @torch.no_grad()
-    def compress_fast_start(self, x1, x2, h_matrix=None) -> dict:
-        """Dispatch-only half of a pipelined batch encode, at the grid
-        widths the last finished encode picked; nothing waits for the
-        device.  The first call (no grids picked yet) runs the synchronous
-        batch encode and returns {"mode": "sync", "seq", "out"}."""
-        with call("codec/compress_fast_start", self._encodes, self.device):
-            if self._next_mm is None:
-                handle = self._encode_device(x1, x2, h_matrix)
-                return {"mode": "sync", "seq": handle["seq"],
-                        "out": self._finish(handle, True)}
-            return self._encode_device(x1, x2, h_matrix, self._next_mm)
-
-    @torch.no_grad()
-    def compress_fast_finish(self, handle) -> dict:
-        """The batch container of a compress_fast_start handle: waits for
-        that batch's copies only, and records the grids its spreads pick
-        for the next start.  ``fallback`` is always False: the port's
-        pipelined encode has nothing to fall back from."""
-        with call("codec/compress_fast_finish", handle["seq"], self.device):
-            if handle["mode"] == "sync":
-                return handle["out"]
-            out = self._finish(handle, True)
-            out["fallback"] = False
-            return out
+    def _start(self, x1, x2, h_matrix) -> dict:
+        """A start at the grid widths the last finished encode picked.  The
+        first one (no grids picked yet) runs the synchronous batch encode
+        and returns {"mode": "sync", "seq", "out"}."""
+        if self._next_mm is None:
+            handle = self._encode_device(x1, x2, h_matrix)
+            return {"mode": "sync", "seq": handle["seq"],
+                    "out": self._finish(handle, True)}
+        return self._encode_device(x1, x2, h_matrix, self._next_mm)
 
     # ---- decoder side ----
 
     def _corr_map(self, outliers, y_shape):
-        """Dense (mask, true value) (B, hy, wy, M) maps on the device, or
-        None when no pair has outliers: the records go up as one sparse
-        vector and are scattered there.  Set semantics: the decoder
-        overwrites the clamped decode with the stored true value."""
+        """Dense (mask, true value) (B, hy, wy, M) int32 maps on the
+        device, or None when no pair has outliers: the records go up as
+        one sparse vector and are scattered there.  Set semantics: the
+        decoder overwrites the clamped decode with the stored true
+        value."""
         if all(idx.size == 0 for idx, _ in outliers):
             return None
         b = len(outliers)
@@ -769,12 +650,9 @@ class HESICFastCodec(HESICCodec):
         with span("dec/upload"):
             up = self._upload(np.concatenate([idx, vals]))
         n = idx.size
-        mask = torch.zeros(b * per, dtype=torch.bool, device=self.device)
-        mask[up[:n]] = True
-        dense = torch.zeros(b * per, dtype=torch.int32, device=self.device)
-        dense[up[:n]] = up[n:].to(torch.int32)
         shape = (b, hy, wy, self.model.M)
-        return mask.reshape(shape), dense.reshape(shape)
+        return tuple(t.reshape(shape) for t in correction_maps(
+            up[:n], up[n:].to(torch.int32), b * per))
 
     @staticmethod
     def _apply_corr(y, corr):
@@ -782,7 +660,7 @@ class HESICFastCodec(HESICCodec):
         if corr is None:
             return y
         mask, vals = (t.permute(0, 3, 1, 2) for t in corr)
-        return torch.where(mask, vals, y)
+        return torch.where(mask != 0, vals, y)
 
     def _synthesize(self, aux, y2, h, win: int):
         """The reconstructions after the second decode: (x1_hat, x2_hat)
@@ -823,17 +701,12 @@ class HESICFastCodec(HESICCodec):
                 "y1_hat": nhwc(y1).float(), "y2_hat": nhwc(y2).float()}
 
     @staticmethod
-    def _parse_outliers(blob: bytes, off: int):
-        eyes = []
-        for _ in range(2):
-            (n,) = np.frombuffer(blob, np.uint32, 1, off)
-            off += 4
-            idx = np.frombuffer(blob, np.uint32, int(n), off)
-            off += 4 * int(n)
-            val = np.frombuffer(blob, np.int32, int(n), off)
-            off += 4 * int(n)
-            eyes.append((idx, val))
-        return eyes[0], eyes[1], off
+    def _read_outliers(blob: bytes, off: int):
+        """One pair's outlier records -> ((idx, val) of eye 1, of eye 2,
+        the next offset)."""
+        i1, v1, off = read_escape_record(blob, off)
+        i2, v2, off = read_escape_record(blob, off)
+        return (i1, v1), (i2, v2), off
 
     def _parse_outliers_batch(self, blob: bytes, off: int, b: int):
         """All b pairs' outlier records.  When no pair has outliers the
@@ -846,7 +719,7 @@ class HESICFastCodec(HESICCodec):
             return [empty] * b, [empty] * b, off + 8 * b
         out1, out2 = [], []
         for _ in range(b):
-            o1, o2, off = self._parse_outliers(blob, off)
+            o1, o2, off = self._read_outliers(blob, off)
             out1.append(o1)
             out2.append(o2)
         return out1, out2, off
@@ -869,14 +742,8 @@ class HESICFastCodec(HESICCodec):
                         np.frombuffer(blob, np.uint16, 2, off + 4))
         key = (blob[off], blob[off + 1], blob[off + 2],
                blob[off + 3] * 16 or None, h_img, w_img)
-        off += 8
-        ext = []
-        for _ in range(2):
-            (length,) = np.frombuffer(blob, np.uint32, 1, off)
-            off += 4
-            ext.append((off, off + int(length)))
-            off += int(length)
-        o1, o2, off = self._parse_outliers(blob, off)
+        ext, off = prefixed_extents(blob, off + 8, 2)
+        o1, o2, off = self._read_outliers(blob, off)
         d1, d2, off = self._parse_dead_bitmaps(blob, off, 1)
         cen = np.frombuffer(blob, np.int8, 2 * m, off).reshape(2, m)
         off += 2 * m
@@ -891,45 +758,55 @@ class HESICFastCodec(HESICCodec):
                 "streams": (s1[:3], s2[:3])}
 
     def _upload_decode(self, streams, z, cen, dead, h_np):
-        """The decoder's inputs on the device, in one pinned upload: per
-        eye (exact-dense u16 words in (pair, lane) order, (B, ls) counts,
-        (B, ls) u32 states), the z symbols (B, zh, zw, C) of both eyes,
-        (2, B, M) centres and constant-channel bitmaps, (B, 3, 3) f32
-        homographies.  The cap-major word buffers kernel 3 reads are
-        rebuilt on the device (expand_words).  Returns (z1_sym, z2_sym,
-        h, centres, bitmaps, per eye (words, counts, states))."""
+        """The decoder's inputs on the device, in one pinned upload
+        (pack_parts): per eye (exact-dense u16 words in (pair, lane)
+        order, (B, ls) counts, (B, ls) u32 states), the z symbols (B, zh,
+        zw, C) of both eyes, (2, B, M) centres and constant-channel
+        bitmaps, (B, 3, 3) f32 homographies.  The cap-major word buffers
+        kernel 3 reads are rebuilt on the device (expand_words).  Returns
+        (z1_sym, z2_sym, h, centres, bitmaps, per eye (words, counts,
+        states))."""
         b, lanes = streams[0][1].shape
         with span("dec/stage"):
-            parts = [streams[0][1], streams[1][1],
-                     streams[0][2].view(np.int32),
-                     streams[1][2].view(np.int32), z[0], z[1], cen, dead,
-                     h_np.view(np.int32)]
-            for flat, _, _ in streams:
-                even = np.zeros(-(-flat.size // 2) * 2, np.uint16)
-                even[: flat.size] = flat
-                parts.append(even.view(np.int32))
-            sizes = [p.size for p in parts]
-            packed = np.concatenate(
-                [p.astype(np.int32, copy=False).reshape(-1) for p in parts])
+            parts = [streams[0][1], streams[1][1], streams[0][2],
+                     streams[1][2], z[0], z[1], cen, dead, h_np,
+                     streams[0][0], streams[1][0]]
+            packed, sizes = pack_parts(parts)
         with span("dec/upload"):
             buf = self._upload(packed)
         with span("dec/expand-words"):
             (c1, c2, st1, st2, z1d, z2d, cen_d, dead_d, h_d, w1,
-             w2) = torch.split(buf, sizes)
+             w2) = split_parts(buf, parts, sizes)
             counts = [c.reshape(b, lanes) for c in (c1, c2)]
-            states = [(s.to(torch.int64) & 0xFFFFFFFF).reshape(b, lanes)
-                      for s in (st1, st2)]
-            words = []
-            for w, (flat, c, _), cd in zip((w1, w2), streams, counts):
-                dense = w.view(torch.int16)[: flat.size].to(torch.int32)
-                words.append(expand_words(dense & 0xFFFF, cd,
-                                          max(int(c.max()), 1)))
+            states = [s.reshape(b, lanes) for s in (st1, st2)]
+            words = [expand_words(w, cd, max(int(c.max()), 1))
+                     for w, (_, c, _), cd in zip((w1, w2), streams, counts)]
         z1_sym, z2_sym = (t.reshape(zz.shape).permute(0, 3, 1, 2)
                           .contiguous() for t, zz in zip((z1d, z2d), z))
         m = cen.shape[-1]
-        return (z1_sym, z2_sym, h_d.view(torch.float32).reshape(b, 3, 3),
+        return (z1_sym, z2_sym, h_d.reshape(b, 3, 3),
                 cen_d.reshape(2, b, m), (dead_d != 0).reshape(2, b, m),
                 list(zip(words, counts, states)))
+
+    def _decode_parsed(self, blob: bytes, p: dict) -> dict:
+        """Both decoders' tail after their parse: the z strings at the
+        extents p["ext"] of `blob`, the one pinned upload, the correction
+        maps and the device half, dispatched.  `p` holds the batch's
+        {"key", "ext", "outliers" (per eye, per pair), "dead", "centres"
+        (2, B, M), "h" (B, 3, 3), "streams" (per eye)}."""
+        key = p["key"]
+        y_shape = (key[4] // 16, key[5] // 16)
+        z_shape = (y_shape[0] // 4, y_shape[1] // 4)
+        with span("dec/z-rans"):
+            z = [self.eb_decode_streams(name, blob, ext, z_shape)
+                 for name, ext in zip(("entropy_bottleneck1",
+                                       "entropy_bottleneck2"), p["ext"])]
+        z1_sym, z2_sym, h, cen, dead, streams = self._upload_decode(
+            p["streams"], z, p["centres"], p["dead"], p["h"])
+        with span("dec/corr-map"):
+            corr = tuple(self._corr_map(o, y_shape) for o in p["outliers"])
+        return self._decode_device(z1_sym, z2_sym, h, cen, dead, streams,
+                                   corr, key)
 
     @torch.no_grad()
     def decompress_fast(self, blobs) -> dict:
@@ -954,69 +831,51 @@ class HESICFastCodec(HESICCodec):
                     "per-pair blobs in one decompress_fast call must share "
                     f"(mm1, mm2, win, xwin, H, W): got {key} and "
                     f"{p['key']}")
-        y_shape = (key[4] // 16, key[5] // 16)
-        z_shape = (y_shape[0] // 4, y_shape[1] // 4)
-        with span("dec/z-rans"):
-            z = [np.concatenate([self.eb_decode_streams(
-                name, blob, [p["ext"][e]], z_shape)
-                for blob, p in zip(blobs, parsed)])
-                for e, name in enumerate(("entropy_bottleneck1",
-                                          "entropy_bottleneck2"))]
         with span("dec/stage"):
-            streams = [(np.concatenate([p["streams"][e][0] for p in parsed]),
-                        np.stack([p["streams"][e][1] for p in parsed]),
-                        np.stack([p["streams"][e][2] for p in parsed]))
-                       for e in range(2)]
-            cen = np.stack([p["centres"] for p in parsed], 1)
-            dead = np.stack([p["dead"] for p in parsed], 1)
-            h_np = np.stack([p["h"] for p in parsed])
-        z1_sym, z2_sym, h, cen, dead, streams = self._upload_decode(
-            streams, z, cen, dead, h_np)
-        with span("dec/corr-map"):
-            corr = tuple(self._corr_map([p["outliers"][e] for p in parsed],
-                                        y_shape) for e in range(2))
-        out = self._decode_device(z1_sym, z2_sym, h, cen, dead, streams,
-                                  corr, key)
+            # the pairs' z strings decode from their blobs joined
+            at = np.cumsum([0] + [len(blob) for blob in blobs])
+            joined = b"".join(blobs)
+            batch = {
+                "key": key,
+                "ext": [[(lo + a, hi + a) for (lo, hi), a in zip(
+                    (p["ext"][e] for p in parsed), at)] for e in range(2)],
+                "outliers": [[p["outliers"][e] for p in parsed]
+                             for e in range(2)],
+                "dead": np.stack([p["dead"] for p in parsed], 1),
+                "centres": np.stack([p["centres"] for p in parsed], 1),
+                "h": np.stack([p["h"] for p in parsed]),
+                "streams": [
+                    (np.concatenate([p["streams"][e][0] for p in parsed]),
+                     np.stack([p["streams"][e][1] for p in parsed]),
+                     np.stack([p["streams"][e][2] for p in parsed]))
+                    for e in range(2)]}
+        out = self._decode_parsed(joined, batch)
         with span("dec/wait"):
             if out["x2_hat"].is_cuda:
                 torch.cuda.synchronize(out["x2_hat"].device)
         out["dectime"] = time.perf_counter() - start
         return out
 
-    @torch.no_grad()
-    def decompress_fast_batch(self, blob: bytes, pairs: slice = None) -> dict:
-        """Decode a batch container (compress_fast(batch_container=True)),
-        or only its `pairs` (a slice of the batch, as a rank of the split
-        decode takes).  The z strings decode in two native calls; counts,
-        states, words, z symbols, centres, bitmaps and homographies go up
-        in one pinned upload; the cap-major word buffers are rebuilt on
-        the device.  Only dispatches: ``dectime`` is the dispatch time,
-        and the caller synchronises when it needs the results."""
-        with call("codec/decompress_fast_batch", self._decodes, self.device):
-            self._decodes += 1
-            return self._decompress_fast_batch(blob, pairs)
-
     def _decompress_fast_batch(self, blob: bytes, pairs: slice) -> dict:
-        """decompress_fast_batch inside its span."""
+        """decompress_fast_batch (PipelinedCodec) inside its span: the
+        batch container, or only its `pairs` (a slice of the batch, as a
+        rank of the split decode takes).  The z strings decode in two
+        native calls; counts, states, words, z symbols, centres, bitmaps
+        and homographies go up in one pinned upload; the cap-major word
+        buffers are rebuilt on the device."""
         start = time.perf_counter()
         m = self.model.M
         with span("dec/parse"):
             off = _check_format(blob, self.device)
-            mm1, mm2, win = blob[off], blob[off + 1], blob[off + 2]
-            xwin = blob[off + 3] * 16 or None
+            key = (blob[off], blob[off + 1], blob[off + 2],
+                   blob[off + 3] * 16 or None)
             h_img, w_img, b, lanes = (int(v) for v in np.frombuffer(
                 blob, np.uint32, 4, off + 4))
             off += 20
             if not 0 < b <= (len(blob) - off) // 8:
                 raise ValueError(f"batch container: {b} pairs cannot fit "
                                  f"{len(blob)} bytes")
-            ext1, ext2 = [], []
-            for _ in range(b):
-                for ext in (ext1, ext2):
-                    (length,) = np.frombuffer(blob, np.uint32, 1, off)
-                    off += 4
-                    ext.append((off, off + int(length)))
-                    off += int(length)
+            ext, off = prefixed_extents(blob, off, 2 * b)
         with span("dec/outliers-parse"):
             out1, out2, off = self._parse_outliers_batch(blob, off, b)
         with span("dec/parse"):
@@ -1037,36 +896,26 @@ class HESICFastCodec(HESICCodec):
                                 st.reshape(b, lanes)))
             _check_end(blob, off, "batch container")
             _check_shape(h_img, w_img, lanes, "batch container")
-            cen, h_np = cen.reshape(2, b, m), h_np.reshape(b, 3, 3)
+            p = {"key": key + (h_img, w_img), "ext": [ext[0::2], ext[1::2]],
+                 "outliers": [out1, out2],
+                 "dead": np.stack([dead1, dead2]),
+                 "centres": cen.reshape(2, b, m),
+                 "h": h_np.reshape(b, 3, 3), "streams": streams}
             if pairs is not None:
                 lo, hi, stride = pairs.indices(b)
                 if stride != 1 or hi <= lo:
                     raise ValueError(f"pairs must be a non-empty contiguous "
                                      f"slice of the {b} pairs")
-                ext1, ext2, out1, out2 = (v[lo:hi] for v in (ext1, ext2,
-                                                             out1, out2))
-                dead1, dead2 = dead1[lo:hi], dead2[lo:hi]
-                cen, h_np = cen[:, lo:hi], h_np[lo:hi]
                 sel = []
                 for flat, c, st in streams:
                     ends = np.concatenate([[0], np.cumsum(c.sum(axis=1))])
                     sel.append((flat[ends[lo]:ends[hi]], c[lo:hi],
                                 st[lo:hi]))
-                streams, b = sel, hi - lo
-        y_shape = (h_img // 16, w_img // 16)
-        z_shape = (y_shape[0] // 4, y_shape[1] // 4)
-        with span("dec/z-rans"):
-            z1 = self.eb_decode_streams("entropy_bottleneck1", blob, ext1,
-                                        z_shape)
-            z2 = self.eb_decode_streams("entropy_bottleneck2", blob, ext2,
-                                        z_shape)
-        z1_sym, z2_sym, h, cen_t, dead_t, streams = self._upload_decode(
-            streams, (z1, z2), cen, np.stack([dead1, dead2]), h_np)
-        with span("dec/corr-map"):
-            corr = (self._corr_map(out1, y_shape),
-                    self._corr_map(out2, y_shape))
-        out = self._decode_device(
-            z1_sym, z2_sym, h, cen_t, dead_t, streams, corr,
-            (mm1, mm2, win, xwin, h_img, w_img))
+                p.update(ext=[e[lo:hi] for e in p["ext"]],
+                         outliers=[o[lo:hi] for o in p["outliers"]],
+                         dead=p["dead"][:, lo:hi],
+                         centres=p["centres"][:, lo:hi],
+                         h=p["h"][lo:hi], streams=sel)
+        out = self._decode_parsed(blob, p)
         out["dectime"] = time.perf_counter() - start
         return out

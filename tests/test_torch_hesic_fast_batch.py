@@ -21,7 +21,9 @@ K=2, 64x64, the JAX codec's weights carried over by hesic_from_jax).
   its batch's synchronous batch container and decodes exactly.  A wide
   batch started after a narrow one carries the narrow grids and their
   escapes, decodes exactly, and the next batch takes the wide grids.
-* The device-side word rebuild equals the per-pair decoder's host one.
+* The device-side word rebuild equals the per-pair decoder's host one;
+  the words compacted and rebuilt, cap-major (HESIC) and lane-major
+  (HESIC+), round-trip.
 * Each decoder refuses the other's container.
 * The bench loop runs end to end with 2 calibration steps and 2 batches.
 """
@@ -43,6 +45,8 @@ from hesic_tpu_torch.codecs.device_rans import unpack_counts, unpack_stream
 from hesic_tpu_torch.entropy_models import CdfTables
 from hesic_tpu_torch.geometry import warp_perspective
 from hesic_tpu_torch.models import hesic_fast
+from hesic_tpu_torch.models.ar_device import _compact_lanes
+from hesic_tpu_torch.models.base import expand_lanes, read_escape_record
 from hesic_tpu_torch.models.hesic import HESIC
 from hesic_tpu_torch.models.hesic_fast import (HESICFastCodec, compact_words,
                                                expand_words, pick_mm)
@@ -115,8 +119,9 @@ def _parse_batch(blob, m=M):
         z.append(tuple(pair))
     outliers = []
     for _ in range(b):
-        o1, o2, off = HESICFastCodec._parse_outliers(blob, off)
-        outliers.append((o1, o2))
+        i1, v1, off = read_escape_record(blob, off)
+        i2, v2, off = read_escape_record(blob, off)
+        outliers.append(((i1, v1), (i2, v2)))
     nbytes = -(-m // 8)
     dead = np.frombuffer(blob, np.uint8, 2 * b * nbytes, off).reshape(
         b, 2, nbytes)
@@ -280,7 +285,12 @@ def test_wide_batch_after_narrow_carries_narrow_grids(codecs):
     _assert_exact(codec, nxt["blob"], *narrow)
 
 
-def test_compact_expand_words_round_trip():
+@pytest.mark.parametrize("layout", ["cap-major", "lane-major"])
+def test_compact_expand_words_round_trip(layout):
+    """HESIC's cap-major (B, CAP, ls) words through compact_words and
+    expand_words, and HESIC+'s lane-major (L, cap) ones through
+    _compact_lanes and the shared rebuild (base.expand_lanes): the
+    exact-dense words in the container's order, and back."""
     rng = np.random.RandomState(3)
     b, cap, ls = 3, 7, 5
     words = torch.from_numpy(rng.randint(0, 1 << 16, (b, cap, ls)).astype(
@@ -289,14 +299,22 @@ def test_compact_expand_words_round_trip():
         np.int32))
     counts[1, 2] = 0
     total = int(counts.sum())
-    flat = compact_words(words, counts)[:total]
-    keep = np.arange(cap)[None, :, None] < counts.numpy()[:, None, :]
-    want = np.where(keep, words.numpy(), 0)
-    # exact-dense (pair, lane, slot) order
-    np.testing.assert_array_equal(
-        flat.numpy().view(np.uint16),
-        want.transpose(0, 2, 1)[keep.transpose(0, 2, 1)])
-    back = expand_words(flat.to(torch.int32) & 0xFFFF, counts, cap)
+    if layout == "lane-major":      # the same lanes as one (b ls, cap)
+        words = words.permute(0, 2, 1).reshape(b * ls, cap)
+        counts = counts.reshape(-1)
+        flat = _compact_lanes(words, counts, total)
+        keep = np.arange(cap)[None, :] < counts.numpy()[:, None]
+        want = np.where(keep, words.numpy(), 0)
+        dense = want[keep]
+        back = expand_lanes(flat.to(torch.int32) & 0xFFFF, counts, cap)
+    else:
+        flat = compact_words(words, counts)[:total]
+        keep = np.arange(cap)[None, :, None] < counts.numpy()[:, None, :]
+        want = np.where(keep, words.numpy(), 0)
+        # exact-dense (pair, lane, slot) order
+        dense = want.transpose(0, 2, 1)[keep.transpose(0, 2, 1)]
+        back = expand_words(flat.to(torch.int32) & 0xFFFF, counts, cap)
+    np.testing.assert_array_equal(flat.numpy().view(np.uint16), dense)
     np.testing.assert_array_equal(back.numpy(), want)
 
 
