@@ -161,7 +161,15 @@ and prints no result):
      at a width that is no multiple of a row segment and at one that is
      no multiple of 4; float32 within DW_F32_TOL; DenseWarp's cost
      gradient equal to autograd through the loop on bf16 and float32;
-     times the kernel and its twin at the cell's shapes beside its bound;
+     times the kernel and its twin at the cell's shapes beside its bound.
+     Then (phase_gdn) GDN's kernel against its plain twin (the op
+     sequence it replaces) at the cells' calls, GDN and IGDN, with and
+     without the conv's bias: within GDN_ULPS bf16 ulps on at most
+     GDN_FLIP_SHARE of the elements (the channel mix's sum order), every
+     image of a batch bit-equal to itself alone and in a crop, and the
+     conv-bias fold exact on the card; times kernel and twin at batch 64
+     beside the byte bound.  The bench loops of phases 9 and 10 (and 12's
+     HESIC+) must launch it GDN_CALLS times a batch;
  11. drives mbt2018 at bench.py's ar-device point: N=192/M=192 float32
      (seeded random weights) through JointAutoregressiveDeviceCodec on 11
      smooth 512x512 images (phase 6's first eyes; mm 16, 8 groups) and
@@ -339,8 +347,9 @@ and prints no result):
      grid phase 9 ran, kernels 4 and 5's at the HESIC+ point, their
      errors the largest of every hold, mbt2018's and Cheng2020's
      included; the dense warp's summed over the six calls of a DSIC
-     round trip at batch 32), then the device line {"ok": true,
-     "device": {...}} last.
+     round trip at batch 32; GDN's over the 23 calls of a HESIC round
+     trip at batch 64, its error in bf16 ulps), then the device line
+     {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -461,6 +470,28 @@ DW_EXTRA = ((DS_BENCH_B, N, 64, 64, 5), (4, N, 24, 200, DS_C),
             (4, 24, 16, 90, DS_C), (4, 24, 16, 90, 5))
 DW_F32_TOL = 1e-6
 DW_GRAD_SHAPE = (4, N, 64, 64)
+# GDN's kernel (codecs/csrc/gdn.cu) at the cells' calls: N channels at
+# 256x256, 128x128 and 64x64 (HESIC's and HESIC+'s seven stacks, DSIC's
+# four), GDN and IGDN, at batch 64 and DSIC's 32; 3 channels at 512x512
+# (HESIC's right-eye pre-fuse GDN and final IGDN); then off them: C 192
+# (HESIC+ at N=192), and H*W no multiple of 8 on both paths.  Each in
+# both of the kernel's layouts, contiguous NCHW and channels-last (HESIC+'s
+# device codec runs its synthesis stacks channels-last).  The channel
+# mix's f32 sum runs in another order than cuDNN's 1x1 convolution, so
+# where its bf16 rounding flips, the result moves (through the beta add,
+# the rsqrt and the product) by a bf16 ulp or two: at most GDN_ULPS on at
+# most GDN_FLIP_SHARE of the elements.
+GDN_SIZES = (256, 128, 64)
+GDN_EXTRA = ((4, 192, 32, 32), (2, 192, 5, 7), (3, N, 9, 13), (2, N, 7, 9),
+             (3, 3, 9, 13), (2, 3, 5, 7))
+GDN_ULPS, GDN_FLIP_SHARE = 2, 0.01
+# GDN calls of one batch round trip of each fast codec: HESIC and HESIC+
+# 21 of N channels (seven stacks of three: analysis1, analysis2, and
+# cond2's synthesis1 and re-encoded analysis1 in the encode; synthesis1,
+# the re-encode and synthesis2 in the decode) and 2 of 3 channels
+# (analysis2's pre-fuse GDN, synthesis2's final IGDN); DSIC 12 (its two
+# encoders and two decoders)
+GDN_CALLS = {"HESIC": 23, "HESICPlus": 23, "DSIC": 12}
 # a device sleep of ~1 s at the H100's ~2 GHz, queued ahead of a call that
 # must not wait for the device
 SLEEP_CYCLES = 2_000_000_000
@@ -486,6 +517,30 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call: `reps` calls captured in one CUDA graph
+    and replayed 3 times after a warm-up call and replay, CUDA events.
+    The host's work per call (Python, the dispatcher, ctypes) is left out,
+    which an eager loop of a call shorter than that work would time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (3 * reps)
 
 
 def sync():
@@ -1753,6 +1808,12 @@ def phase_bench(model, card: str, b: int = BENCH_B,
                     f"bench {name} [{what}, mode {mode}]: dense_warp "
                     f"launched {counts.get('dense_warp', 0)} times for "
                     f"{n_batches} batches, not {warps}")
+            gdns = GDN_CALLS[name] * n_batches
+            if counts.get("gdn", 0) != gdns:
+                raise AssertionError(
+                    f"bench {name} [{what}, mode {mode}]: gdn launched "
+                    f"{counts.get('gdn', 0)} times for {n_batches} "
+                    f"batches, not {GDN_CALLS[name]} a batch")
             bench.check_exact(codec, batches, h, loop)
             outs = loop["containers"]
             grids.update(v for o in outs for v in o["blob"][1:3])
@@ -1918,6 +1979,223 @@ def phase_dense_warp(card: str) -> dict:
           f"{total['plain_ms']:.3f} ms plain, bound {total['bound_ms']:.4f} "
           f"ms; phase {time.perf_counter() - t0:.1f} s")
     return {**total, "err": err, "bound_by": "/".join(sorted(bys))}
+
+
+def gdn_inputs(shape, seed: int):
+    """Seeded GDN inputs on the card: x (B, C, H, W) as a conv's output
+    gives it, the conv's bias, beta in [1, 2) and gamma 0.1 I plus
+    cross-channel terms up to 0.01, all bf16."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = shape[1]
+    bf16 = torch.bfloat16
+    x = (1.5 * torch.randn(shape, generator=g, device=DEVICE)).to(bf16)
+    bias = (0.3 * torch.randn(c, generator=g, device=DEVICE)).to(bf16)
+    beta = (1 + torch.rand(c, generator=g, device=DEVICE)).to(bf16)
+    gamma = (0.1 * torch.eye(c, device=DEVICE) + 0.01 * torch.rand(
+        (c, c), generator=g, device=DEVICE)).to(bf16)
+    return x, bias, beta, gamma
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, element by element (the bit patterns as
+    ordered integers)."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def gdn_bound(shape) -> float:
+    """The GDN pass's least time on the card, ms: x read once and the
+    result written once, bf16, at PEAK_BYTES (the parameters are a few
+    KB)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return 2 * 2 * n / PEAK_BYTES * 1e3
+
+
+def check_gdn(label: str, shape, inverse: bool, seed: int) -> tuple:
+    """The kernel against its twin with the conv's bias, and without one
+    against the twin without, on x contiguous and on x channels-last: at
+    most GDN_ULPS bf16 ulps apart on at most GDN_FLIP_SHARE of the
+    elements, finite where the twin is, and the result in x's layout.
+    Returns (max ulps, share of elements that differ, share of elements
+    where the kernel's two layouts differ)."""
+    import torch
+    from hesic_tpu_torch.layers import gdn
+    x, bias, beta, gamma = gdn_inputs(shape, seed)
+    last = torch.channels_last
+    worst, share, layouts = 0, 0.0, 0.0
+    for b in (bias, None):
+        got = {}
+        for fmt in (torch.contiguous_format, last):
+            xf = x.contiguous(memory_format=fmt)
+            out = gdn.gdn_cuda(xf, beta, gamma, inverse, b)
+            want = gdn.gdn_plain(xf, beta, gamma, inverse, None, b)
+            sync()
+            where = (f"gdn {label}{'' if b is not None else ', no bias'}"
+                     f"{', channels-last' if fmt is last else ''}")
+            if out.dtype != want.dtype or out.shape != want.shape:
+                raise AssertionError(f"{where}: {out.dtype} "
+                                     f"{tuple(out.shape)} against the "
+                                     f"twin's {want.dtype} "
+                                     f"{tuple(want.shape)}")
+            if not out.is_contiguous(memory_format=fmt):
+                raise AssertionError(f"{where}: the result left x's layout")
+            if not torch.equal(torch.isfinite(out), torch.isfinite(want)):
+                raise AssertionError(f"{where}: not finite where the twin "
+                                     f"is")
+            gap = bf16_ulps(out, want)
+            worst = max(worst, int(gap.max()))
+            share = max(share, float((gap > 0).float().mean()))
+            if worst > GDN_ULPS or share > GDN_FLIP_SHARE:
+                raise AssertionError(
+                    f"{where}: {worst} ulps on {100 * share:.3f}% of the "
+                    f"elements (limits {GDN_ULPS} on "
+                    f"{100 * GDN_FLIP_SHARE}%)")
+            got[fmt] = out
+        layouts = max(layouts, float(
+            (got[last] != got[torch.contiguous_format]).float().mean()))
+    return worst, share, layouts
+
+
+def phase_gdn(card: str) -> dict:
+    """GDN's kernel (codecs/csrc/gdn.cu) against its plain twin
+    (layers/gdn.py's gdn_plain) at the cells' calls (GDN_SIZES by N
+    channels at batch 64 and DSIC's 32, GDN and IGDN; 3 channels at
+    512x512) and at GDN_EXTRA, contiguous and channels-last, within
+    GDN_ULPS on GDN_FLIP_SHARE; every image of a batch bit-equal to the
+    same image alone and to a crop of it (a pixel's result depends on its
+    own column only), in both layouts; the conv-bias fold exact on the
+    card in both layouts (cuDNN's product plus the bias equal to the conv
+    with its bias, and conv_gdn equal to the kernel on the biased conv
+    output).  Times kernel (device time, graph_ms) and twin beside the
+    byte bound at batch 64, in both layouts.  Returns the sums over the
+    GDN calls of a HESIC batch round trip (GDN_CALLS), contiguous."""
+    import torch
+    from hesic_tpu_torch.layers import GDN, Conv, Deconv, conv_gdn, gdn
+
+    t0 = time.perf_counter()
+    last = torch.channels_last
+    worst, share, layouts = 0, 0.0, 0.0
+    cases = [((b, N, size, size), inverse)
+             for b in (BENCH_B, DS_BENCH_B) for size in GDN_SIZES
+             for inverse in (False, True)]
+    cases += [((BENCH_B, 3, HW_IMG, HW_IMG), inverse)
+              for inverse in (False, True)]
+    cases += [(shape, inverse) for shape in GDN_EXTRA
+              for inverse in (False, True)]
+    for i, (shape, inverse) in enumerate(cases):
+        label = f"{'IGDN' if inverse else 'GDN'} {shape}"
+        w, sh, lay = check_gdn(label, shape, inverse, 50 + i)
+        worst, share = max(worst, w), max(share, sh)
+        layouts = max(layouts, lay)
+        torch.cuda.empty_cache()
+    print(f"gdn: against its twin at the cells' calls and {GDN_EXTRA}, "
+          f"contiguous and channels-last: at most {worst} bf16 ulps, on at "
+          f"most {100 * share:.4f}% of the elements (limits {GDN_ULPS}, "
+          f"{100 * GDN_FLIP_SHARE}%); the kernel's two layouts differ on "
+          f"at most {100 * layouts:.4f}% of the elements")
+
+    for c in (N, 3):
+        for fmt in (torch.contiguous_format, last):
+            x, bias, beta, gamma = gdn_inputs((BENCH_B, c, 64, 64), 7)
+            x = x.contiguous(memory_format=fmt)
+            for inverse in (False, True):
+                whole = gdn.gdn_cuda(x, beta, gamma, inverse, bias)
+                crop = gdn.gdn_cuda(
+                    x[:, :, 8:40, 4:60].contiguous(memory_format=fmt), beta,
+                    gamma, inverse, bias)
+                if not torch.equal(crop, whole[:, :, 8:40, 4:60]):
+                    raise AssertionError(f"gdn C={c} {fmt}: a crop's result "
+                                         f"differs from the whole image's")
+                for i in (0, 37, BENCH_B - 1):
+                    alone = gdn.gdn_cuda(
+                        x[i:i + 1].contiguous(memory_format=fmt), beta,
+                        gamma, inverse, bias)
+                    if not torch.equal(alone, whole[i:i + 1]):
+                        raise AssertionError(
+                            f"gdn C={c} {fmt}: image {i} alone differs "
+                            f"from image {i} of a batch of {BENCH_B}")
+
+    g = torch.Generator().manual_seed(3)
+    bf16 = torch.bfloat16
+    for conv, hw_in in ((Conv(N, N, dtype=bf16, generator=g), 256),
+                        (Deconv(N, N, dtype=bf16, generator=g), 64)):
+        layer = GDN(N, inverse=isinstance(conv, Deconv), dtype=bf16)
+        with torch.no_grad():
+            conv.bias.normal_(0, 0.3, generator=g)
+            layer.gamma.add_(0.05)
+        conv.to(DEVICE).requires_grad_(False)
+        layer.to(DEVICE).requires_grad_(False)
+        for fmt in (torch.contiguous_format, last):
+            x = torch.randn((8, N, hw_in, hw_in), device=DEVICE).contiguous(
+                memory_format=fmt)
+            with torch.no_grad():
+                bare = conv(x, with_bias=False)
+                biased = conv(x)
+                if not torch.equal(biased, bare + conv.bias.to(bf16)[
+                        :, None, None]):
+                    raise AssertionError(f"{type(conv).__name__} {fmt}: "
+                                         f"cuDNN's output with its bias is "
+                                         f"not the bias-free output plus "
+                                         f"the bias")
+                folded = conv_gdn(conv, layer, x)
+                if not folded.is_contiguous(memory_format=fmt):
+                    raise AssertionError(f"{type(conv).__name__} + GDN "
+                                         f"{fmt}: the result left the "
+                                         f"conv's layout")
+                if not torch.equal(folded, layer(biased)):
+                    raise AssertionError(f"{type(conv).__name__} + GDN "
+                                         f"{fmt}: the folded bias differs "
+                                         f"from the kernel on the biased "
+                                         f"output")
+    print(f"gdn: every image of a batch of {BENCH_B} equals itself alone "
+          "and in a crop; cuDNN's conv and deconv with a bias equal the "
+          "bias-free output plus the bias, and the folded pair equals the "
+          "kernel on the biased output, bit for bit, contiguous and "
+          "channels-last")
+
+    timed = {}
+    for c, size in [(N, s) for s in GDN_SIZES] + [(3, HW_IMG)]:
+        shape = (BENCH_B, c, size, size)
+        x, bias, beta, gamma = gdn_inputs(shape, size + c)
+        xl = x.contiguous(memory_format=last)
+        for inverse in (False, True):
+            ms = graph_ms(lambda: gdn.gdn_cuda(x, beta, gamma, inverse,
+                                               bias), 20)
+            ms_last = graph_ms(lambda: gdn.gdn_cuda(xl, beta, gamma, inverse,
+                                                    bias), 20)
+            eager_ms = cuda_ms(lambda: gdn.gdn_cuda(x, beta, gamma, inverse,
+                                                    bias), 20)
+            plain_ms = cuda_ms(lambda: gdn.gdn_plain(x, beta, gamma,
+                                                     inverse, None, bias), 3)
+            bound = gdn_bound(shape)
+            timed[c, size, inverse] = (ms, plain_ms, bound)
+            print(f"kernel gdn {'IGDN' if inverse else 'GDN'} bf16 {shape} "
+                  f"[{card}]: {ms:.4f} ms kernel (device, a graph of 20; "
+                  f"channels-last {ms_last:.4f}; an eager loop "
+                  f"{eager_ms:.4f}), {plain_ms:.3f} ms plain, bound "
+                  f"{bound:.4f} ms by bytes, {100 * bound / ms:.1f}% of it "
+                  f"({100 * bound / ms_last:.1f}% channels-last)")
+        del x, xl
+        torch.cuda.empty_cache()
+    # a HESIC batch round trip: seven N-channel stacks, each a GDN or IGDN
+    # at every size (GDN and IGDN averaged), and the two 3-channel calls
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for (c, _, _), (ms, plain_ms, bound) in timed.items():
+        calls = 3.5 if c == N else 1.0
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+            total[k] += calls * v
+    print(f"kernel gdn, the {GDN_CALLS['HESIC']} calls of a HESIC round "
+          f"trip at batch {BENCH_B} [{card}]: {total['ms']:.4f} ms kernel, "
+          f"{total['plain_ms']:.3f} ms plain, bound {total['bound_ms']:.4f} "
+          f"ms; phase {time.perf_counter() - t0:.1f} s")
+    return {**total, "err": worst, "bound_by": "bytes"}
 
 
 def phase_dsic_path() -> tuple:
@@ -2106,8 +2384,12 @@ def phase_device_bench(model, card: str, label: str, eyes: int) -> dict:
         add_launches(launches, counts)
         want = {"pairs_rans_encode": eyes * AR_BENCH_BATCHES,
                 "ar_wavefront": 2 * eyes * AR_BENCH_BATCHES}
+        # HESIC+'s bf16 transforms take GDN's kernel; mbt2018's float32
+        # ones do not
+        want["gdn"] = (GDN_CALLS.get(type(model).__name__, 0)
+                       * AR_BENCH_BATCHES)
         for name, n in want.items():
-            if counts.get(name) != n:
+            if counts.get(name, 0) != n:
                 raise AssertionError(f"bench {label} [pipeline {mode}]: "
                                      f"{name} launched {counts.get(name)} "
                                      f"times for {AR_BENCH_BATCHES} "
@@ -2484,10 +2766,10 @@ def phase_hesic_plus_host(card: str, model, pairs, random_bpp: float):
 def no_kernel_launched(label: str) -> None:
     """Raise if any of the five coder kernels launched since
     build.launch_counts was cleared (DSIC's transforms launch the dense
-    warp's kernel on any codec)."""
+    warp's kernel on any codec, and bf16 transforms GDN's)."""
     from hesic_tpu_torch.codecs import build
     coders = {k: v for k, v in build.launch_counts.items()
-              if v and k != "dense_warp"}
+              if v and k not in ("dense_warp", "gdn")}
     if coders:
         raise AssertionError(f"{label} launched kernels {coders}")
 
@@ -3756,6 +4038,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     warp = phase_dense_warp(card)
     torch.cuda.empty_cache()
+    gdn_r = phase_gdn(card)
+    torch.cuda.empty_cache()
     mbt_launches, mbt_held, (mbt_model, mbt_x, mbt_bpp) = phase_mbt(card)
     torch.cuda.empty_cache()
     plus_cal_launches, plus_model = phase_hesic_plus_calibrated(
@@ -3823,7 +4107,8 @@ def main() -> int:
                               "hesic_tpu/models/pallas_wavefront.py:245",
                               ar_post["wavefront"]),
              "dense_warp": ("hesic_tpu_torch/codecs/csrc/dense_warp.cu",
-                            None, warp)}
+                            None, warp),
+             "gdn": ("hesic_tpu_torch/codecs/csrc/gdn.cu", None, gdn_r)}
     kernels = []
     for name, (src, replaces, r) in names.items():
         if launches.get(name, 0) <= 0:

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries (plain C ABI, ctypes).
 
-Six shared libraries, each built from this package's sources on first
+Seven shared libraries, each built from this package's sources on first
 use into ``hesic_tpu_torch/_build/`` (gitignored) and rebuilt when its
 source is newer than the library.  The host library's file name carries
 a hash of the target options ``-march=native`` resolves to, so a
@@ -22,7 +22,10 @@ loading instructions that CPU may lack:
   ``wavefront``  csrc/wavefront.cu, nvcc for sm_90a with ``-fmad=false``:
                  kernel 5 (the wavefront level scan);
   ``dense_warp`` csrc/dense_warp.cu, nvcc for sm_90a: DSIC's dense warp
-                 (no TPU kernel: the JAX package leaves it to XLA).
+                 (no TPU kernel: the JAX package leaves it to XLA);
+  ``gdn``        csrc/gdn.cu, nvcc for sm_90a: GDN and IGDN with the
+                 preceding conv's bias as one pass (no TPU kernel: GDN
+                 was left to XLA).
 
 Nothing is compiled at import.  ``build_all`` starts every compiler at
 once (one process per source) so a cold start pays the slowest build,
@@ -57,6 +60,7 @@ SOURCES = {
     "pairs_rans": "pairs_rans.cu",
     "wavefront": "wavefront.cu",
     "dense_warp": "dense_warp.cu",
+    "gdn": "gdn.cu",
 }
 
 _HOST_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",

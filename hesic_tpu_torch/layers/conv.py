@@ -36,9 +36,10 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
         _kaiming_(self.weight, in_ch * k * k, generator)
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
         d = self.dtype or x.dtype
-        return F.conv2d(x.to(d), self.weight.to(d), self.bias.to(d),
+        return F.conv2d(x.to(d), self.weight.to(d),
+                        self.bias.to(d) if with_bias else None,
                         stride=self.stride, padding=self.padding)
 
 
@@ -53,8 +54,9 @@ class Deconv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
         _kaiming_(self.weight, in_ch * k * k, generator)
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
         d = self.dtype or x.dtype
         return F.conv_transpose2d(
-            x.to(d), self.weight.to(d), self.bias.to(d), stride=self.stride,
+            x.to(d), self.weight.to(d),
+            self.bias.to(d) if with_bias else None, stride=self.stride,
             padding=self.padding, output_padding=self.output_padding)

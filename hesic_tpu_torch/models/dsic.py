@@ -49,7 +49,7 @@ from torch import nn
 
 from ..codecs import build
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
-from ..layers import GDN, Conv, Deconv
+from ..layers import GDN, Conv, Deconv, conv_gdn
 from ..layers.conv import _kaiming_
 from ..utils.tracing import count, span
 from .hesic import (Enhancement, GmmHyperY1, GmmHyperY2, HyperEncoder,
@@ -273,9 +273,9 @@ class Encoder1WithTaps(nn.Module):
         self.Conv_3 = Conv(n, m, **kw)
 
     def forward(self, x):
-        g1 = self.GDN_0(self.Conv_0(x))
-        g2 = self.GDN_1(self.Conv_1(g1))
-        g3 = self.GDN_2(self.Conv_2(g2))
+        g1 = conv_gdn(self.Conv_0, self.GDN_0, x)
+        g2 = conv_gdn(self.Conv_1, self.GDN_1, g1)
+        g3 = conv_gdn(self.Conv_2, self.GDN_2, g2)
         return self.Conv_3(g3).float(), g1, g2, g3
 
 
@@ -296,9 +296,9 @@ class Decoder1WithTaps(nn.Module):
         self.Deconv_3 = Deconv(n, 3, **kw)
 
     def forward(self, y_hat):
-        g4 = self.GDN_0(self.Deconv_0(y_hat))
-        g5 = self.GDN_1(self.Deconv_1(g4))
-        g6 = self.GDN_2(self.Deconv_2(g5))
+        g4 = conv_gdn(self.Deconv_0, self.GDN_0, y_hat)
+        g5 = conv_gdn(self.Deconv_1, self.GDN_1, g4)
+        g6 = conv_gdn(self.Deconv_2, self.GDN_2, g5)
         return self.Deconv_3(g6).float(), g4, g5, g6
 
 
@@ -468,26 +468,26 @@ class DSIC(nn.Module):
     def analysis2(self, x2, g1_1, g1_2, g1_3, contexts):
         """Right-eye encoder with cost-volume warps of the left encoder's
         taps -> y2 float32."""
-        a1 = self.pic2_g_a_gdn1(self.pic2_g_a_conv1(x2))
+        a1 = conv_gdn(self.pic2_g_a_conv1, self.pic2_g_a_gdn1, x2)
         warp1 = dense_warp(g1_1, self.cost_volume1(g1_1, a1, contexts[0]))
-        a2 = self.pic2_g_a_gdn2(self.pic2_g_a_conv2(
-            torch.cat([warp1, a1], dim=1)))
+        a2 = conv_gdn(self.pic2_g_a_conv2, self.pic2_g_a_gdn2,
+                      torch.cat([warp1, a1], dim=1))
         warp2 = dense_warp(g1_2, self.cost_volume2(g1_2, a2, contexts[1]))
-        a3 = self.pic2_g_a_gdn3(self.pic2_g_a_conv3(
-            torch.cat([warp2, a2], dim=1)))
+        a3 = conv_gdn(self.pic2_g_a_conv3, self.pic2_g_a_gdn3,
+                      torch.cat([warp2, a2], dim=1))
         warp3 = dense_warp(g1_3, self.cost_volume3(g1_3, a3, contexts[2]))
         return self.pic2_g_a_conv4(torch.cat([warp3, a3], dim=1)).float()
 
     def synthesis2(self, y2_hat, g1_4, g1_5, g1_6, contexts):
         """Right-eye decoder with cost-volume warps of the left decoder's
         taps -> x2_hat float32."""
-        s1 = self.pic2_g_s_gdn1(self.pic2_g_s_conv1(y2_hat))
+        s1 = conv_gdn(self.pic2_g_s_conv1, self.pic2_g_s_gdn1, y2_hat)
         warp4 = dense_warp(g1_4, self.cost_volume4(g1_4, s1, contexts[2]))
-        s2 = self.pic2_g_s_gdn2(self.pic2_g_s_conv2(
-            torch.cat([warp4, s1], dim=1)))
+        s2 = conv_gdn(self.pic2_g_s_conv2, self.pic2_g_s_gdn2,
+                      torch.cat([warp4, s1], dim=1))
         warp5 = dense_warp(g1_5, self.cost_volume5(g1_5, s2, contexts[1]))
-        s3 = self.pic2_g_s_gdn3(self.pic2_g_s_conv3(
-            torch.cat([warp5, s2], dim=1)))
+        s3 = conv_gdn(self.pic2_g_s_conv3, self.pic2_g_s_gdn3,
+                      torch.cat([warp5, s2], dim=1))
         warp6 = dense_warp(g1_6, self.cost_volume6(g1_6, s3, contexts[0]))
         return self.pic2_g_s_conv4(torch.cat([warp6, s3], dim=1)).float()
 

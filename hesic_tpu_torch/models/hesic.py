@@ -32,7 +32,7 @@ from torch import nn
 
 from ..entropy_models import EntropyBottleneck, GaussianMixtureConditional
 from ..geometry import warp_perspective_train
-from ..layers import GDN, Conv, Deconv, ResidualBlock, conv3x3
+from ..layers import GDN, Conv, Deconv, ResidualBlock, conv3x3, run_layers
 from ..ops import quantize
 
 
@@ -79,7 +79,9 @@ def upsample4(z: torch.Tensor) -> torch.Tensor:
 
 
 class _Stack(nn.Module):
-    """Named layers applied in declaration order."""
+    """Named layers applied in declaration order, each conv and the GDN
+    after it through ``run_layers`` (the conv's bias folded into the GDN's
+    kernel where it runs)."""
 
     def __init__(self, layers):
         super().__init__()
@@ -87,9 +89,7 @@ class _Stack(nn.Module):
             self.add_module(name, layer)
 
     def forward(self, x):
-        for layer in self.children():
-            x = layer(x)
-        return x
+        return run_layers(self.children(), x)
 
 
 def _enc_layers(in_ch, n, m, d, g, pre_fuse=False):
@@ -165,9 +165,7 @@ class StereoDecoder2(_Stack):
 
     def forward(self, y_hat, x1_hat_warp):
         *stack, fuse = self.children()
-        x = y_hat
-        for layer in stack:
-            x = layer(x)
+        x = run_layers(stack, y_hat)
         x = torch.cat([x, x1_hat_warp.to(x.dtype)], dim=1)
         return fuse(x).float()
 
